@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from `nbx_torch/csrc/` and drives the port's
-main path, the frame step, through its public entry points
-(`scene.make_state`, `sim.run`, `diagnostics.measure`):
+Builds the port's CUDA kernels from `nbx_torch/csrc/` and drives the port's
+two paths through their public entry points: the frame step
+(`scene.make_state`, `sim.run`, `diagnostics.measure`) and the at-scale
+granular step (`collisions_scaled.granular_full_kdk_scan`):
 
   0. device: name and power limit; TF32 off
-  1. build: nvcc the kernel (sm_90a), print ptxas' resource report
+  1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
   2. the gravity kernel against its plain PyTorch version on the card, at
      N = 4,096, rectangular and ragged shapes, mass-0 padding, and the
      N = 262,144 cold-collapse disk; times both at N = 262,144
@@ -17,6 +18,15 @@ main path, the frame step, through its public entry points
   4. full physics with the kernel: capacity 4,096, 50 frames; one more frame
      under torch.cuda.set_sync_debug_mode("error")
   5. gravity only at N = 262,144: 5 frames, momentum conservation
+  6. the collision kernel against its plain PyTorch version on the card: the
+     clustered 192-body scene, the same under budgets that overflow, and the
+     131,072-body cloud of the live server; times both at 131,072
+  7. the at-scale granular step at the live server's configuration (131,072
+     bodies, g = 40, B = 12, PM gravity on a 64^3 mesh): 50 frames of
+     granular_full_kdk_scan(n_steps=1, log_events=True), buckets re-sized
+     every 5 frames as the cloud collapses, one more under
+     set_sync_debug_mode("error"), then 3 steps at N = 4,096 held against the
+     same steps on the CPU
 
 Every phase raises on failure, so the script exits non-zero; it needs a CUDA
 device and has no CPU fallback. The line before the last is the kernels'
@@ -33,14 +43,17 @@ import time
 import numpy as np
 import torch
 
-from nbx_torch import diagnostics, scene, sim
+from nbx_torch import collisions_scaled, diagnostics, scene, sim
+from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
-from nbx_torch.config import SimConfig
-from nbx_torch.ops import _build
+from nbx_torch.config import SimConfig, body_radius
+from nbx_torch.ops import _build, collide
 from nbx_torch.ops.pairwise import pairwise_acc, pairwise_acc_reference
+from nbx_torch.ops.pm import isolated_green_hat, out_of_box_count
 
 KERNEL_TOL = 1e-5  # max|kernel - plain| / max|plain|, the bar of tests/test_tpu_only.py
 HEADLINE_N = 262_144
+SCALED_N = 131_072  # the at-scale live server's default body count
 
 
 def log(phase: int, msg: str) -> None:
@@ -75,10 +88,10 @@ def rand_bodies(n: int, seed: int, dev):
     return pos, mass
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, phase: int = 2) -> float:
     abs_err = float((got - want).abs().max())
-    rel = abs_err / float(want.abs().max())
-    log(2, f"{name}: max|kernel-plain|={abs_err:.3e} rel={rel:.3e} (tol {KERNEL_TOL:g})")
+    rel = abs_err / max(float(want.abs().max()), 1e-30)
+    log(phase, f"{name}: max|kernel-plain|={abs_err:.3e} rel={rel:.3e} (tol {KERNEL_TOL:g})")
     check(rel < KERNEL_TOL, f"{name}: relative error {rel} >= {KERNEL_TOL}")
     return abs_err
 
@@ -99,12 +112,15 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    lib = _build.build("pairwise_f32r")
-    _build.load("pairwise_f32r")
-    log(1, f"built {lib.relative_to(_build.BUILD_DIR.parent.parent)} in {time.perf_counter() - t0:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(1, f"ptxas: {line.strip()}")
+    libs = _build.build_all()
+    for name in _build.KERNELS:
+        _build.load(name)
+    log(1, f"built {len(libs)} kernels in parallel in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        log(1, f"{lib.relative_to(_build.BUILD_DIR.parent.parent)}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(1, f"ptxas: {line.strip()}")
 
 
 def phase_kernel(dev, n_big: int = HEADLINE_N) -> dict:
@@ -186,6 +202,7 @@ def phase_full_physics(dev, capacity: int = 4096, n_disk: int = 3000, frames: in
     torch.cuda.synchronize()
 
     pairwise_acc.launches = 0  # count the main path's launches from here
+    collide.collide_fused.launches = 0
     t0 = time.perf_counter()
     st, evs = sim.run(st, cfg, frames)
     torch.cuda.synchronize()
@@ -235,23 +252,211 @@ def phase_headline(dev, n: int = HEADLINE_N, frames: int = 5) -> float:
     return dt / n_eval * 1e3
 
 
+def clustered_scene(n: int = 192, seed: int = 7):
+    """The clustered scene of tests/test_collisions_scaled.py: a uniform
+    background and a dense clump, so windows land in both buckets."""
+    rng = np.random.default_rng(seed)
+    n_bg = n * 2 // 3
+    bg = rng.uniform(10, 90, (n_bg, 3))
+    clump = rng.normal(35.0, 2.5, (n - n_bg, 3))
+    pos = np.clip(np.concatenate([bg, clump]), 1.0, 99.0).astype(np.float32)
+    vel = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
+    mass = rng.uniform(2.0, 8.0, n).astype(np.float32)
+    return pos, vel, mass
+
+
+def collide_inputs(pos, vel, mass, radius_scale, dev):
+    t = [torch.tensor(x, device=dev) for x in (pos, vel, mass)]
+    radius = body_radius(t[2], torch.zeros_like(t[2], dtype=torch.int32),
+                         SimConfig().to(dev).materials) * radius_scale
+    return (*t, radius)
+
+
+def collide_both(inputs, box, g, b, buckets):
+    """The bucketed pass through the kernel and through its plain version."""
+    args = (*inputs, box, g, b, buckets, 0.2, 0.5)
+    return (collide._bucketed_pass(*args, collide.collide_fused),
+            collide._bucketed_pass(*args, collide.collide_fused_reference))
+
+
+def check_collide(name, got, want) -> float:
+    """Deltas to KERNEL_TOL of each field's largest magnitude; partners,
+    bounces, overflow and the cell-size flag exactly."""
+    err = 0.0
+    for i, field in enumerate(("dvel", "dpos", "dtemp")):
+        abs_err = compare(f"{name} {field}", got[i], want[i], phase=6)
+        err = max(err, abs_err)
+    check(torch.equal(got[3]["j"], want[3]["j"]), f"{name}: partners equal")
+    for i, field in ((4, "n_bounces"), (5, "n_overflow"), (6, "cell_too_small")):
+        check(int(got[i]) == int(want[i]), f"{name}: {field} equal ({int(got[i])} vs {int(want[i])})")
+    log(6, f"{name}: partners equal ({int((got[3]['j'] >= 0).sum())} bodies with one), "
+           f"n_bounces {int(got[4])}, n_overflow {int(got[5])}, cell_too_small {bool(got[6])}")
+    return err
+
+
+def phase_collide_kernel(dev, n_big: int = SCALED_N) -> dict:
+    pos, vel, mass = clustered_scene()
+    inputs = collide_inputs(pos, vel, mass, 2.0, dev)
+    buckets = collide.bucketed_layout_for(pos, BOX, 8, 4, split_quantile=0.6)
+    err = check_collide(f"clustered n=192 g=8 B=4 buckets={buckets}", *collide_both(inputs, BOX, 8, 4, buckets))
+    tiny = ((24, 64, 8), (128, 256, 8))
+    inputs = collide_inputs(pos, vel, mass, 4.0, dev)
+    got, want = collide_both(inputs, BOX, 8, 4, tiny)
+    err = max(err, check_collide(f"clustered n=192, radius x4, tiny budgets {tiny}", got, want))
+    check(int(got[5]) > 0, "the tiny budgets overflow")
+
+    box = BOX * (n_big / SCALED_N) ** (1.0 / 3.0)
+    pos, vel, mass = granular_cloud(n_big, seed=0, box=box)
+    buckets = collide.bucketed_layout_for(pos, box, 40, 12)
+    inputs = collide_inputs(pos, vel, mass, 1.0, dev)
+    got, want = collide_both(inputs, box, 40, 12, buckets)
+    err = max(err, check_collide(f"granular_cloud n={n_big} g=40 B=12 buckets={buckets}", got, want))
+    check(int(got[4]) > 0 and int(got[5]) == 0, "contacts found, nothing overflows")
+
+    # time the kernel launches of one pass (every bucket) against the plain
+    # version on the same layout
+    p, v, m, r = inputs
+    order, starts, cid = collide.cell_sort(p, box, 40)
+    feats = torch.cat([p, v, m[:, None], r[:, None]], dim=1)[order.long()]
+    windows, t_ok, _ = collide._bucket_windows(starts, cid, n_big, 40, 12, buckets)
+    out_d = torch.zeros((n_big, 8), device=dev)
+    out_j = torch.full((n_big,), -1, dtype=torch.int32, device=dev)
+
+    def run(fused):
+        for win, t_rows, s_capw in windows:
+            fused(feats, order, t_ok, win, out_d, out_j, 0.2, 0.5, t_rows, s_capw)
+
+    run(collide.collide_fused)  # warm-up
+    ms = cuda_ms(lambda: run(collide.collide_fused), 5)
+    plain_ms = cuda_ms(lambda: run(collide.collide_fused_reference), 1)
+    pass_ms = cuda_ms(lambda: collide.binned_collision_pass(
+        p, v, m, r, box, 40, band_cells=12, buckets=buckets), 5)
+    log(6, f"n={n_big}: kernel {ms:.3f} ms per pass ({len(windows)} launches), plain {plain_ms:.3f} ms, "
+           f"plain/kernel {plain_ms / ms:.2f}x; whole binned_collision_pass with the kernel {pass_ms:.3f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def server_setup(dev, n: int = SCALED_N, g: int = 40, b: int = 12, pm_grid: int = 64):
+    """BigLiveSim's configuration: the cloud scene, its box, the buckets and
+    the Green's-function transform, computed once per scene."""
+    box = BOX * (n / SCALED_N) ** (1.0 / 3.0)
+    pos, vel, mass = granular_cloud(n, seed=0, box=box)
+    st = collisions_scaled.make_granular_state(pos, vel, mass, seed=0, device=dev)
+    cfg = SimConfig(G=0.5, dt=0.016, sub_steps=1, merge_time=0.25, fracture_threshold=8.0).to(dev)
+    buckets = collide.bucketed_layout_for(pos, box, g, b)
+    kw = dict(n_cells=g, band_cells=b, buckets=buckets, force_impl="pm", pm_grid=pm_grid,
+              log_events=True, green_hat=isolated_green_hat(box, pm_grid, device=dev))
+    return st, cfg, box, kw
+
+
+# The cloud collapses under its own gravity, and buckets sized once per scene
+# (as BigLiveSim sizes them) overflow from about frame 22 on. Phase 7 re-sizes
+# them from the current positions every RESIZE_EVERY frames, host-side and
+# untimed, with BLOCK_SLACK headroom for the tail bucket's growth in between.
+RESIZE_EVERY = 5
+BLOCK_SLACK = 2.0
+
+
+def phase_scaled(dev, frames: int = 50) -> float:
+    st, cfg, box, kw = server_setup(dev)
+    n = st.pos.shape[0]
+    log(7, f"N={n} box={box:g} g={kw['n_cells']} B={kw['band_cells']} buckets={kw['buckets']} "
+           f"pm_grid={kw['pm_grid']}")
+    for _ in range(2):  # warm-up: allocator, cuFFT plans, kernel load
+        st, _, _ = collisions_scaled.granular_full_kdk_scan(st, cfg, box, 1, **kw)
+    torch.cuda.synchronize()
+
+    collide.collide_fused.launches = 0  # the at-scale path's launches from here
+    pairwise_acc.launches = 0
+    totals = []
+    want_launches = 0
+    dt = 0.0
+    for f0 in range(0, frames, RESIZE_EVERY):
+        kw["buckets"] = collide.bucketed_layout_for(st.pos.cpu().numpy(), box, kw["n_cells"],
+                                                    kw["band_cells"], block_slack=BLOCK_SLACK)
+        t0 = time.perf_counter()
+        for _ in range(min(RESIZE_EVERY, frames - f0)):  # one scan call per frame, as the server runs it
+            st, tot, ev = collisions_scaled.granular_full_kdk_scan(st, cfg, box, 1, **kw)
+            totals.append(tot)
+            want_launches += len(kw["buckets"])
+        torch.cuda.synchronize()
+        dt += time.perf_counter() - t0
+    check(collide.collide_fused.launches == want_launches,
+          f"kernel launched {collide.collide_fused.launches} times in {frames} steps, want {want_launches}")
+    check(all_finite(st.pos, st.vel, st.mass, st.temp, st.contact_t), "state finite")
+    agg = {k: torch.stack([t[k] for t in totals]) for k in totals[0]}
+    n_ovf = int(agg["n_overflow"].max())
+    small = bool(agg["cell_too_small"].any())
+    n_b = int(agg["n_bounces"].sum())
+    check(n_ovf == 0, f"n_overflow {n_ovf} == 0 in every step")
+    check(not small, "cell_too_small is False")
+    check(n_b > 0, "bounces fired")
+    log(7, f"N={n}, {frames} steps: {dt / frames * 1e3:.3f} ms/step; bounces {n_b} "
+           f"merges {int(agg['n_merges'].sum())} fractures {int(agg['n_fractures'].sum())} "
+           f"dropped {int(agg['n_dropped'].sum())} overflow {n_ovf}; "
+           f"alive {int((st.mass > 0).sum())}; out_of_box_count {int(out_of_box_count(st.pos, box))}; "
+           f"{collide.collide_fused.launches} kernel launches; last buckets {kw['buckets']}")
+
+    before = collide.collide_fused.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, _, _ = collisions_scaled.granular_full_kdk_scan(st, cfg, box, 1, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(collide.collide_fused.launches - before == len(kw["buckets"]),
+          "kernel ran in the sync-checked step")
+    check(pairwise_acc.launches == 0, "PM gravity: the direct-sum kernel did not run")
+    log(7, "one step ran under set_sync_debug_mode('error'): no host sync in granular_full_kdk_scan")
+    return dt / frames * 1e3
+
+
+SCALED_CPU_TOL = 1e-4  # card vs CPU: PM's atomic deposit and another FFT library
+
+
+def phase_scaled_vs_cpu(dev, n: int = 4096, steps: int = 3) -> None:
+    a, cfg, box, kw = server_setup(dev, n=n, g=16, b=4, pm_grid=32)
+    b, cpu_cfg, _, kw_cpu = server_setup("cpu", n=n, g=16, b=4, pm_grid=32)
+    check(kw["buckets"] == kw_cpu["buckets"], "same buckets")
+    gen = torch.Generator().manual_seed(3)
+    draws = [draw_fracture_uniforms(cpu_cfg, gen, "cpu") for _ in range(steps)]
+    a, ta, ea = collisions_scaled.granular_full_kdk_scan(a, cfg, box, steps, draws=[d.to(dev) for d in draws], **kw)
+    b, tb, eb = collisions_scaled.granular_full_kdk_scan(b, cpu_cfg, box, steps, draws=draws, **kw_cpu)
+    for k in ta:
+        check(torch.equal(ta[k].cpu(), tb[k]), f"total {k} equal on card and CPU ({ta[k].tolist()} vs {tb[k].tolist()})")
+    for f in ("n_merges", "n_fractures", "n_bounces", "n_overflow", "n_dropped", "merge_mask",
+              "fracture_mask", "spawn_mask"):
+        check(torch.equal(getattr(ea, f).cpu(), getattr(eb, f)), f"events {f} equal on card and CPU")
+    check(torch.equal(a.partner.cpu(), b.partner) and torch.equal(a.mat.cpu(), b.mat),
+          "partners and materials equal on card and CPU")
+    for f in ("pos", "vel", "mass", "temp", "contact_t"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        err = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+        log(7, f"N={n}, {steps} steps card vs CPU: {f} max rel err {err:.3e} (tol {SCALED_CPU_TOL:g})")
+        check(err < SCALED_CPU_TOL, f"{f} card vs CPU after {steps} steps")
+    log(7, f"N={n}: totals {{{', '.join(f'{k}: {int(v)}' for k, v in tb.items())}}} equal on card and CPU")
+
+
 def main() -> None:
     name = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     k1 = phase_kernel(dev)
     phase_reference(dev)
-    phase_full_physics(dev)  # resets the launch count: the main path starts here
+    phase_full_physics(dev)  # resets the launch count: the frame step's path starts here
     phase_headline(dev)
-    record = dict(
-        name="pairwise_f32r",
-        route="cuda",
-        source="nbx_torch/csrc/pairwise_f32r.cu",
-        replaces="nbx/ops/pairwise.py:168",
-        launches=pairwise_acc.launches,
-        **k1,
-    )
-    print(json.dumps({"kernels": [record]}), flush=True)
+    k1_launches = pairwise_acc.launches
+    k2 = phase_collide_kernel(dev)
+    phase_scaled(dev)  # resets the launch counts: the at-scale path starts here
+    k2_launches = collide.collide_fused.launches
+    phase_scaled_vs_cpu(dev)
+    records = [
+        dict(name="pairwise_f32r", route="cuda", source="nbx_torch/csrc/pairwise_f32r.cu",
+             replaces="nbx/ops/pairwise.py:168", launches=k1_launches, **k1),
+        dict(name="collide_fused", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
+             replaces="nbx/ops/collide.py:236", launches=k2_launches, **k2),
+    ]
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -2,10 +2,12 @@
 
 A port of the JAX package `nbx`, module for module and name for name, held
 against it by the tests in `tests/test_torch_*.py`. The frame step
-(`sim.step`/`sim.run`) runs in eager PyTorch; the direct-sum gravity above
-`sim._DENSE_MAX` bodies runs in the hand-written CUDA kernel of
-`nbx_torch/csrc/pairwise_f32r.cu`, built with nvcc at first use
-(`nbx_torch/ops/_build.py`).
+(`sim.step`/`sim.run`) and the at-scale granular step
+(`collisions_scaled.granular_full_kdk_scan`) run in eager PyTorch around two
+hand-written CUDA kernels, built with nvcc at first use
+(`nbx_torch/ops/_build.py`): the direct-sum gravity above `sim._DENSE_MAX`
+bodies (`csrc/pairwise_f32r.cu`) and the fused collision pass
+(`csrc/collide_fused.cu`).
 
 This package imports neither `jax` nor `nbx`.
 """

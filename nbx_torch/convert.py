@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from nbx_torch.collisions_scaled import GranularState
 from nbx_torch.config import SimConfig
 from nbx_torch.state import SimState, make_generator
 
@@ -66,3 +67,32 @@ def state_to_arrays(state: SimState) -> dict:
     if state.contact is not None:
         out["contact"] = state.contact.cpu().numpy()
     return out
+
+
+# The GranularState leaves that carry over, with their dtypes.
+GRANULAR_FIELDS = {
+    "pos": torch.float32,
+    "vel": torch.float32,
+    "mass": torch.float32,
+    "mat": torch.int32,
+    "temp": torch.float32,
+    "partner": torch.int32,
+    "contact_t": torch.float32,
+}
+
+
+def granular_state_from_arrays(arrays: dict, device="cpu", seed: int = 0) -> GranularState:
+    """A GranularState from the JAX GranularState's leaves as numpy arrays
+    (all of GRANULAR_FIELDS). As for state_from_arrays, the JAX key does not
+    carry over: the generator is seeded with `seed`, and the JAX package's
+    fracture draws go in through `draws=`."""
+    kw = {
+        name: torch.as_tensor(np.array(arrays[name]), dtype=dtype).to(device)
+        for name, dtype in GRANULAR_FIELDS.items()
+    }
+    return GranularState(**kw, generator=make_generator(device, seed))
+
+
+def granular_state_to_arrays(state: GranularState) -> dict:
+    """The GranularState's leaves (all but the generator) as numpy arrays."""
+    return {name: getattr(state, name).cpu().numpy() for name in GRANULAR_FIELDS}

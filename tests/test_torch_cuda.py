@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on the card: held against its plain PyTorch version,
-and the frame step on the card against the same step on the CPU.
+"""The port's CUDA kernels on the card: each held against its plain PyTorch
+version, and the frame step and the at-scale granular step on the card
+against the same steps on the CPU.
 
 Marked `cuda`: every test skips where torch sees no CUDA device. On a
 machine with a card (nvcc on PATH or under CUDA_HOME; no JAX needed):
@@ -11,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from nbx_torch import scene, sim
+from nbx_torch import collisions_scaled, scene, sim
+from nbx_torch.bench.granular import granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
-from nbx_torch.config import SimConfig
-from nbx_torch.ops import pairwise
+from nbx_torch.config import SimConfig, body_radius
+from nbx_torch.ops import collide, pairwise
+from nbx_torch.ops.pm import isolated_green_hat
 
 pytestmark = pytest.mark.cuda
 
@@ -109,6 +112,127 @@ def test_step_makes_no_host_sync(dev):
     torch.cuda.set_sync_debug_mode("error")
     try:
         st, _ = sim.step(st, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(st.pos).all()
+
+
+BOX = 100.0
+
+
+def _clustered(seed, dead=False):
+    """The clustered scene of tests/test_collisions_scaled.py."""
+    rng = np.random.default_rng(seed)
+    n, n_bg = 192, 128
+    p = np.concatenate([rng.uniform(10, 90, (n_bg, 3)), rng.normal(35.0, 2.5, (n - n_bg, 3))])
+    pos = np.clip(p, 1.0, 99.0).astype(np.float32)
+    vel = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
+    mass = rng.uniform(2.0, 8.0, n).astype(np.float32)
+    if dead:
+        mass[::5] = 0.0
+    return pos, vel, mass
+
+
+def _collide_inputs(pos, vel, mass, scale, dev):
+    t = [torch.tensor(x, device=dev) for x in (pos, vel, mass)]
+    mat = torch.zeros(len(mass), dtype=torch.int32, device=dev)
+    radius = body_radius(torch.tensor(np.where(mass > 0, mass, 5.0), device=dev), mat,
+                         SimConfig().to(dev).materials) * scale
+    return (*t, radius)
+
+
+@pytest.mark.parametrize("case", ["two_buckets", "tiny_budgets", "dead_bodies", "cloud_16k",
+                                  "dense_clump"])
+def test_collide_kernel_matches_plain(dev, case):
+    box, g, b = BOX, 8, 4
+    if case == "cloud_16k":
+        box, g, b = 50.0, 40, 12
+        pos, vel, mass = granular_cloud(16384, seed=1, box=box)
+        scale = 1.0
+    elif case == "dense_clump":  # a window of 391 targets: more than one block's 256 threads
+        rng = np.random.default_rng(4)
+        pos = np.clip(rng.normal(35.0, 3.0, (640, 3)), 1, 99).astype(np.float32)
+        vel = rng.normal(0, 1.0, (640, 3)).astype(np.float32)
+        mass = rng.uniform(2.0, 8.0, 640).astype(np.float32)
+        scale = 1.0
+    else:
+        pos, vel, mass = _clustered(8 if case == "tiny_budgets" else 7, dead=case == "dead_bodies")
+        scale = 4.0 if case == "tiny_budgets" else 2.0
+    if case == "tiny_budgets":
+        buckets = ((24, 64, 8), (128, 256, 8))
+    elif case == "dense_clump":
+        buckets = ((64, 128, 16), (400, 480, 8))
+    else:
+        buckets = collide.bucketed_layout_for(pos, box, g, b, split_quantile=0.6)
+    inputs = _collide_inputs(pos, vel, mass, scale, dev)
+    before = collide.collide_fused.launches
+    got = collide._bucketed_pass(*inputs, box, g, b, buckets, 0.2, 0.5, collide.collide_fused)
+    assert collide.collide_fused.launches == before + len(buckets)
+    want = collide._bucketed_pass(*inputs, box, g, b, buckets, 0.2, 0.5,
+                                  collide.collide_fused_reference)
+    for i in range(3):
+        assert _rel_err(got[i], want[i]) < TOL
+    assert torch.equal(got[3]["j"], want[3]["j"])
+    for i in (4, 5, 6):
+        assert int(got[i]) == int(want[i])
+    assert int(got[4]) > 0
+    assert (int(got[5]) > 0) == (case == "tiny_budgets")
+
+
+def test_collide_wrapper_rejects_bad_inputs(dev):
+    n = 64
+    feats = torch.zeros((n, 8), device=dev)
+    order = torch.arange(n, dtype=torch.int32, device=dev)
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    win = torch.zeros((4, collide.WIN_INTS), dtype=torch.int32, device=dev)
+    out_d = torch.zeros((n, 8), device=dev)
+    out_j = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    args = [feats, order, ok, win, out_d, out_j, 0.2, 0.5, 8, 8]
+    for i, bad in ((0, feats.double()), (1, order.long()), (3, win[:, :10]), (4, out_d.cpu()),
+                   (0, torch.zeros((n, 16), device=dev)[:, ::2])):
+        with pytest.raises((TypeError, ValueError)):
+            collide.collide_fused(*args[:i], bad, *args[i + 1:])
+
+
+def _server_setup(dev, n=4096, g=16, b=4, pm_grid=32):
+    box = BOX * (n / 131072.0) ** (1.0 / 3.0)
+    pos, vel, mass = granular_cloud(n, seed=0, box=box)
+    st = collisions_scaled.make_granular_state(pos, vel, mass, seed=0, device=dev)
+    cfg = SimConfig(G=0.5, dt=0.016, sub_steps=1, merge_time=0.25, fracture_threshold=8.0).to(dev)
+    kw = dict(n_cells=g, band_cells=b, buckets=collide.bucketed_layout_for(pos, box, g, b),
+              force_impl="pm", pm_grid=pm_grid, log_events=True,
+              green_hat=isolated_green_hat(box, pm_grid, device=dev))
+    return st, cfg, box, kw
+
+
+def test_scaled_steps_on_card_match_cpu(dev):
+    """The at-scale step (PM gravity, bucketed kernel) on the card and on the
+    CPU with the same draws: counters and partners exactly; floats to 1e-4
+    (PM's atomic deposit sums in another order; another FFT library)."""
+    a, cfg, box, kw = _server_setup(dev)
+    b, cfg_cpu, _, kw_cpu = _server_setup("cpu")
+    gen = torch.Generator().manual_seed(0)
+    draws = [draw_fracture_uniforms(cfg_cpu, gen, "cpu") for _ in range(3)]
+    before = collide.collide_fused.launches
+    a, ta, _ = collisions_scaled.granular_full_kdk_scan(a, cfg, box, 3, draws=[d.to(dev) for d in draws], **kw)
+    assert collide.collide_fused.launches == before + 3 * len(kw["buckets"])
+    b, tb, _ = collisions_scaled.granular_full_kdk_scan(b, cfg_cpu, box, 3, draws=draws, **kw_cpu)
+    for k in ta:
+        assert torch.equal(ta[k].cpu(), tb[k]), k
+    assert int(tb["n_bounces"]) > 0
+    assert torch.equal(a.partner.cpu(), b.partner)
+    for f in ("pos", "vel", "mass", "temp", "contact_t"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()), f
+
+
+def test_scaled_step_makes_no_host_sync(dev):
+    st, cfg, box, kw = _server_setup(dev)
+    st, _, _ = collisions_scaled.granular_full_kdk_scan(st, cfg, box, 1, **kw)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, _, _ = collisions_scaled.granular_full_kdk_scan(st, cfg, box, 1, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(st.pos).all()

@@ -57,6 +57,63 @@ def jax_draws(key, cfg) -> Draws:
     return Draws(*(torch.from_numpy(np.array(a)) for a in arrays))
 
 
+def jax_scan_draws(key, cfg, n_steps: int) -> list:
+    """The fracture uniforms of each step of
+    `nbx.collisions_scaled.granular_full_kdk_scan` from a state whose key is
+    `key`: step t draws from key_t (`resolve_collisions_scaled` splits
+    key_t -> key_{t+1}, sub; sub feeds the fragments)."""
+    out = []
+    for _ in range(n_steps):
+        out.append(jax_draws(key, cfg))
+        key, _ = jax.random.split(key)
+    return out
+
+
+GRANULAR_EXACT = ("mat", "partner")
+GRANULAR_FLOATS = ("pos", "vel", "mass", "temp", "contact_t")
+SCALED_FLOATS = EVENT_FLOATS
+
+
+def jax_granular_arrays(jst) -> dict:
+    """The JAX GranularState's leaves (all but the key) as numpy arrays."""
+    return {name: np.asarray(getattr(jst, name)) for name in convert.GRANULAR_FIELDS}
+
+
+def port_granular_state(jst, seed: int = 0):
+    """The port's GranularState holding the same values as the JAX state."""
+    return convert.granular_state_from_arrays(jax_granular_arrays(jst), "cpu", seed)
+
+
+def assert_granular_matches(st, jst, tol: float = FLOAT_TOL) -> None:
+    """Materials and partner records exactly; floats to `tol` of the largest
+    magnitude of each field."""
+    got = convert.granular_state_to_arrays(st)
+    want = jax_granular_arrays(jst)
+    for name in GRANULAR_EXACT:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    for name in GRANULAR_FLOATS:
+        assert_close(got[name], want[name], name, tol)
+
+
+def assert_scaled_events_match(ev, jev, tol: float = FLOAT_TOL) -> None:
+    """ScaledEvents (one step's, or a stack): counters, flags and masks
+    exactly; positions, masses, energies and temperatures to `tol`."""
+    for f in dataclasses.fields(ev):
+        got = getattr(ev, f.name).cpu().numpy()
+        want = np.asarray(getattr(jev, f.name))
+        if f.name in SCALED_FLOATS:
+            assert_close(got, want, f.name, tol)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=f.name)
+
+
+def assert_totals_match(totals, jtotals) -> None:
+    """The scan's totals (counters, max, flags) exactly."""
+    assert set(totals) == set(jtotals)
+    for k in totals:
+        np.testing.assert_array_equal(totals[k].cpu().numpy(), np.asarray(jtotals[k]), err_msg=k)
+
+
 def assert_close(got, want, what: str, tol: float = FLOAT_TOL) -> None:
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, (what, got.shape, want.shape)
