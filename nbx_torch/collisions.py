@@ -25,7 +25,7 @@ import dataclasses
 import torch
 
 from nbx_torch import thermal
-from nbx_torch.config import SimConfig, f32, inverse_mass
+from nbx_torch.config import CUDA, SimConfig, f32, inverse_mass
 from nbx_torch.state import SimState, add_bodies_batch
 
 RESTITUTION = 0.2
@@ -55,7 +55,7 @@ class Events:
     n_dropped: torch.Tensor  # [] i32  event candidates lost to buffer caps
 
 
-def empty_events(cfg: SimConfig, device="cpu") -> Events:
+def empty_events(cfg: SimConfig, device=CUDA) -> Events:
     m, f, k = cfg.max_merges, cfg.max_fractures, cfg.max_fragments
 
     def z(shape, dtype=torch.float32):

@@ -33,7 +33,7 @@ import torch
 
 from nbx_torch import thermal
 from nbx_torch.collisions import Draws, _make_fragments, draw_fracture_uniforms
-from nbx_torch.config import SimConfig, body_radius, f32
+from nbx_torch.config import CUDA, SimConfig, body_radius, f32
 from nbx_torch.ops.collide import binned_collision_pass
 from nbx_torch.ops.p3m import take_rows
 from nbx_torch.sim import _stack, gravity, substep_size
@@ -69,9 +69,10 @@ def make_granular_state(pos, vel, mass, mat=None, temp=None, seed: int = 0,
     partner and timer per body. timer_slots=K > 1: a K-slot contact table
     per body, whose unobserved entries survive one grace step, so a body
     alternating between M <= K deepest partners still accrues their timers
-    (see the JAX package's make_granular_state)."""
+    (see the JAX package's make_granular_state). The state goes to `device`;
+    by default, to the device of a tensor `pos`, else to the card."""
     if device is None:
-        device = pos.device if isinstance(pos, torch.Tensor) else "cpu"
+        device = pos.device if isinstance(pos, torch.Tensor) else CUDA
 
     def t(x, dtype):
         return torch.as_tensor(x, dtype=dtype).to(device)
@@ -306,6 +307,13 @@ def resolve_collisions_scaled(
     return new_state, events
 
 
+# granular_full_kdk_scan's P3M parameters (its `p3m` keys) and their defaults,
+# and the keys of a p3m_tune_for result that it does not read
+P3M_SCAN_DEFAULTS = dict(n_cells=16, max_per_cell=32, max_residual=8192, pp_buckets=None,
+                         affected_cap=256)
+P3M_CENSUS_KEYS = ("g", "a_over_h", "n_residual", "n_affected", "pair_lanes")
+
+
 def granular_full_kdk_scan(
     state: GranularState,
     cfg: SimConfig,
@@ -322,6 +330,7 @@ def granular_full_kdk_scan(
     log_events: bool = False,
     green_hat: Optional[torch.Tensor] = None,
     draws: Optional[list] = None,
+    p3m: Optional[dict] = None,
 ):
     """Full-physics granular loop at scale: n_steps KDK substeps of
     h = dt / sub_steps with gravity, the fused collision pass with
@@ -335,40 +344,69 @@ def granular_full_kdk_scan(
     force_impl: `sim.gravity`'s auto | dense | blocked | pairwise, "pm" (the
     particle-mesh solver on a pm_grid^3 isolated mesh over [0, box)^3; pass
     green_hat = isolated_green_hat(box, pm_grid) to compute it once per
-    scene) or "zero" (no gravity). draws: None, or one `Draws` per step."""
+    scene), "p3m" (`ops.p3m.p3m_acceleration` with the kernels K4 and K5 on
+    the pm_grid^3 mesh; pass the smoothed green_hat =
+    isolated_green_hat(box, pm_grid, smoothing_length(box, n_cells),
+    smoothed=True) to build it once per scene; totals["n_uncorrected"] is
+    the most bodies any force evaluation left without their short-range
+    term) or "zero" (no gravity).
+
+    p3m: P3M's parameters, as `ops.p3m.p3m_tune_for` returns them or with
+    the same keys, each passed on to p3m_acceleration: n_cells (the JAX
+    scan's p3m_cells, default 16), max_per_cell (p3m_k, 32), max_residual
+    (p3m_max_residual, 8192), pp_buckets (p3m_pp_buckets, None) and
+    affected_cap (256; the JAX scan has no such parameter and always uses
+    256). The tune's other keys are not read: the mesh is pm_grid.
+    draws: None, or one `Draws` per step."""
     dev = state.device
-    if force_impl == "p3m":
-        raise NotImplementedError(
-            "force_impl='p3m' is not ported yet (ROADMAP.md Queue 1, slice 3: P3M)")
     if force_impl == "pm":
         from nbx_torch.ops.pm import isolated_green_hat, pm_acceleration
 
         if green_hat is None:
             green_hat = isolated_green_hat(box_size, pm_grid, device=dev)
+    elif force_impl == "p3m":
+        from nbx_torch.ops.p3m import p3m_acceleration, smoothing_length
+        from nbx_torch.ops.pm import isolated_green_hat
+
+        unknown = set(p3m or {}) - set(P3M_SCAN_DEFAULTS) - set(P3M_CENSUS_KEYS)
+        if unknown:
+            raise ValueError(f"unknown P3M parameters {sorted(unknown)}")
+        p3m_kw = dict(P3M_SCAN_DEFAULTS)
+        p3m_kw.update((k, v) for k, v in (p3m or {}).items() if k in P3M_SCAN_DEFAULTS)
+        if green_hat is None:
+            green_hat = isolated_green_hat(box_size, pm_grid, smoothing_length(box_size, p3m_kw["n_cells"]),
+                                           smoothed=True, device=dev)
     if draws is not None and len(draws) != n_steps:
         raise ValueError(f"draws holds {len(draws)} entries for {n_steps} steps")
 
     h = substep_size(cfg)
     half = f32(0.5 * h)
 
+    z = torch.zeros((), dtype=torch.int32, device=dev)
+
     def force(pos, mass):
+        """(acc, n_uncorrected): P3M's count of bodies without their
+        short-range term, 0 for every other force."""
         if force_impl == "zero":
-            return torch.zeros_like(pos)
+            return torch.zeros_like(pos), z
         if force_impl == "pm":
             return pm_acceleration(pos, mass, cfg.G, box_size, g=pm_grid, isolated=True,
-                                   green_hat=green_hat)
-        return gravity(pos, mass, cfg.G, cfg.softening, force_impl)
+                                   green_hat=green_hat), z
+        if force_impl == "p3m":
+            return p3m_acceleration(pos, mass, cfg.G, box_size, g=pm_grid, eps=cfg.softening,
+                                    pp_impl="kernel", green_hat=green_hat, **p3m_kw)
+        return gravity(pos, mass, cfg.G, cfg.softening, force_impl), z
 
-    z = torch.zeros((), dtype=torch.int32, device=dev)
     nb = nm = nf = ovf = drop = z
     small = torch.zeros((), dtype=torch.bool, device=dev)
-    acc = force(state.pos, state.mass)
+    acc, unc = force(state.pos, state.mass)
     st = state
     evs = []
     for t in range(n_steps):
         vel = st.vel + acc * half
         pos = st.pos + vel * h
-        acc = force(pos, st.mass)
+        acc, n_unc = force(pos, st.mass)
+        unc = torch.maximum(unc, n_unc)
         st = st.replace(pos=pos, vel=vel)
         st, ev = resolve_collisions_scaled(
             st, cfg, h, box_size, n_cells, max_per_cell, band_cells, packed_caps,
@@ -385,7 +423,7 @@ def granular_full_kdk_scan(
             evs.append(dataclasses.replace(
                 ev, touched=torch.zeros((0,), dtype=torch.bool, device=dev)))
     totals = dict(n_bounces=nb, n_merges=nm, n_fractures=nf, n_overflow=ovf,
-                  n_dropped=drop, cell_too_small=small, n_uncorrected=z)
+                  n_dropped=drop, cell_too_small=small, n_uncorrected=unc)
     if log_events:
         return st, totals, _stack(evs)
     return st, totals

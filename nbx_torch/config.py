@@ -12,6 +12,13 @@ scalar means no comparison or branch on it ever waits for the device.
 
 The JAX package computes every config scalar in float32; `f32` rounds a
 Python expression of them the same way where the port needs it.
+
+Devices: the port's entry points that make tensors from host data default
+to the card (`CUDA`) and raise where there is none; the caller asks for the
+CPU with `device="cpu"`. A config is built for a device: its materials table
+is made on the CPU, `SimConfig.to(device)` places it on the device of the
+states it serves, and `body_radius` (the table's one reader on the step)
+raises when the table and the masses lie on different devices.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ ICE: int = 2
 MATERIAL_NAMES: tuple[str, ...] = ("rock", "metal", "ice")
 
 
+CUDA = torch.device("cuda")  # the default device of the port's entry points
+
+
 def f32(x) -> float:
     """`x` rounded to float32, as a Python float."""
     return float(np.float32(x))
@@ -37,8 +47,7 @@ def f32(x) -> float:
 @dataclasses.dataclass(frozen=True)
 class Materials:
     """Material property table: density drives the radius law
-    r = (3m / 4 pi rho)^(1/3); color1/color2 feed the renderer's ramp.
-    The tensors live on the device the simulation runs on."""
+    r = (3m / 4 pi rho)^(1/3); color1/color2 feed the renderer's ramp."""
 
     density: torch.Tensor  # [M] f32
     color1: torch.Tensor  # [M, 3] f32
@@ -49,7 +58,8 @@ class Materials:
 
 
 def default_materials(device="cpu") -> Materials:
-    """rock: density 1.0; metal: 3.0; ice: 0.5."""
+    """rock: density 1.0; metal: 3.0; ice: 0.5. Made on the CPU by default:
+    `SimConfig.to(device)` places the config's table."""
     f = dict(dtype=torch.float32, device=device)
     return Materials(
         density=torch.tensor([1.0, 3.0, 0.5], **f),
@@ -61,7 +71,8 @@ def default_materials(device="cpu") -> Materials:
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """All simulation parameters; see nbx.config.SimConfig for each field's
-    meaning. `materials` is created on the CPU; `to(device)` moves it."""
+    meaning. `materials` is created on the CPU; `to(device)` places it on
+    the device of the states the config serves (module docstring)."""
 
     G: float = 0.5
     softening: float = 0.5
@@ -101,7 +112,11 @@ def body_radius(mass: torch.Tensor, mat: torch.Tensor, materials: Materials) -> 
 
     torch has no cbrt, so this takes pow(x, 1/3) of the non-negative
     argument. It differs from `jnp.cbrt` by an ulp or so; the parity tests
-    hold radii and everything downstream to float32 tolerances."""
+    hold radii and everything downstream to float32 tolerances. The table
+    must lie on the device of `mass` (`SimConfig.to`)."""
+    if materials.density.device != mass.device:
+        raise ValueError(f"the materials table is on {materials.density.device}, the masses on "
+                         f"{mass.device}: build the config for the state's device (SimConfig.to)")
     rho = materials.density[mat]
     return torch.pow(3.0 * mass / (4.0 * math.pi * rho), 1.0 / 3.0)
 

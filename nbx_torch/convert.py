@@ -1,6 +1,7 @@
 """Carry configurations and states between the JAX package and this port as
 plain Python scalars and numpy arrays. Nothing here imports jax; the caller
-turns JAX arrays into numpy (`np.asarray`) on its side."""
+turns JAX arrays into numpy (`np.asarray`) on its side. What is built here
+goes to the card unless the caller asks for the CPU (`device="cpu"`)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import numpy as np
 import torch
 
 from nbx_torch.collisions_scaled import GranularState
-from nbx_torch.config import SimConfig
+from nbx_torch.config import CUDA, SimConfig
 from nbx_torch.state import SimState, make_generator
 
 # The SimState leaves that carry over, with their dtypes.
@@ -28,7 +29,7 @@ STATE_FIELDS = {
 }
 
 
-def config_from_fields(fields: dict, device="cpu") -> SimConfig:
+def config_from_fields(fields: dict, device=CUDA) -> SimConfig:
     """A SimConfig from a dict of its scalar fields (for example
     `{f.name: getattr(jax_cfg, f.name) for f in dataclasses.fields(jax_cfg)}`).
     A `materials` entry is ignored: the port's default table, which equals
@@ -41,7 +42,7 @@ def config_from_fields(fields: dict, device="cpu") -> SimConfig:
 
 
 def state_from_arrays(
-    arrays: dict, cfg: SimConfig, device="cpu", seed: int = 0
+    arrays: dict, cfg: SimConfig, device=CUDA, seed: int = 0
 ) -> SimState:
     """A SimState from the JAX SimState's leaves as numpy arrays (pos, vel,
     acc, mass, temp, mat, alive, seq, next_seq, step_count, and contact when
@@ -81,7 +82,7 @@ GRANULAR_FIELDS = {
 }
 
 
-def granular_state_from_arrays(arrays: dict, device="cpu", seed: int = 0) -> GranularState:
+def granular_state_from_arrays(arrays: dict, device=CUDA, seed: int = 0) -> GranularState:
     """A GranularState from the JAX GranularState's leaves as numpy arrays
     (all of GRANULAR_FIELDS). As for state_from_arrays, the JAX key does not
     carry over: the generator is seeded with `seed`, and the JAX package's

@@ -2,8 +2,8 @@
 
 Each `nbx_torch/csrc/<name>.cu` exposes a plain C entry point. It is compiled
 with nvcc into `nbx_torch/_build/lib<name>-<hash>.so` (the directory is in
-.gitignore) and loaded with ctypes; the hash covers the source and the flags,
-so an edited source is rebuilt. A failed build raises with nvcc's output.
+.gitignore) and loaded with ctypes; the hash covers the source, the shared
+headers (csrc/*.cuh) and the flags, so an edited source or header is rebuilt. A failed build raises with nvcc's output.
 `build_all` compiles every kernel of `KERNELS` at once, one nvcc each.
 
 No PyTorch headers are included, so a build takes seconds, not the minutes of
@@ -26,7 +26,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # Every kernel of the port, by source name (csrc/<name>.cu).
-KERNELS = ("pairwise_f32r", "collide_fused")
+KERNELS = ("pairwise_f32r", "collide_fused", "pp_short", "pp_react")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,9 +46,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where csrc/<name>.cu's library goes, by the hash of source and flags."""
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where csrc/<name>.cu's library goes, by the hash of the source, every
+    shared header and the flags."""
+    digest = hashlib.sha256()
+    for path in (SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

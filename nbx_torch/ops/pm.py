@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from nbx_torch.config import f32
+from nbx_torch.config import CUDA, f32
 
 _F32 = torch.float32
 
@@ -135,7 +135,7 @@ def _cic_window(g: int, device) -> torch.Tensor:
 
 
 def isolated_green_hat(box_size: float, g: int, smooth_a: float = 0.0,
-                       smoothed: bool = False, device="cpu") -> torch.Tensor:
+                       smoothed: bool = False, device=CUDA) -> torch.Tensor:
     """rfftn of the free-space Green's function on the 2g-padded Hockney grid
     ([2g, 2g, g + 1] complex64). It depends on (box, g) only, so a frame loop
     computes it once and passes it to pm_acceleration.

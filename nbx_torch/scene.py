@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nbx_torch.config import ICE, METAL, ROCK, SimConfig
+from nbx_torch.config import CUDA, ICE, METAL, ROCK, SimConfig
 from nbx_torch.state import SimState, empty_state
 
 Scene = dict
@@ -31,9 +31,10 @@ def _scene(pos, vel, mass, mat=None, temp=None) -> Scene:
     )
 
 
-def make_state(cfg: SimConfig, scene: Scene, device="cpu", seed: int = 0) -> SimState:
+def make_state(cfg: SimConfig, scene: Scene, device=CUDA, seed: int = 0) -> SimState:
     """Load a scene into a fresh SimState on `device` (scenario reset =
-    clear + re-add). `seed` seeds the fracture generator.
+    clear + re-add), the card unless the caller asks for the CPU. `seed`
+    seeds the fracture generator.
 
     On an empty state, n sequential add_body calls put body k in slot k with
     seq k and leave next_seq = n; this writes exactly that in one pass."""

@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import SimConfig, body_radius
+from .config import CUDA, SimConfig, body_radius
 
 _I32_MAX = 2**31 - 1
 
@@ -77,9 +77,9 @@ def make_generator(device, seed: int) -> torch.Generator:
     return g
 
 
-def empty_state(cfg: SimConfig, device="cpu", seed: int = 0) -> SimState:
-    """All-dead state at full capacity on `device`; `seed` seeds the
-    fracture generator."""
+def empty_state(cfg: SimConfig, device=CUDA, seed: int = 0) -> SimState:
+    """All-dead state at full capacity on `device` (the card unless the
+    caller asks for the CPU); `seed` seeds the fracture generator."""
     c = cfg.capacity
     f = dict(dtype=torch.float32, device=device)
     i = dict(dtype=torch.int32, device=device)

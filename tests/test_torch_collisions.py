@@ -165,7 +165,7 @@ def test_greedy_match_and_top_pairs_match_jax():
 
 def test_empty_events_match_jax():
     cfg, jcfg = SimConfig(), JaxConfig()
-    ev, jev = collisions.empty_events(cfg), jcoll.empty_events(jcfg)
+    ev, jev = collisions.empty_events(cfg, "cpu"), jcoll.empty_events(jcfg)
     for k, v in ev.__dict__.items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(getattr(jev, k)), err_msg=k)
         assert v.numpy().dtype == np.asarray(getattr(jev, k)).dtype, k

@@ -23,6 +23,7 @@ from nbx_torch import collisions_scaled as cs
 from nbx_torch import convert
 from nbx_torch.config import Materials, f32
 from nbx_torch.ops.collide import bucketed_layout_for
+from nbx_torch.ops.p3m import p3m_acceleration
 from nbx_torch.ops.pm import isolated_green_hat
 from torch_parity import (
     assert_granular_matches, assert_scaled_events_match, assert_totals_match,
@@ -39,7 +40,8 @@ def _configs(fat=False, **kw):
     """The same configuration for both packages; fat=True divides every
     density by 10 (radii x 2.15), a merge-rich cloud."""
     jcfg = JaxConfig(**kw)
-    cfg = convert.config_from_fields({f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+    cfg = convert.config_from_fields({f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)},
+                                     "cpu")
     if fat:
         dm = jax_default_materials()
         jcfg = jcfg.replace(materials=JaxMaterials(density=dm.density * 0.1, color1=dm.color1,
@@ -136,19 +138,57 @@ def test_scan_green_hat_once_per_scene():
     _, cfg = _configs(G=0.5, dt=0.016, sub_steps=1, merge_time=0.02, fracture_threshold=4.0)
     buckets = bucketed_layout_for(pos, BOX, G_CELLS, BAND)
     kw = dict(n_cells=G_CELLS, band_cells=BAND, buckets=buckets, force_impl="pm", pm_grid=16)
-    a, ta = cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass, seed=1), cfg, BOX, 2, **kw)
-    b, tb = cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass, seed=1), cfg, BOX, 2,
-                                      green_hat=isolated_green_hat(BOX, 16), **kw)
+    a, ta = cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass, seed=1, device="cpu"), cfg, BOX, 2,
+                                      **kw)
+    b, tb = cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass, seed=1, device="cpu"), cfg, BOX, 2,
+                                      green_hat=isolated_green_hat(BOX, 16, device="cpu"), **kw)
     np.testing.assert_array_equal(a.pos.numpy(), b.pos.numpy())
     assert int(ta["n_bounces"]) == int(tb["n_bounces"])
 
 
-def test_scan_rejects_p3m():
+@pytest.mark.parametrize("tune", ["overflowing", "bucketed"])
+def test_granular_full_kdk_scan_p3m_matches(tune):
+    """P3M gravity in the scan, K4 and K5 through their plain versions: 4
+    bodies a cell kept, so the clump's cells overflow into the residual
+    passes; the bucketed tune splits the cells over two buckets."""
     pos, vel, mass = _scan_scene()
-    _, cfg = _configs()
+    jcfg, cfg = _configs(G=0.5, dt=0.016, sub_steps=1, merge_time=0.02, fracture_threshold=4.0)
+    buckets = bucketed_layout_for(pos, BOX, G_CELLS, BAND, split_quantile=0.6)
+    n_steps = 2
+    jst0 = jcs.make_granular_state(pos, vel, mass, key=2)
+    kw = dict(n_cells=G_CELLS, band_cells=BAND, buckets=buckets, force_impl="p3m", pm_grid=16,
+              log_events=True)
+    pp_buckets = ((2, 4, 64), (4, 4, 64)) if tune == "bucketed" else None
+    jst, jtot, jev = jcs.granular_full_kdk_scan(jst0, jcfg, BOX, n_steps, interpret=True, p3m_cells=4,
+                                                p3m_k=4, p3m_max_residual=128, p3m_pp_buckets=pp_buckets,
+                                                **kw)
+    st, tot, ev = cs.granular_full_kdk_scan(
+        port_granular_state(jst0), cfg, BOX, n_steps, draws=jax_scan_draws(jst0.key, jcfg, n_steps),
+        p3m=dict(n_cells=4, max_per_cell=4, max_residual=128, pp_buckets=pp_buckets), **kw)
+    assert_totals_match(tot, jtot)
+    assert_scaled_events_match(ev, jev)
+    assert_granular_matches(st, jst)
+    assert int(tot["n_bounces"]) > 0 and int(tot["n_uncorrected"]) == 0
+
+
+def test_scan_rejects_p3m():
+    """P3M's one unported part, the two-level residual, raises with its
+    ROADMAP item; the scan's P3M force takes the dense residual."""
+    pos, vel, mass = _scan_scene()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass), cfg, BOX, 1,
-                                  force_impl="p3m")
+        p3m_acceleration(torch.from_numpy(pos), torch.from_numpy(mass), 0.5, BOX, g=16, n_cells=4,
+                         residual_mode="twolevel")
+    _, cfg = _configs()
+    buckets = bucketed_layout_for(pos, BOX, G_CELLS, BAND)
+    _, totals = cs.granular_full_kdk_scan(
+        cs.make_granular_state(pos, vel, mass, device="cpu"), cfg, BOX, 1, n_cells=G_CELLS,
+        band_cells=BAND, buckets=buckets, force_impl="p3m", pm_grid=16,
+        p3m=dict(n_cells=4, max_residual=256))
+    assert totals["n_uncorrected"].dtype == torch.int32
+    with pytest.raises(ValueError, match="unknown P3M parameters"):
+        cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass, device="cpu"), cfg, BOX, 1,
+                                  n_cells=G_CELLS, band_cells=BAND, buckets=buckets, force_impl="p3m",
+                                  pm_grid=16, p3m=dict(p3m_cells=4))
 
 
 def test_granular_state_round_trip():
@@ -160,6 +200,6 @@ def test_granular_state_round_trip():
     back = convert.granular_state_to_arrays(st)
     for name, arr in back.items():
         np.testing.assert_array_equal(arr, np.asarray(getattr(jst, name)), err_msg=name)
-    made = cs.make_granular_state(pos, vel, mass, timer_slots=3)
+    made = cs.make_granular_state(pos, vel, mass, timer_slots=3, device="cpu")
     for name, arr in convert.granular_state_to_arrays(made).items():
         np.testing.assert_array_equal(arr, np.asarray(getattr(jst, name)), err_msg=name)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each held against its plain PyTorch
-version, and the frame step and the at-scale granular step on the card
-against the same steps on the CPU.
+version, the frame step and the at-scale granular step on the card against
+the same steps on the CPU, and the steps free of host syncs (P3M's too).
 
 Marked `cuda`: every test skips where torch sees no CUDA device. On a
 machine with a card (nvcc on PATH or under CUDA_HOME; no JAX needed):
@@ -14,9 +14,10 @@ import torch
 
 from nbx_torch import collisions_scaled, scene, sim
 from nbx_torch.bench.granular import granular_cloud
+from nbx_torch.bench.pp_scenes import MAIN_CASES, RESIDUAL_CASES, main_case, residual_case
 from nbx_torch.collisions import draw_fracture_uniforms
 from nbx_torch.config import SimConfig, body_radius
-from nbx_torch.ops import collide, pairwise
+from nbx_torch.ops import collide, p3m, pairwise, ppkernel
 from nbx_torch.ops.pm import isolated_green_hat
 
 pytestmark = pytest.mark.cuda
@@ -89,7 +90,7 @@ def test_frames_on_card_match_cpu(dev):
     cfg_cpu = SimConfig(capacity=2304)
     cfg = cfg_cpu.to(dev)
     sc = scene.reference_galaxy(n_disk=2100, seed=1)
-    a, b = scene.make_state(cfg, sc, dev), scene.make_state(cfg_cpu, sc)
+    a, b = scene.make_state(cfg, sc, dev), scene.make_state(cfg_cpu, sc, "cpu")
     h = sim.substep_size(cfg)
     gen = torch.Generator().manual_seed(0)
     for _ in range(4 * cfg.sub_steps):
@@ -236,3 +237,56 @@ def test_scaled_step_makes_no_host_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(st.pos).all()
+
+
+@pytest.mark.parametrize("case", list(MAIN_CASES))
+def test_pp_short_matches_plain(dev, case):
+    """K4 on the main pass's work items against its plain version; the
+    layout's n_overflow equal on the card and the CPU."""
+    pos, mass, G, a, box, g, k, eps, buckets = main_case(case)
+    if buckets == "census":
+        buckets = ppkernel.pp_buckets_for(pos, box, g, k)
+    args, ovf = ppkernel._main_pass(torch.from_numpy(pos).to(dev), torch.from_numpy(mass).to(dev), G, a,
+                                    box, g, k, eps, buckets, None)
+    _, ovf_cpu = ppkernel._main_pass(torch.from_numpy(pos), torch.from_numpy(mass), G, a, box, g, k, eps,
+                                     buckets, None)
+    before = ppkernel.pp_short.launches
+    got = ppkernel.pp_short(*args)
+    assert ppkernel.pp_short.launches == before + 1
+    assert _rel_err(got, ppkernel.pp_short_reference(*args)) < TOL
+    assert int(ovf) == int(ovf_cpu)
+
+
+@pytest.mark.parametrize("case", list(RESIDUAL_CASES))
+def test_pp_react_and_rr_match_plain(dev, case):
+    """K5 (row sums) against its plain version (column sums) and K4 on the
+    residual-residual block; n_missed equal on the card and the CPU."""
+    pos, mass, G, a, box, g, k, m, cap, eps = residual_case(case)
+    missed = []
+    for d in (dev, torch.device("cpu")):
+        tp, tm = torch.from_numpy(pos).to(d), torch.from_numpy(mass).to(d)
+        sort = p3m.cell_sort(tp, box, g)
+        ri, rv = p3m.take_rows(p3m.overflowing(sort, k)[1], m)
+        args, n_missed = ppkernel._table_pass(tp, tm, G, a, box, g, k, ri, rv, eps, cap, sort)
+        missed.append(int(n_missed))
+        if d == dev:
+            assert _rel_err(ppkernel.pp_react(*args), ppkernel.pp_react_reference(*args)) < TOL
+            rr = ppkernel._rr_pass(tp, tm, G, a, box, ri, rv, eps)
+            assert _rel_err(ppkernel.pp_short(*rr), ppkernel.pp_short_reference(*rr)) < TOL
+    assert missed[0] == missed[1] and (missed[0] > 0) == (case == "affected_cap")
+
+
+def test_p3m_scaled_step_makes_no_host_sync(dev):
+    st, cfg, box, kw = _server_setup(dev)
+    kw.update(force_impl="p3m", p3m=dict(n_cells=4, max_per_cell=64, max_residual=2048),
+              green_hat=isolated_green_hat(box, 32, p3m.smoothing_length(box, 4), smoothed=True, device=dev))
+    st, _, _ = collisions_scaled.granular_full_kdk_scan(st, cfg, box, 1, **kw)  # warm-up
+    torch.cuda.synchronize()
+    before = ppkernel.pp_react.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, tot, _ = collisions_scaled.granular_full_kdk_scan(st, cfg, box, 1, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ppkernel.pp_react.launches == before + 2
+    assert torch.isfinite(st.pos).all() and int(tot["n_uncorrected"]) == 0

@@ -70,7 +70,7 @@ def test_step_matches_jax_gravity_only(capacity, n_disk, frames):
     jcfg = JaxConfig(capacity=capacity, collisions=False)
     cfg = SimConfig(capacity=capacity, collisions=False)
     jst = jscene.make_state(jcfg, sc)
-    st = scene.make_state(cfg, sc)
+    st = scene.make_state(cfg, sc, "cpu")
     for _ in range(frames):
         jst, jev = jsim.step(jst, jcfg)
         st, ev = sim.step(st, cfg)
@@ -117,7 +117,7 @@ def test_gravity_dispatch_on_cpu():
 # --- the oracle scenes of tests/test_parity.py, at its tolerances ----------
 
 def _run_port(sc, cfg, n_frames, seed=0):
-    st = scene.make_state(cfg, sc, seed=seed)
+    st = scene.make_state(cfg, sc, "cpu", seed=seed)
     for _ in range(n_frames):
         st, _ = sim.step(st, cfg)
     return st
@@ -181,7 +181,7 @@ def test_galaxy_full_physics_runs():
     capacity (tests/test_parity.py's run check)."""
     sc = scene.reference_galaxy(n_disk=60, seed=3)
     cfg = SimConfig(capacity=100)
-    st, evs = sim.run(scene.make_state(cfg, sc, seed=42), cfg, 30)
+    st, evs = sim.run(scene.make_state(cfg, sc, "cpu", seed=42), cfg, 30)
     assert evs.n_bounces.shape == (30, cfg.sub_steps)
     assert 1 <= int(st.n_alive) <= cfg.capacity
     assert torch.isfinite(st.pos).all() and torch.isfinite(st.vel).all()
@@ -194,7 +194,7 @@ def test_run_logged_matches_jax(tmp_path):
     jcfg, cfg = JaxConfig(capacity=48, collisions=False), SimConfig(capacity=48, collisions=False)
     jst, jd = jdiag.run_logged(jscene.make_state(jcfg, sc), jcfg, 8)
     path = tmp_path / "diag.jsonl"
-    st, d = diagnostics.run_logged(scene.make_state(cfg, sc), cfg, 8, str(path))
+    st, d = diagnostics.run_logged(scene.make_state(cfg, sc, "cpu"), cfg, 8, str(path))
     assert_state_matches(st, jst)
     for name in ("kinetic", "potential", "momentum", "angular_momentum", "total_mass", "max_temp"):
         assert_close(getattr(d, name).numpy(), getattr(jd, name), name)

@@ -12,7 +12,7 @@ from nbx import scene as jscene
 from nbx import state as jstate
 from nbx.config import SimConfig as JaxConfig
 from nbx_torch import convert, scene, state
-from nbx_torch.config import ROCK, SimConfig
+from nbx_torch.config import ROCK, SimConfig, body_radius
 from torch_parity import jax_state_arrays, port_state
 
 torch.set_num_threads(1)
@@ -57,13 +57,34 @@ def test_scenario_table_matches():
 def test_make_state_matches(collisions):
     sc = jscene.reference_galaxy(n_disk=60, seed=1)
     jcfg, cfg = JaxConfig(capacity=100, collisions=collisions), SimConfig(capacity=100, collisions=collisions)
-    got = convert.state_to_arrays(scene.make_state(cfg, sc))
+    got = convert.state_to_arrays(scene.make_state(cfg, sc, "cpu"))
     _assert_same(got, jax_state_arrays(jscene.make_state(jcfg, sc)))
+
+
+def test_make_state_defaults_to_the_card():
+    """With no device, a state goes to the card; where there is none, that
+    raises rather than falling back to the CPU."""
+    sc = scene.uniform_cube(8)
+    if torch.cuda.is_available():
+        assert scene.make_state(SimConfig(capacity=10), sc).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            scene.make_state(SimConfig(capacity=10), sc)
+
+
+def test_body_radius_needs_the_table_on_the_masses_device():
+    """A config is built for its states' device: the radius law raises on a
+    materials table that lies elsewhere ("meta" stands in for the card)."""
+    mass = torch.ones(4)
+    mat = torch.zeros(4, dtype=torch.int32)
+    assert body_radius(mass, mat, SimConfig().materials).shape == (4,)
+    with pytest.raises(ValueError, match="SimConfig.to"):
+        body_radius(mass, mat, SimConfig().to("meta").materials)
 
 
 def test_make_state_rejects_oversize_scene():
     with pytest.raises(ValueError, match="capacity"):
-        scene.make_state(SimConfig(capacity=10), scene.uniform_cube(11))
+        scene.make_state(SimConfig(capacity=10), scene.uniform_cube(11), "cpu")
 
 
 def _bodies(n, seed):
@@ -151,9 +172,9 @@ def test_compact_arrays_matches():
 def test_convert_round_trip_and_config():
     jcfg, cfg, jst, st = _partial_state(6, 4, dead=(1,))
     arrays = jax_state_arrays(jst)
-    _assert_same(convert.state_to_arrays(convert.state_from_arrays(arrays, cfg)), arrays)
+    _assert_same(convert.state_to_arrays(convert.state_from_arrays(arrays, cfg, "cpu")), arrays)
     fields = {f: getattr(jcfg, f) for f in ("G", "dt", "capacity", "collisions", "sub_steps")}
     fields["G"] = np.float32(1.25)
-    got = convert.config_from_fields(fields)
+    got = convert.config_from_fields(fields, "cpu")
     assert (got.G, got.dt, got.capacity, got.collisions, got.sub_steps) == (1.25, 0.016, 6, True, 2)
     assert type(got.G) is float and type(got.capacity) is int and type(got.collisions) is bool
