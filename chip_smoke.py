@@ -4,10 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `nbx_torch/csrc/` and drives the port's
-three paths through their public entry points: the frame step
+four paths through their public entry points: the frame step
 (`scene.make_state`, `sim.run`, `diagnostics.measure`), the at-scale
-granular step (`collisions_scaled.granular_full_kdk_scan`) and P3M gravity
-(`ops.p3m.p3m_acceleration`, and the granular step with force_impl="p3m"):
+granular step (`collisions_scaled.granular_full_kdk_scan`), P3M gravity
+(`ops.p3m.p3m_acceleration`, and the granular step with force_impl="p3m")
+and the gravity-only integration path (`bench.drift.drift_run`,
+`integrators.init_hermite` / `run_hermite`, the `bench latency` and
+`bench throughput` mains):
 
   0. device: name and power limit; TF32 off
   1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
@@ -45,6 +48,23 @@ granular step (`collisions_scaled.granular_full_kdk_scan`) and P3M gravity
      timed frames of 2 steps, n_overflow == n_uncorrected == 0, one frame
      under set_sync_debug_mode("error"); then 2 steps at N = 4,096 with P3M
      parameters that overflow, held against the same steps on the CPU
+ 11. the acc+jerk kernel K6 and the potential kernel K3 against their plain
+     PyTorch versions on the card: N = 4,096 random, 1,000 targets x 4,096
+     sources, 777 x 3,001 ragged, mass-0 padding, K3's self term on a target
+     slice, and the drift gate's Plummer sphere at N = 16,384 (every target,
+     as phases 12 and 13 call them) and 262,144 (the first 4,096 targets);
+     both timed at both sizes
+ 12. the energy-drift gate at nbx.bench.drift.main's configuration: Plummer
+     N = 16,384, 10,000 Kahan-compensated KDK steps with K1, the energy
+     through K3 every 100 steps, relative drift < 1e-4; ms/step, launches;
+     kernels, wall ms and device ms per step of one 100-step chunk under
+     torch.profiler; one chunk under set_sync_debug_mode("error")
+ 13. the 4th-order Hermite scheme with K6 on the same scene and step: 1,000
+     steps, the energy through K3 every 100, drift < 1e-4 beside KDK's over
+     the same steps; one chunk under set_sync_debug_mode("error"); then 10
+     Hermite and 10 KDK steps at N = 1,024 held against the CPU
+ 14. `bench latency` (N = 1,024 ... 1,048,576) and `bench throughput`
+     (N = 262,144) through their mains
 
 Every phase raises on failure, so the script exits non-zero; it needs a CUDA
 device and has no CPU fallback. The line before the last is the kernels'
@@ -54,32 +74,34 @@ time at that path's shapes, and its bound (the largest of the bytes over
 3.35 TB/s, the FP32 operations over 67 TFLOP/s, the H100 SXM data sheet's
 rates, and the special functions over the SFU's 16 per clock per SM,
 counted from this run's inputs). K4 and K5 are recorded on the merger
-step's path (phase 10). The last line is {"ok": true, "device": {...}}.
+step's path (phase 10), K3 on the drift gate's (phase 12) and K6 on the
+Hermite path's (phase 13), both timed at its N = 16,384. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-from nbx_torch import collisions_scaled, diagnostics, scene, sim
-from nbx_torch.bench import p3m_cluster, pp_scenes
+from nbx_torch import collisions_scaled, diagnostics, integrators, scene, sim
+from nbx_torch.bench import drift, latency, p3m_cluster, pp_scenes, throughput, timing
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
 from nbx_torch.config import SimConfig, body_radius
 from nbx_torch.ops import _build, collide, p3m, ppkernel
-from nbx_torch.ops.pairwise import pairwise_acc, pairwise_acc_reference
+from nbx_torch.ops.pairwise import (pairwise_acc, pairwise_acc_jerk, pairwise_acc_jerk_reference,
+                                   pairwise_acc_reference, potential_per_body, potential_per_body_reference)
 from nbx_torch.ops.pm import isolated_green_hat, out_of_box_count, pm_acceleration
 
 KERNEL_TOL = 1e-5  # max|kernel - plain| / max|plain|, the bar of tests/test_tpu_only.py
 HEADLINE_N = 262_144
 SCALED_N = 131_072  # the at-scale live server's default body count
 MERGER_N = 1_048_576  # examples/merger_full.py's galaxy merger
+DRIFT_N = 16_384  # the energy-drift gate's Plummer sphere (BASELINE config 3)
 
 # The card's peak rates for the bounds (H100 SXM data sheet, dense, 700 W).
 FP32_PEAK = 67e12  # FP32 operations per second outside the tensor cores
@@ -89,13 +111,17 @@ HBM_PEAK = 3.35e12  # bytes per second
 SFU_PEAK = 132 * 16 * 1.98e9
 # Per pair, counted from each kernel's source: FP32 operations (_OPS) and
 # special functions on the SFU (_SFU). K1: 3 differences, r^2 (5), + eps^2,
-# m/r^3 (3), the sum (6); one rsqrt. K2's overlap test on every source lane:
+# m/r^3 (3), the sum (6); one rsqrt. K6: 6 differences, r^2 + eps^2 (6),
+# m/s^3 (3), 3 (d.dv)/s^2 (7), the acc sum (6), the jerk terms and sums (12);
+# one rsqrt. K3: 3 differences, r^2 + eps^2 (6), the weighted sum (2); one
+# rsqrt. K2's overlap test on every source lane:
 # 3 differences, r^2 (5), r_i + r_j, its square, the compare; none. The P3M
 # law of csrc/pp_law.cuh: 3 differences, r^2 (5), s^2, s, x, x^2, 1 + p x (2),
 # the polynomial (8), erfc (2), the weight (6), the sum (6); rsqrt, exp and
 # the reciprocal. K5's function also takes the reaction (the weight times m_t
 # and a second sum, 7) from the same pair, with no further special function.
 K1_PAIR_OPS, K1_PAIR_SFU = 18, 1
+K6_PAIR_OPS, K3_PAIR_OPS = 40, 11  # one rsqrt a pair each, as K1
 K2_LANE_OPS = 11
 PP_PAIR_OPS, PP_PAIR_SFU = 36, 3
 PP_REACT_PAIR_OPS = PP_PAIR_OPS + 7
@@ -163,10 +189,7 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, phase: int = 2) ->
 def phase_device() -> str:
     check(torch.cuda.is_available(), "torch.cuda.is_available() (this script needs a CUDA device)")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = timing.device_name(torch.device("cuda", 0))
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul off")
     check(not torch.backends.cudnn.allow_tf32, "TF32 cuDNN off")
     log(0, f"device {name}; torch {torch.__version__} cuda {torch.version.cuda}; TF32 off")
@@ -791,7 +814,245 @@ def phase_merger_vs_cpu(dev, n: int = 4096, steps: int = 2) -> None:
             f"{{{', '.join(f'{k}: {int(v)}' for k, v in tb.items())}}} equal on card and CPU")
 
 
+# ---- the gravity-only integration path: K6 and K3 --------------------------------
+
+def rand_vel(n: int, seed: int, dev):
+    """Standard normal velocities [n, 3], float32 (also the card tests')."""
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=dev)
+
+
+def gravity_kernel_sizes(dev, n: int, err6: float, err3: float,
+                         n_targets: int | None = None) -> tuple[float, float, dict, dict]:
+    """K6 and K3 against their plain versions on the drift gate's Plummer
+    sphere at N = n: on every target, with the target defaults exactly as
+    phases 12 and 13 call them, or on the first n_targets targets against
+    all sources; then both timed at full width with their plain versions
+    and bounds. Returns the errors so far and the (K6, K3) entries of the
+    kernels line."""
+    pos, vel, mass, G, eps, _ = drift.gate_scene(n, device=dev)
+    args6, args3 = (pos, mass, vel, G, eps), (pos, mass, G, eps)
+    label = f"Plummer N={n}, every target"
+    if n_targets is not None:
+        t = slice(0, n_targets)
+        args6, args3 = args6 + (pos[t], vel[t]), args3 + (pos[t], mass[t])
+        label = f"Plummer N={n}, first {n_targets} targets"
+    got, want = pairwise_acc_jerk(*args6), pairwise_acc_jerk_reference(*args6)
+    err6 = max(err6, compare(f"K6 {label} acc", got[0], want[0], 11),
+               compare(f"K6 {label} jerk", got[1], want[1], 11))
+    err3 = max(err3, compare(f"K3 {label}", potential_per_body(*args3), potential_per_body_reference(*args3), 11))
+    acc, jerk = pairwise_acc_jerk(pos, mass, vel, G, eps)
+    check(all_finite(acc, jerk, potential_per_body(pos, mass, G, eps)), f"K6 and K3 outputs finite at N={n}")
+
+    out = []
+    for name, fn, plain, args, ops, nbytes in (
+            ("K6", pairwise_acc_jerk, pairwise_acc_jerk_reference, (pos, mass, vel, G, eps), K6_PAIR_OPS, 52),
+            ("K3", potential_per_body, potential_per_body_reference, (pos, mass, G, eps), K3_PAIR_OPS, 20)):
+        ms = cuda_ms(lambda: fn(*args), 5)
+        plain_ms = cuda_ms(lambda: plain(*args), 1)
+        b = bound(n * n * ops, n * n, n * nbytes)
+        log(11, f"{name} N={n}: kernel {ms:.4f} ms ({n * n / (ms * 1e-3):.4e} pairs/s), plain {plain_ms:.3f} ms, "
+                f"plain/kernel {plain_ms / ms:.2f}x; {bound_text(b)}")
+        out.append(dict(ms=ms, plain_ms=plain_ms, **record(b), library_ms=None))
+    return err6, err3, out[0], out[1]
+
+
+def phase_gravity_kernels(dev, n_small: int = DRIFT_N, n_big: int = HEADLINE_N) -> tuple[dict, dict]:
+    """K6 and K3 against their plain versions on the card: N = 4,096 random,
+    1,000 targets x 4,096 sources, 777 x 3,001 ragged, mass-0 padding inert,
+    K3's self term on a target slice; then the drift gate's Plummer sphere at
+    N = n_small on every target and at n_big on the first 4,096, each timed.
+    Returns the (K6, K3) entries of the kernels line, held and timed at
+    n_small (the shapes of phases 12 and 13)."""
+    G, eps = 0.5, 0.5
+    err6 = err3 = 0.0
+
+    def both6(label, *args):
+        nonlocal err6
+        (ga, gj), (wa, wj) = pairwise_acc_jerk(*args), pairwise_acc_jerk_reference(*args)
+        err6 = max(err6, compare(f"K6 {label} acc", ga, wa, 11), compare(f"K6 {label} jerk", gj, wj, 11))
+
+    def both3(label, *args):
+        nonlocal err3
+        err3 = max(err3, compare(f"K3 {label}", potential_per_body(*args), potential_per_body_reference(*args), 11))
+
+    pos, mass = rand_bodies(4096, 0, dev)
+    vel = rand_vel(4096, 10, dev)
+    both6("N=4096 random", pos, mass, vel, G, eps)
+    both3("N=4096 random", pos, mass, G, eps)
+    tp, tv, tm = pos[37:1037], vel[37:1037], mass[37:1037]
+    both6("1000 targets x 4096 sources", pos, mass, vel, G, eps, tp, tv)
+    both3("1000 targets x 4096 sources", pos, mass, G, eps, tp, tm)
+    # the self term removed on a target slice: the slice's potentials are the full set's
+    err3 = max(err3, compare("K3 target slice vs the full set's rows", potential_per_body(pos, mass, G, eps, tp, tm),
+                             potential_per_body(pos, mass, G, eps)[37:1037], 11))
+    src, m_src = rand_bodies(3001, 1, dev)
+    tgt, _ = rand_bodies(777, 2, dev)
+    v_src, v_tgt = rand_vel(3001, 11, dev), rand_vel(777, 12, dev)
+    both6("777 targets x 3001 sources (ragged)", src, m_src, v_src, G, eps, tgt, v_tgt)
+    # targets that are not sources: target_mass 0 leaves the raw sum
+    both3("777 targets x 3001 sources (ragged)", src, m_src, G, eps, tgt, torch.zeros(777, device=dev))
+    m_pad = mass.clone()
+    m_pad[2048:] = 0.0
+    (ga, gj), (wa, wj) = (pairwise_acc_jerk(pos, m_pad, vel, G, eps),
+                          pairwise_acc_jerk_reference(pos[:2048], mass[:2048], vel[:2048], G, eps))
+    err6 = max(err6, compare("K6 mass-0 padding inert acc", ga[:2048], wa, 11),
+               compare("K6 mass-0 padding inert jerk", gj[:2048], wj, 11))
+    err3 = max(err3, compare("K3 mass-0 padding inert", potential_per_body(pos, m_pad, G, eps)[:2048],
+                             potential_per_body_reference(pos[:2048], mass[:2048], G, eps), 11))
+
+    err6, err3, k6, k3 = gravity_kernel_sizes(dev, n_small, err6, err3)
+    err6, err3, _, _ = gravity_kernel_sizes(dev, n_big, err6, err3, n_targets=4096)
+    k6["max_abs_err"], k3["max_abs_err"] = err6, err3
+    return k6, k3
+
+
+def launches_per_step(state: integrators.PhaseState, force, h: float,
+                      steps: int) -> tuple[float, float, float, float]:
+    """(kernels launched per compensated KDK step, wall ms per step, device
+    ms per step, K1's device ms per step) over one chunk of `steps` steps
+    under torch.profiler: the wall and the device times are of the same
+    steps."""
+    cuda = torch.autograd.DeviceType.CUDA
+    pc = vc = torch.zeros_like(state.pos)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, pc, vc = integrators.kdk_compensated_step(state, pc, vc, h, force)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    check(len(kernels) > 0, "the profiler saw the device's kernels")
+    k1 = [e for e in kernels if "pairwise_f32r" in e.name]
+    check(len(k1) == steps, f"the profiler saw K1 {len(k1)} times in {steps} steps")
+    return (len(kernels) / steps, wall_ms,
+            *(sum(e.time_range.elapsed_us() for e in ks) / steps / 1e3 for ks in (kernels, k1)))
+
+
+def phase_drift_gate(dev, n: int = DRIFT_N, n_steps: int = 10_000, diag_every: int = 100):
+    """The drift gate at nbx.bench.drift.main's configuration: Kahan-
+    compensated KDK with K1 forces, the energy through K3 every diag_every
+    steps. Returns the energies (on the host), the K3 launches and ms/step."""
+    pos, vel, mass, G, eps, h = drift.gate_scene(n, device=dev)
+    drift.drift_run(pos, vel, mass, G, eps, h, 0)  # warm-up: kernel load, allocator
+    torch.cuda.synchronize()
+
+    pairwise_acc.launches = 0  # the drift gate's path starts here
+    potential_per_body.launches = 0
+    t0 = time.perf_counter()
+    p, v, energies = drift.drift_run(pos, vel, mass, G, eps, h, n_steps, diag_every)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    k1, k3 = pairwise_acc.launches, potential_per_body.launches
+    check((k1, k3) == (n_steps + 1, n_steps // diag_every + 1),
+          f"K1 {k1} and K3 {k3} launches in {n_steps} steps with energies every {diag_every}")
+    d = drift.relative_drift(energies)
+    check(all_finite(p, v, energies), "state and energies finite")
+    per_step, prof_ms, dev_ms, k1_ms = launches_per_step(
+        integrators.PhaseState(p, v, pairwise_acc(p, mass, G, eps)), lambda x: pairwise_acc(x, mass, G, eps), h,
+        diag_every)
+    log(12, f"Plummer N={n}, h={h:.4e}, eps={eps:.4f}, {n_steps} compensated KDK steps: drift {d:.4e} "
+            f"(gate {drift.GATE:g}); {ms:.4f} ms/step wall; launches K1 {k1} K3 {k3}; under torch.profiler, "
+            f"{diag_every} steps: {per_step:.2f} kernels per step, {prof_ms:.4f} wall ms per step, "
+            f"{dev_ms:.4f} device ms per step (busy {dev_ms / prof_ms:.3f}), K1 {k1_ms:.4f} of it")
+    check(d < drift.GATE, f"relative energy drift {d} < {drift.GATE}")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, e = drift.drift_run(p, v, mass, G, eps, h, diag_every, diag_every)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(all_finite(e), "the sync-checked chunk's energies finite")
+    log(12, f"one {diag_every}-step chunk ran under set_sync_debug_mode('error'): no host sync in drift_run")
+    return energies.cpu(), k3, ms
+
+
+def hermite_energies(state, mass, G, eps, h, n_steps, diag_every, force_jerk):
+    """run_hermite in chunks of diag_every steps, the energy through K3 after
+    each; returns the final state and the energies (the first at the start)."""
+    es = [drift.energy(state.pos, state.vel, mass, G, eps)]
+    for _ in range(n_steps // diag_every):
+        state, _ = integrators.run_hermite(state, h, diag_every, force_jerk)
+        es.append(drift.energy(state.pos, state.vel, mass, G, eps))
+    return state, torch.stack(es)
+
+
+def phase_hermite(dev, kdk_energies: torch.Tensor, n: int = DRIFT_N, n_steps: int = 1000,
+                  diag_every: int = 100) -> tuple[int, float]:
+    """The 4th-order Hermite scheme with K6 on the drift gate's scene and
+    step; then 10 Hermite and 10 KDK steps at N = 1,024 on the card against
+    the CPU. Returns K6's launches on the Hermite path and the ms/step."""
+    pos, vel, mass, G, eps, h = drift.gate_scene(n, device=dev)
+
+    def force_jerk(p, v):
+        return pairwise_acc_jerk(p, mass, v, G, eps)
+
+    integrators.run_hermite(integrators.init_hermite(pos, vel, force_jerk), h, 1, force_jerk)  # warm-up
+    torch.cuda.synchronize()
+
+    pairwise_acc_jerk.launches = 0  # the Hermite path starts here
+    t0 = time.perf_counter()
+    s, es = hermite_energies(integrators.init_hermite(pos, vel, force_jerk), mass, G, eps, h, n_steps,
+                             diag_every, force_jerk)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    k6 = pairwise_acc_jerk.launches
+    check(k6 == n_steps + 1, f"K6 launched {k6} times in {n_steps} Hermite steps")
+    check(all_finite(s.pos, s.vel, s.acc, s.jerk, es), "Hermite state and energies finite")
+    d = drift.relative_drift(es)
+    d_kdk = drift.relative_drift(kdk_energies[: n_steps // diag_every + 1])
+    log(13, f"Plummer N={n}, h={h:.4e}, {n_steps} Hermite steps: drift {d:.4e} against compensated KDK's "
+            f"{d_kdk:.4e} over the same {n_steps} steps; {ms:.4f} ms/step wall; K6 launches {k6}")
+    check(d < drift.GATE, f"Hermite relative energy drift {d} < {drift.GATE}")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, e = hermite_energies(s, mass, G, eps, h, diag_every, diag_every, force_jerk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(all_finite(s.pos, e), "the sync-checked chunk finite")
+    log(13, f"one {diag_every}-step chunk ran under set_sync_debug_mode('error'): no host sync in run_hermite")
+
+    gravity_steps_vs_cpu(dev)
+    return k6, ms
+
+
+def ten_steps(device) -> tuple:
+    """10 Hermite steps (K6 on the card) and 10 compensated KDK steps (K1,
+    the energies through K3) from the gate's Plummer sphere at N = 1,024."""
+    pos, vel, mass, G, eps, h = drift.gate_scene(1024, device=device)
+
+    def force_jerk(p, v):
+        return pairwise_acc_jerk(p, mass, v, G, eps)
+
+    s, _ = integrators.run_hermite(integrators.init_hermite(pos, vel, force_jerk), h, 10, force_jerk)
+    return (*s, *drift.drift_run(pos, vel, mass, G, eps, h, 10, diag_every=10))
+
+
+def gravity_steps_vs_cpu(dev) -> None:
+    names = ("Hermite pos", "Hermite vel", "Hermite acc", "Hermite jerk", "KDK pos", "KDK vel", "KDK energies")
+    for name, x, y in zip(names, ten_steps(dev), ten_steps(torch.device("cpu"))):
+        err = float((x.cpu() - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+        log(13, f"N=1024, 10 steps card vs CPU: {name} max rel err {err:.3e} (tol {SCALED_CPU_TOL:g})")
+        check(err < SCALED_CPU_TOL, f"{name} card vs CPU after 10 steps")
+
+
+def phase_bench(dev, latency_ns=latency.NS, n_rate: int = HEADLINE_N) -> None:
+    """`bench latency` and `bench throughput` through their mains on the card."""
+    lat = latency.main(ns=latency_ns, device=dev)
+    check(all(0 < ms < float("inf") for ms in lat.values()), "latencies positive and finite")
+    log(14, "p50 ms per KDK step: " + ", ".join(f"N={n}: {ms:.4f}" for n, ms in lat.items()))
+    rate = throughput.main(n=n_rate, device=dev)
+    check(rate > 0, "throughput positive")
+    log(14, f"N={n_rate}: {rate:.4e} pairs/s")
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     name = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -812,6 +1073,13 @@ def main() -> None:
     phase_merger_vs_cpu(dev)
     k4["max_abs_err"] = max(k4["max_abs_err"], err4)
     k5["max_abs_err"] = max(k5["max_abs_err"], err5)
+    t10 = time.perf_counter()
+    k6, k3 = phase_gravity_kernels(dev)
+    kdk_energies, k3_launches, _ = phase_drift_gate(dev)  # resets K1's and K3's counts: the drift gate's path
+    k6_launches, _ = phase_hermite(dev, kdk_energies)  # resets K6's count: the Hermite path
+    phase_bench(dev)
+    t14 = time.perf_counter()
+    print(f"[done] every phase passed: {t14 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s", flush=True)
     records = [
         dict(name="pairwise_f32r", route="cuda", source="nbx_torch/csrc/pairwise_f32r.cu",
              replaces="nbx/ops/pairwise.py:168", launches=k1_launches, **k1),
@@ -821,6 +1089,10 @@ def main() -> None:
              replaces="nbx/ops/ppkernel.py:59", launches=k4_launches, **k4),
         dict(name="pp_react", route="cuda", source="nbx_torch/csrc/pp_react.cu",
              replaces="nbx/ops/ppkernel.py:143", launches=k5_launches, **k5),
+        dict(name="pairwise_accjerk", route="cuda", source="nbx_torch/csrc/pairwise_accjerk.cu",
+             replaces="nbx/ops/pairwise.py:573", launches=k6_launches, **k6),
+        dict(name="potential", route="cuda", source="nbx_torch/csrc/potential.cu",
+             replaces="nbx/ops/pairwise.py:682", launches=k3_launches, **k3),
     ]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,14 @@
 
 A port of the JAX package `nbx`, module for module and name for name, held
 against it by the tests in `tests/test_torch_*.py`. The frame step
-(`sim.step`/`sim.run`) and the at-scale granular step
-(`collisions_scaled.granular_full_kdk_scan`) run in eager PyTorch around two
-hand-written CUDA kernels, built with nvcc at first use
-(`nbx_torch/ops/_build.py`): the direct-sum gravity above `sim._DENSE_MAX`
-bodies (`csrc/pairwise_f32r.cu`) and the fused collision pass
-(`csrc/collide_fused.cu`).
+(`sim.step`/`sim.run`), the at-scale granular step
+(`collisions_scaled.granular_full_kdk_scan`), P3M gravity (`ops.p3m`) and
+the gravity-only integrators (`integrators`, `bench.drift`) run in eager
+PyTorch around hand-written CUDA kernels in `csrc/`, built with nvcc at
+first use (`nbx_torch/ops/_build.py`): the direct-sum gravity
+(`pairwise_f32r.cu`), the fused collision pass (`collide_fused.cu`), P3M's
+pair passes (`pp_short.cu`, `pp_react.cu`), the acc+jerk sum of the Hermite
+scheme (`pairwise_accjerk.cu`) and the per-body potential (`potential.cu`).
 
 This package imports neither `jax` nor `nbx`.
 """

@@ -1,2 +1,5 @@
-"""Scene builders of the JAX package's benchmarks (`nbx/bench/`), for the
-port. The timing harnesses are not ported yet (ROADMAP.md Queue 1)."""
+"""The port's benchmarks and the scene builders of the JAX package's
+(`nbx/bench/`): the gravity-only harnesses `drift`, `latency` and
+`throughput`, and the scenes of `granular`, `p3m_cluster` and `pp_scenes`.
+The other harnesses of `nbx/bench/` are not ported yet (ROADMAP.md Queue 1).
+"""

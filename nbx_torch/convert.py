@@ -12,6 +12,7 @@ import torch
 
 from nbx_torch.collisions_scaled import GranularState
 from nbx_torch.config import CUDA, SimConfig
+from nbx_torch.integrators import HermiteState, PhaseState
 from nbx_torch.state import SimState, make_generator
 
 # The SimState leaves that carry over, with their dtypes.
@@ -97,3 +98,30 @@ def granular_state_from_arrays(arrays: dict, device=CUDA, seed: int = 0) -> Gran
 def granular_state_to_arrays(state: GranularState) -> dict:
     """The GranularState's leaves (all but the generator) as numpy arrays."""
     return {name: getattr(state, name).cpu().numpy() for name in GRANULAR_FIELDS}
+
+
+def _tensors(arrays: dict, fields: tuple, device) -> dict:
+    """The named arrays as tensors on `device`, each keeping its dtype (the
+    float64 states of an x64 run stay float64)."""
+    return {name: torch.as_tensor(np.array(arrays[name])).to(device) for name in fields}
+
+
+def phase_state_from_arrays(arrays: dict, device=CUDA) -> PhaseState:
+    """An integrators.PhaseState from the JAX PhaseState's fields (pos, vel,
+    acc) as numpy arrays."""
+    return PhaseState(**_tensors(arrays, PhaseState._fields, device))
+
+
+def phase_state_to_arrays(state: PhaseState | HermiteState) -> dict:
+    """The fields of an integrator state (PhaseState or HermiteState) as
+    numpy arrays."""
+    return {name: t.cpu().numpy() for name, t in state._asdict().items()}
+
+
+def hermite_state_from_arrays(arrays: dict, device=CUDA) -> HermiteState:
+    """An integrators.HermiteState from the JAX HermiteState's fields (pos,
+    vel, acc, jerk) as numpy arrays."""
+    return HermiteState(**_tensors(arrays, HermiteState._fields, device))
+
+
+hermite_state_to_arrays = phase_state_to_arrays

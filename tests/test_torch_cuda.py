@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each held against its plain PyTorch
 version, the frame step and the at-scale granular step on the card against
-the same steps on the CPU, and the steps free of host syncs (P3M's too).
+the same steps on the CPU, and the steps free of host syncs (P3M's and the
+drift gate's too).
 
 Marked `cuda`: every test skips where torch sees no CUDA device. On a
 machine with a card (nvcc on PATH or under CUDA_HOME; no JAX needed):
@@ -12,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from nbx_torch import collisions_scaled, scene, sim
+from chip_smoke import rand_vel
+from nbx_torch import collisions_scaled, integrators, scene, sim
+from nbx_torch.bench import drift
 from nbx_torch.bench.granular import granular_cloud
 from nbx_torch.bench.pp_scenes import MAIN_CASES, RESIDUAL_CASES, main_case, residual_case
 from nbx_torch.collisions import draw_fracture_uniforms
@@ -290,3 +293,88 @@ def test_p3m_scaled_step_makes_no_host_sync(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert ppkernel.pp_react.launches == before + 2
     assert torch.isfinite(st.pos).all() and int(tot["n_uncorrected"]) == 0
+
+
+# (nt, ns): square, rectangular, ragged (more than one block of 128 threads), tiny
+GRAVITY_SHAPES = [(4096, 4096), (1000, 4096), (777, 3001), (1, 300), (129, 127)]
+
+
+@pytest.mark.parametrize("nt,ns", GRAVITY_SHAPES)
+def test_accjerk_kernel_matches_plain(dev, nt, ns):
+    pos, mass = _rand(ns, ns, dev)
+    tgt, _ = _rand(nt, nt + 1, dev)
+    vel, tvel = rand_vel(ns, ns + 2, dev), rand_vel(nt, nt + 3, dev)
+    before = pairwise.pairwise_acc_jerk.launches
+    got = pairwise.pairwise_acc_jerk(pos, mass, vel, 0.5, 0.5, tgt, tvel)
+    assert pairwise.pairwise_acc_jerk.launches == before + 1
+    want = pairwise.pairwise_acc_jerk_reference(pos, mass, vel, 0.5, 0.5, tgt, tvel)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) < TOL
+
+
+@pytest.mark.parametrize("nt,ns", GRAVITY_SHAPES)
+def test_potential_kernel_matches_plain(dev, nt, ns):
+    """Targets that are not sources: target_mass 0 leaves the kernel's raw sum."""
+    pos, mass = _rand(ns, ns, dev)
+    tgt, _ = _rand(nt, nt + 1, dev)
+    zero = torch.zeros(nt, device=dev)
+    before = pairwise.potential_per_body.launches
+    got = pairwise.potential_per_body(pos, mass, 0.5, 0.5, tgt, zero)
+    assert pairwise.potential_per_body.launches == before + 1
+    assert _rel_err(got, pairwise.potential_per_body_reference(pos, mass, 0.5, 0.5, tgt, zero)) < TOL
+
+
+def test_potential_kernel_removes_the_self_term_on_a_target_slice(dev):
+    pos, mass = _rand(3000, 5, dev)
+    whole = pairwise.potential_per_body(pos, mass, 0.5, 0.5)
+    assert _rel_err(whole, pairwise.potential_per_body_reference(pos, mass, 0.5, 0.5)) < TOL
+    part = pairwise.potential_per_body(pos, mass, 0.5, 0.5, pos[300:1400], mass[300:1400])
+    assert _rel_err(part, whole[300:1400]) < TOL
+
+
+def test_accjerk_and_potential_mass_zero_padding_is_inert(dev):
+    pos, mass = _rand(3000, 7, dev)
+    vel = rand_vel(3000, 8, dev)
+    padded = mass.clone()
+    padded[1500:] = 0.0
+    got = pairwise.pairwise_acc_jerk(pos, padded, vel, 0.5, 0.5)
+    want = pairwise.pairwise_acc_jerk_reference(pos[:1500], mass[:1500], vel[:1500], 0.5, 0.5)
+    for g, w in zip(got, want):
+        assert _rel_err(g[:1500], w) < TOL
+    phi = pairwise.potential_per_body(pos, padded, 0.5, 0.5)[:1500]
+    assert _rel_err(phi, pairwise.potential_per_body_reference(pos[:1500], mass[:1500], 0.5, 0.5)) < TOL
+
+
+def test_accjerk_and_potential_wrappers_reject_bad_inputs(dev):
+    pos, mass = _rand(64, 8, dev)
+    vel = rand_vel(64, 9, dev)
+    with pytest.raises(TypeError):
+        pairwise.pairwise_acc_jerk(pos.double(), mass.double(), vel.double(), 0.5, 0.5)
+    with pytest.raises(TypeError):
+        pairwise.potential_per_body(pos.double(), mass.double(), 0.5, 0.5)
+    with pytest.raises(ValueError):
+        pairwise.pairwise_acc_jerk(pos, mass, vel.cpu(), 0.5, 0.5)
+    with pytest.raises(ValueError):
+        pairwise.potential_per_body(pos, mass[:10], 0.5, 0.5)
+    with pytest.raises(ValueError):
+        pairwise.pairwise_acc_jerk(pos, mass, vel, 0.5, 0.0)
+    with pytest.raises(ValueError):
+        pairwise.potential_per_body(pos, mass, 0.5, -1.0)
+
+
+def test_drift_and_hermite_chunks_make_no_host_sync(dev):
+    pos, vel, mass, G, eps, h = drift.gate_scene(2048, device=dev)
+
+    def fj(p, v):
+        return pairwise.pairwise_acc_jerk(p, mass, v, G, eps)
+
+    s = integrators.init_hermite(pos, vel, fj)
+    drift.drift_run(pos, vel, mass, G, eps, h, 0)  # warm-up: kernel load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, e = drift.drift_run(pos, vel, mass, G, eps, h, 20, diag_every=10)
+        s, _ = integrators.run_hermite(s, h, 10, fj)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(e).all() and torch.isfinite(s.pos).all()
