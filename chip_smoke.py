@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `nbx_torch/csrc/` and drives the port's
-four paths through their public entry points: the frame step
-(`scene.make_state`, `sim.run`, `diagnostics.measure`), the at-scale
-granular step (`collisions_scaled.granular_full_kdk_scan`), P3M gravity
-(`ops.p3m.p3m_acceleration`, and the granular step with force_impl="p3m")
-and the gravity-only integration path (`bench.drift.drift_run`,
+paths through their public entry points: the frame step (`scene.make_state`,
+`sim.run`, `diagnostics.measure`), the at-scale granular step
+(`collisions_scaled.granular_full_kdk_scan`), P3M gravity
+(`ops.p3m.p3m_acceleration`, and the granular step with force_impl="p3m"),
+the gravity-only integration path (`bench.drift.drift_run`,
 `integrators.init_hermite` / `run_hermite`, the `bench latency` and
-`bench throughput` mains):
+`bench throughput` mains) and every layout of the collision pass (the
+`bench granular` and `bench collsplit` mains, the granular demo's
+configuration, the scan with its default full-column layout):
 
   0. device: name and power limit; TF32 off
   1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
@@ -65,6 +67,24 @@ and the gravity-only integration path (`bench.drift.drift_run`,
      Hermite and 10 KDK steps at N = 1,024 held against the CPU
  14. `bench latency` (N = 1,024 ... 1,048,576) and `bench throughput`
      (N = 262,144) through their mains
+ 15. the collision pass's other layouts, kernel against plain version on
+     the card: full column (K8's function), banded, band-packed and
+     compacted on the clustered 192-body scenes (caps that cover and caps
+     that overflow: per-cell K, target rows, source lanes, window budget;
+     dead bodies), then the granular bench's 131,072-body debris disk at
+     each of its five default configurations, each timed (the launches
+     alone, kernel and plain, and the whole pass)
+ 16. K2m: the bucketed pass of phase 7's 131,072-body cloud at 2, 4 and 8
+     windows a thread block, bitwise against 1 window a block, W = 4
+     against the plain version, each timed; then `bench granular` on that
+     cloud at `40,16,12,u0.8x4`
+ 17. `bench granular` (131,072-body disk, five layouts, PM 128^3) and
+     `bench collsplit` (262,144-body cloud) through their mains; the granular
+     demo's configuration (32,768-body disk and its m = 2000 core, g = 28,
+     K = 12, B = 6, K1 gravity) for 20 frames of 4 steps and one more under
+     set_sync_debug_mode("error"); 3 steps of granular_full_kdk_scan with
+     every default (full columns, g = 32, K = 16) at N = 4,096 held against
+     the same steps on the CPU
 
 Every phase raises on failure, so the script exits non-zero; it needs a CUDA
 device and has no CPU fallback. The line before the last is the kernels'
@@ -75,12 +95,18 @@ time at that path's shapes, and its bound (the largest of the bytes over
 rates, and the special functions over the SFU's 16 per clock per SM,
 counted from this run's inputs). K4 and K5 are recorded on the merger
 step's path (phase 10), K3 on the drift gate's (phase 12) and K6 on the
-Hermite path's (phase 13), both timed at its N = 16,384. The last line is {"ok": true, "device": {...}}.
+Hermite path's (phase 13), both timed at its N = 16,384. The collision
+kernel has three entries: collide_fused (K2; the at-scale path, phase 7),
+collide_full_column (K8's function; launches on the layout bench's path,
+phase 17, timed on the disk's full-column configuration, phase 15) and
+collide_fused_multi (K2m; launches on the bench's u0.8x4 path, timed at
+W = 4, phase 16). The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import time
 
@@ -88,7 +114,7 @@ import numpy as np
 import torch
 
 from nbx_torch import collisions_scaled, diagnostics, integrators, scene, sim
-from nbx_torch.bench import drift, latency, p3m_cluster, pp_scenes, throughput, timing
+from nbx_torch.bench import collsplit, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
 from nbx_torch.config import SimConfig, body_radius
@@ -367,18 +393,18 @@ def collide_both(inputs, box, g, b, buckets):
             collide._bucketed_pass(*args, collide.collide_fused_reference))
 
 
-def check_collide(name, got, want) -> float:
+def check_collide(name, got, want, phase: int = 6) -> float:
     """Deltas to KERNEL_TOL of each field's largest magnitude; partners,
     bounces, overflow and the cell-size flag exactly."""
     err = 0.0
     for i, field in enumerate(("dvel", "dpos", "dtemp")):
-        abs_err = compare(f"{name} {field}", got[i], want[i], phase=6)
+        abs_err = compare(f"{name} {field}", got[i], want[i], phase=phase)
         err = max(err, abs_err)
     check(torch.equal(got[3]["j"], want[3]["j"]), f"{name}: partners equal")
     for i, field in ((4, "n_bounces"), (5, "n_overflow"), (6, "cell_too_small")):
         check(int(got[i]) == int(want[i]), f"{name}: {field} equal ({int(got[i])} vs {int(want[i])})")
-    log(6, f"{name}: partners equal ({int((got[3]['j'] >= 0).sum())} bodies with one), "
-           f"n_bounces {int(got[4])}, n_overflow {int(got[5])}, cell_too_small {bool(got[6])}")
+    log(phase, f"{name}: partners equal ({int((got[3]['j'] >= 0).sum())} bodies with one), "
+               f"n_bounces {int(got[4])}, n_overflow {int(got[5])}, cell_too_small {bool(got[6])}")
     return err
 
 
@@ -1051,6 +1077,287 @@ def phase_bench(dev, latency_ns=latency.NS, n_rate: int = HEADLINE_N) -> None:
     log(14, f"N={n_rate}: {rate:.4e} pairs/s")
 
 
+# ---- the rest of the collision pass: K8 (full column), K2's other layouts, K2m ----
+
+def record_launches(fused):
+    """A kernel wrapper that also keeps the arguments of each of its calls,
+    so they can be replayed (timed, or through the plain version)."""
+    calls = []
+
+    def rec(*args):
+        calls.append(args)
+        fused(*args)
+
+    return rec, calls
+
+
+def layout_both(inputs, box: float, g: int, kw: dict):
+    """One layout's pass (binned_collision_pass's keywords kw) through its
+    kernel and through its plain version. Returns (kernel outputs, plain
+    outputs, the kernel wrapper, the kernel's calls)."""
+    run, layout, fused = collide._layout_call(
+        g, kw.get("max_per_cell", 16), kw.get("band_cells"), kw.get("packed_caps"), kw.get("max_blocks"),
+        kw.get("buckets"), kw.get("windows_per_block", 1))
+    rec, calls = record_launches(fused)
+    got = run(*inputs, box, g, *layout, 0.2, 0.5, rec)
+    want = run(*inputs, box, g, *layout, 0.2, 0.5, collide.collide_fused_reference)
+    return got, want, fused, calls
+
+
+def launch_bound(calls) -> tuple[dict, int]:
+    """The bound of one pass's launches, counted from their windows: every
+    target against every kept source lane of its window (the overlap test,
+    K2_LANE_OPS each); the bodies read and written once, the descriptors
+    read once. Returns (bound, source lanes)."""
+    lanes = sum(int((w[:, 1].long() * w[:, 3::2].long().sum(1)).sum()) for _, _, _, w, *_ in calls)
+    n = calls[0][0].shape[0]
+    nbytes = n * (32 + 4 + 1 + 32 + 4) + sum(c[3].numel() * 4 for c in calls)
+    return bound(lanes * K2_LANE_OPS, 0, nbytes), lanes
+
+
+def time_launches(phase: int, label: str, fused, calls, plain_reps: int = 1) -> dict:
+    """The recorded launches of one pass, by CUDA events, against the plain
+    version on the same arguments; with their bound. The replays write into
+    copies of the output buffers: the pass's outputs are views of them."""
+    calls = [(*c[:4], c[4].clone(), c[5].clone(), *c[6:]) for c in calls]
+
+    def kernel():
+        for c in calls:
+            fused(*c)
+
+    def plain():
+        for c in calls:
+            collide.collide_fused_reference(*c)
+
+    kernel()  # warm-up
+    ms = cuda_ms(kernel, 5)
+    plain_ms = cuda_ms(plain, plain_reps)
+    b, lanes = launch_bound(calls)
+    occupied = sum(int((c[3][:, 1] > 0).sum()) for c in calls)
+    log(phase, f"{label}: kernel {ms:.4f} ms ({len(calls)} launches, {calls[0][3].shape[0]} windows in the "
+               f"first, {occupied} with targets in all), plain {plain_ms:.3f} ms, plain/kernel "
+               f"{plain_ms / ms:.1f}x; {lanes} source lanes, {bound_text(b)}")
+    return dict(ms=ms, plain_ms=plain_ms, **record(b))
+
+
+# (label, scene seed, dead bodies, radius scale, g, layout keywords); "sized"
+# caps come from packed_caps_for / packed_layout_for
+SMALL_LAYOUTS = [
+    ("full column K=80 (covers)", 7, False, 2.0, 4, dict(max_per_cell=80)),
+    ("full column K=16 (overflows)", 7, False, 2.0, 8, dict(max_per_cell=16)),
+    ("full column K=16, dead bodies", 9, True, 2.0, 8, dict(max_per_cell=16)),
+    ("banded B=2 K=80 (covers)", 7, False, 2.0, 4, dict(band_cells=2, max_per_cell=80)),
+    ("banded B=4 K=4 (overflows)", 7, False, 2.0, 8, dict(band_cells=4, max_per_cell=4)),
+    ("banded B=3 K=16, dead bodies", 9, True, 2.0, 8, dict(band_cells=3, max_per_cell=16)),
+    ("band-packed sized caps (covers)", 7, False, 2.0, 8, dict(band_cells=4, packed_caps="sized")),
+    ("band-packed (8, 10) (overflows)", 7, False, 2.0, 8, dict(band_cells=4, packed_caps=(8, 10))),
+    ("band-packed (68, 24) (source lanes overflow)", 7, False, 2.0, 8, dict(band_cells=4, packed_caps=(68, 24))),
+    ("compacted sized (covers)", 7, False, 2.0, 8, dict(band_cells=4, packed_caps="sized", max_blocks=0)),
+    ("compacted budget 40 (windows dropped)", 7, False, 2.0, 8,
+     dict(band_cells=4, packed_caps=(68, 70), max_blocks=40)),
+    ("compacted (16, 24) x 64, dead bodies", 9, True, 2.0, 8,
+     dict(band_cells=4, packed_caps=(16, 24), max_blocks=64)),
+]
+
+
+def small_layout(seed: int, dead: bool, g: int, kw: dict):
+    pos, vel, mass = clustered_scene(seed=seed)
+    if dead:
+        mass[::5] = 0.0
+    if kw.get("packed_caps") == "sized":
+        if "max_blocks" in kw:
+            lay = collide.packed_layout_for(pos, BOX, g, kw["band_cells"])
+            kw = dict(kw, packed_caps=lay["packed_caps"], max_blocks=lay["max_blocks"])
+        else:
+            kw = dict(kw, packed_caps=collide.packed_caps_for(pos, BOX, g, kw["band_cells"]))
+    return pos, vel, mass, kw
+
+
+def layout_keywords(token: str, pos, box: float) -> dict:
+    """binned_collision_pass's keywords of a granular-bench cfg token, sized
+    on pos as the bench sizes them."""
+    g, k, band, packed, max_blocks = granular.parse_config(token)
+    lay, _ = granular.size_layout(pos, box, g, band, packed, max_blocks)
+    return dict(max_per_cell=k, band_cells=band, packed_caps=lay["packed"], max_blocks=lay["max_blocks"],
+                buckets=lay["buckets"], windows_per_block=lay["windows"])
+
+
+def phase_layouts(dev, n_big: int = SCALED_N) -> tuple[dict, float]:
+    """Every layout of the collision pass but the bucketed one (phase 6),
+    kernel against plain version on the card: the clustered 192-body scenes
+    (covering and overflowing caps, dead bodies), then the bench's debris
+    disk at n_big at each of the granular bench's five configurations, each
+    timed. Returns K8's kernels-line entry (timed on the disk's full-column
+    configuration) and the largest error of K2's launches here."""
+    err8 = err2 = 0.0
+    for label, seed, dead, scale, g, kw in SMALL_LAYOUTS:
+        pos, vel, mass, kw = small_layout(seed, dead, g, kw)
+        got, want, fused, calls = layout_both(collide_inputs(pos, vel, mass, scale, dev), BOX, g, kw)
+        err = check_collide(f"clustered n=192 g={g} {label} {kw}", got, want, phase=15)
+        overflows = "covers" not in label
+        check((int(got[5]) > 0) == overflows, f"{label}: n_overflow {int(got[5])} > 0 is {overflows}")
+        check(int(got[4]) > 0, f"{label}: bounces found")
+        if fused is collide.collide_full_column:
+            err8 = max(err8, err)
+        else:
+            err2 = max(err2, err)
+
+    pos, vel, mass, box = granular.scene_arrays(n_big, "disk")
+    inputs = collide_inputs(pos, vel, mass, 1.0, dev)
+    k8 = None
+    for token in granular.DEFAULT_CONFIGS:
+        kw = layout_keywords(token, pos, box)
+        g = int(token.split(",")[0])
+        got, want, fused, calls = layout_both(inputs, box, g, kw)
+        err = check_collide(f"debris disk n={n_big} cfg {token}", got, want, phase=15)
+        check(int(got[4]) > 0, f"disk {token}: bounces found")
+        t = time_launches(15, f"disk n={n_big} cfg {token}", fused, calls)
+        pass_ms = cuda_ms(lambda: collide.binned_collision_pass(*inputs, box, g, **kw), 3)
+        log(15, f"disk n={n_big} cfg {token}: whole binned_collision_pass with the kernel {pass_ms:.3f} ms")
+        if fused is collide.collide_full_column:
+            err8 = max(err8, err)
+            k8 = dict(t, library_ms=None)
+        else:
+            err2 = max(err2, err)
+    k8["max_abs_err"] = err8
+    return k8, err2
+
+
+def phase_multi_window(dev, n: int = SCALED_N) -> tuple[dict, int]:
+    """K2m: the bucketed pass of phase 7's 131,072-body cloud at W = 2, 4 and
+    8 windows a block, bitwise against W = 1, W = 4 against the plain
+    version, each timed; then the granular bench's `u0.8x4` configuration
+    on that cloud (its path: the launches counted from 0 there). Returns
+    K2m's kernels-line entry (at W = 4) and its launches on its path."""
+    pos, vel, mass = granular_cloud(n, seed=0, box=BOX)
+    buckets = collide.bucketed_layout_for(pos, BOX, 40, 12)
+    inputs = collide_inputs(pos, vel, mass, 1.0, dev)
+    base, want, fused1, calls = layout_both(inputs, BOX, 40, dict(band_cells=12, buckets=buckets))
+    check(fused1 is collide.collide_fused, "W = 1 runs collide_fused")
+    t1 = time_launches(16, f"cloud n={n} W=1 (K2)", fused1, calls)
+    out = None
+    for w in (2, 4, 8):
+        got, plain, fused, calls_w = layout_both(inputs, BOX, 40, dict(band_cells=12, buckets=buckets,
+                                                                       windows_per_block=w))
+        same = all(torch.equal(a, b) for a, b in zip(got[:3], base[:3]))
+        same = same and all(torch.equal(got[3][k], base[3][k]) for k in base[3])
+        same = same and all(int(a) == int(b) for a, b in zip(got[4:], base[4:]))
+        check(same, f"W={w}: every output bitwise equal to W=1's")
+        log(16, f"cloud n={n} W={w}: every output bitwise equal to W=1's")
+        t = time_launches(16, f"cloud n={n} W={w} (K2m)", fused, calls_w)
+        if w == 4:
+            err = check_collide(f"cloud n={n} W=4 against the plain version", got, plain, phase=16)
+            out = dict(t, max_abs_err=err, library_ms=None)
+    log(16, f"W=4 / W=1 kernel time {out['ms'] / t1['ms']:.3f}")
+
+    collide.collide_fused_multi.launches = 0  # K2m's path: the bench's multi-window configuration
+    rows = granular.main(n, "cloud", "pm", "40,16,12,u0.8x4", device=dev)
+    launches = collide.collide_fused_multi.launches
+    check(len(rows) == 1 and "ms_per_step" in rows[0], "the u0.8x4 configuration ran")
+    check(launches == 24 * len(rows[0]["buckets"]), f"K2m launched {launches} times in 24 steps")
+    log(16, f"bench granular {n} cloud pm 40,16,12,u0.8x4: {rows[0]['ms_per_step']:.4f} ms/step, "
+            f"n_overflow {rows[0]['n_overflow']}, K2m launches {launches}")
+    return out, launches
+
+
+def phase_layout_benches(dev) -> int:
+    """The granular bench and the collision split at their defaults (131,072
+    bodies, five layouts, PM 128^3; 262,144 bodies, two layouts), the demo's
+    configuration, and 3 steps of the default full-column scan at N = 4,096
+    against the CPU. Returns K8's launches on the bench's path."""
+    collide.collide_fused.launches = 0  # the layout bench's path
+    collide.collide_full_column.launches = 0
+    rows = granular.main(device=dev)
+    k8, k2 = collide.collide_full_column.launches, collide.collide_fused.launches
+    check(all("ms_per_step" in r for r in rows) and len(rows) == len(granular.DEFAULT_CONFIGS),
+          "every default configuration timed")
+    check(all(0 < r["ms_per_step"] < float("inf") for r in rows), "ms/step positive and finite")
+    check(k8 == 24 and k2 == 4 * 24, f"K8 {k8} and K2 {k2} launches in 5 configurations of 24 steps")
+    for r in rows:
+        log(17, f"bench granular {r['n']} {r['scene']} {r['force']} g={r['n_cells']} K={r['max_per_cell']} "
+                f"B={r['band_cells']} packed={r['packed_caps']}: {r['ms_per_step']:.4f} ms/step; "
+                f"n_overflow {r['n_overflow']} bounces {r['n_bounces']} merges {r['n_merges']} "
+                f"fractures {r['n_fractures']} cell_too_small {r['cell_too_small']}")
+    for r in collsplit.main(device=dev):
+        log(17, f"bench collsplit {r['n']} cfg {r['cfg']}: sort {r['ms_sort']:.4f}, pass {r['ms_pass']:.4f}, "
+                f"full {r['ms_full']:.4f} ms; layout+kernel+epilogue {r['ms_layout_kernel_epilogue']:.4f}, "
+                f"events {r['ms_event_machinery']:.4f}")
+    phase_demo(dev)
+    default_scan_vs_cpu(dev)
+    return k8
+
+
+def phase_demo(dev, frames: int = 20) -> float:
+    """examples/granular_demo.py's physics at its N: 32,768 bodies around the
+    hot m = 2000 core, g = 28, K = 12, B = 6, force "auto" (K1), 4 steps a
+    frame; one more frame under set_sync_debug_mode("error")."""
+    st = granular.demo_state(device=dev)
+    cfg = granular.bench_config().to(dev)
+    spf = granular.DEMO_STEPS_PER_FRAME
+    st, _ = collisions_scaled.granular_full_kdk_scan(st, cfg, BOX, spf, **granular.DEMO_LAYOUT)  # warm-up
+    torch.cuda.synchronize()
+    pairwise_acc.launches = 0  # the demo's path
+    collide.collide_fused.launches = 0
+    totals = []
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        st, tot = collisions_scaled.granular_full_kdk_scan(st, cfg, BOX, spf, **granular.DEMO_LAYOUT)
+        totals.append(tot)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / frames * 1e3
+    k1, k2 = pairwise_acc.launches, collide.collide_fused.launches
+    check(k1 == frames * (spf + 1) and k2 == frames * spf, f"K1 {k1} and K2 {k2} launches in {frames} frames")
+    check(all_finite(st.pos, st.vel, st.mass, st.temp), "state finite")
+    agg = {k: torch.stack([t[k] for t in totals]) for k in totals[0]}
+    log(17, f"demo N={st.pos.shape[0]} g=28 K=12 B=6 auto, {frames} frames of {spf} steps: {ms:.3f} ms/frame "
+            f"({ms / spf:.3f} ms/step); bounces {int(agg['n_bounces'].sum())} merges {int(agg['n_merges'].sum())} "
+            f"fractures {int(agg['n_fractures'].sum())} n_overflow max {int(agg['n_overflow'].max())} "
+            f"cell_too_small {bool(agg['cell_too_small'].any())} (the core); alive {int((st.mass > 0).sum())}; "
+            f"launches K1 {k1} K2 {k2}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, _ = collisions_scaled.granular_full_kdk_scan(st, cfg, BOX, spf, **granular.DEMO_LAYOUT)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(collide.collide_fused.launches == (frames + 1) * spf, "K2 ran in the sync-checked frame")
+    log(17, "one demo frame ran under set_sync_debug_mode('error'): no host sync")
+    return ms
+
+
+def default_scan_vs_cpu(dev, n: int = 4096, steps: int = 3) -> None:
+    """granular_full_kdk_scan with every default (full columns, 16 bodies a
+    cell, g = 32, force "auto") on the card and on the CPU, the cloud at the
+    131,072-body cloud's density, the same draws."""
+    pos, vel, mass, box = granular.scene_arrays(n, "cloudcd")
+    cpu_cfg = granular.bench_config()
+    gen = torch.Generator().manual_seed(5)
+    draws = [draw_fracture_uniforms(cpu_cfg, gen, "cpu") for _ in range(steps)]
+    collide.collide_full_column.launches = 0
+    a, ta, ea = collisions_scaled.granular_full_kdk_scan(
+        collisions_scaled.make_granular_state(pos, vel, mass, seed=0, device=dev), cpu_cfg.to(dev), box, steps,
+        draws=[d.to(dev) for d in draws], log_events=True)
+    check(collide.collide_full_column.launches == steps, "K8 ran on the card")
+    b, tb, eb = collisions_scaled.granular_full_kdk_scan(
+        collisions_scaled.make_granular_state(pos, vel, mass, seed=0, device="cpu"), cpu_cfg, box, steps,
+        draws=draws, log_events=True)
+    for k in ta:
+        check(torch.equal(ta[k].cpu(), tb[k]), f"total {k} equal on card and CPU ({ta[k].tolist()} vs {tb[k].tolist()})")
+    for f in ("n_merges", "n_fractures", "n_bounces", "n_overflow", "n_dropped", "merge_mask",
+              "fracture_mask", "spawn_mask"):
+        check(torch.equal(getattr(ea, f).cpu(), getattr(eb, f)), f"events {f} equal on card and CPU")
+    check(torch.equal(a.partner.cpu(), b.partner) and torch.equal(a.mat.cpu(), b.mat),
+          "partners and materials equal on card and CPU")
+    for f in ("pos", "vel", "mass", "temp", "contact_t"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        err = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+        log(17, f"N={n} default scan, {steps} steps card vs CPU: {f} max rel err {err:.3e} (tol {SCALED_CPU_TOL:g})")
+        check(err < SCALED_CPU_TOL, f"{f} card vs CPU after {steps} steps")
+    check(int(tb["n_bounces"]) > 0, "bounces fired")
+    log(17, f"N={n} default scan: totals {{{', '.join(f'{k}: {int(v)}' for k, v in tb.items())}}} equal on card "
+            "and CPU")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     name = phase_device()
@@ -1079,12 +1386,22 @@ def main() -> None:
     k6_launches, _ = phase_hermite(dev, kdk_energies)  # resets K6's count: the Hermite path
     phase_bench(dev)
     t14 = time.perf_counter()
-    print(f"[done] every phase passed: {t14 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s", flush=True)
+    k8, err2 = phase_layouts(dev)
+    k2["max_abs_err"] = max(k2["max_abs_err"], err2)
+    k2m, k2m_launches = phase_multi_window(dev)  # resets K2m's count: the bench's u0.8x4 path
+    k8_launches = phase_layout_benches(dev)  # resets K8's count: the layout bench's path
+    t17 = time.perf_counter()
+    print(f"[done] every phase passed: {t17 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
+          f"phases 15-17 {t17 - t14:.1f} s", flush=True)
     records = [
         dict(name="pairwise_f32r", route="cuda", source="nbx_torch/csrc/pairwise_f32r.cu",
              replaces="nbx/ops/pairwise.py:168", launches=k1_launches, **k1),
         dict(name="collide_fused", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
              replaces="nbx/ops/collide.py:236", launches=k2_launches, **k2),
+        dict(name="collide_full_column", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
+             replaces="nbx/ops/collide.py:112", launches=k8_launches, **k8),
+        dict(name="collide_fused_multi", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
+             replaces="nbx/ops/collide.py:242", launches=k2m_launches, **k2m),
         dict(name="pp_short", route="cuda", source="nbx_torch/csrc/pp_short.cu",
              replaces="nbx/ops/ppkernel.py:59", launches=k4_launches, **k4),
         dict(name="pp_react", route="cuda", source="nbx_torch/csrc/pp_react.cu",

@@ -175,10 +175,14 @@ def resolve_collisions_scaled(
     max_blocks: Optional[int] = None,
     buckets: Optional[tuple[tuple[int, int, int], ...]] = None,
     draws: Optional[Draws] = None,
+    windows_per_block: int = 1,
+    construction: str = "auto",
 ) -> tuple[GranularState, ScaledEvents]:
     """One full collision substep at scale. Runs between the force
     evaluation and the second half-kick. `draws` supplies the fracture
-    uniforms; None draws them from state.generator."""
+    uniforms; None draws them from state.generator. The layout arguments
+    (n_cells ... buckets, windows_per_block, construction) go to
+    `ops.collide.binned_collision_pass`."""
     n = state.mass.shape[0]
     dev = state.device
     i_ar = torch.arange(n, device=dev)
@@ -187,7 +191,7 @@ def resolve_collisions_scaled(
     dvel, dpos, dtemp, best, n_bounces, n_overflow, too_small = binned_collision_pass(
         state.pos, state.vel, state.mass, radius, box_size, n_cells,
         cfg.restitution, cfg.friction, max_per_cell, band_cells, packed_caps,
-        max_blocks, buckets,
+        max_blocks, buckets, windows_per_block, construction,
     )
     pos = state.pos + dpos
     vel = state.vel + dvel
@@ -331,6 +335,8 @@ def granular_full_kdk_scan(
     green_hat: Optional[torch.Tensor] = None,
     draws: Optional[list] = None,
     p3m: Optional[dict] = None,
+    windows_per_block: int = 1,
+    construction: str = "auto",
 ):
     """Full-physics granular loop at scale: n_steps KDK substeps of
     h = dt / sub_steps with gravity, the fused collision pass with
@@ -357,7 +363,12 @@ def granular_full_kdk_scan(
     (p3m_max_residual, 8192), pp_buckets (p3m_pp_buckets, None) and
     affected_cap (256; the JAX scan has no such parameter and always uses
     256). The tune's other keys are not read: the mesh is pm_grid.
-    draws: None, or one `Draws` per step."""
+    draws: None, or one `Draws` per step.
+
+    The collision layout: n_cells, max_per_cell, band_cells, packed_caps,
+    max_blocks, buckets, windows_per_block and construction go to
+    `ops.collide.binned_collision_pass`; with their defaults, the full-column
+    layout at 16 bodies a cell on a 32^3 grid."""
     dev = state.device
     if force_impl == "pm":
         from nbx_torch.ops.pm import isolated_green_hat, pm_acceleration
@@ -411,6 +422,7 @@ def granular_full_kdk_scan(
         st, ev = resolve_collisions_scaled(
             st, cfg, h, box_size, n_cells, max_per_cell, band_cells, packed_caps,
             max_blocks, buckets, None if draws is None else draws[t],
+            windows_per_block=windows_per_block, construction=construction,
         )
         # slots reborn by a merge or a fracture are newborn: acc = 0
         acc = torch.where(ev.touched[:, None], 0.0, acc)

@@ -1,12 +1,16 @@
-// Fused collision pass over occupancy-bucketed windows, float32, for NVIDIA
-// Hopper (sm_90a).
+// Fused collision pass over window descriptors, float32, for NVIDIA Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernel `_collide_kernel_fused` of nbx/ops/collide.py:236
-// (body `_collide_fused_body`, :280), as launched by the bucketed layout of
-// `binned_collision_pass`. It keeps that kernel's contract, not its blocks:
+// Replaces three TPU kernels of nbx/ops/collide.py, as the layouts of
+// `binned_collision_pass` launch them: `_collide_kernel_fused` (:236, body
+// `_collide_fused_body` :280; the bucketed, banded, band-packed and compacted
+// layouts), `_collide_kernel` (:112, the full-column layout: a column against
+// its 9 neighbour columns in 9 scalar-prefetch-driven revisits that merge
+// into one output block) and `_collide_kernel_fused_multi` (:242, several
+// windows per program). It keeps those kernels' contract, not their blocks:
 // for every target body of a window, against the window's fused source lanes
-// (9 neighbour-column strips of B + 2 cells, each cut to its kept length, then
-// masked by the symmetric-drop mask), it sums
+// (9 neighbour-column strips, each cut to its kept length, then masked by the
+// symmetric-drop mask), it sums
 //
 //   dv  = -(1/m_i) sum (a2 d - ft rv),     a2 = (j + ft vn) / dist
 //   dp  = -(1/m_i) sum c2 d,               c2 = (min_d - dist)/dist * 0.8 mu
@@ -16,9 +20,15 @@
 // with mu = m_i m_j / (m_i + m_j) (one reciprocal per pair), j = -(1+e) mu vn
 // and ft = friction * mu, and picks the deepest-overlap partner: the largest
 // min_d - dist over overlapping pairs, ties to the smallest body id. A pair
-// overlaps when both masses are > 0, the ids differ, and r^2 < min_d^2.
+// overlaps when both masses are > 0, the ids differ, and r^2 < min_d^2. K8's
+// own arithmetic (two reciprocals, normalised normals and tangents) is the
+// same physics; its pair set and partner rule are the same, so a full column
+// is one window here: its targets against its 9 neighbour columns' kept
+// bodies, in a single visit.
 //
-// Design: one thread block per window, threads striding over the window's
+// Design: one thread block per window (per windows_per_block consecutive
+// windows, walked in turn, for K2m: the same per-window code, so the result
+// is bitwise that of one window a block), threads striding over the window's
 // targets (a thread keeps its 8 sums and its (depth, id) in registers). The
 // block reads its own window descriptor (target start and count in the
 // cell-sorted order, 9 strip starts and kept lengths) and stages the fused
@@ -55,6 +65,11 @@ constexpr float kCorrection = 0.8f;
 constexpr float kHeat = 0.2f;
 constexpr float kSentinel = -1e30f;
 
+// kMulti = false: block b runs window b alone (the TPU kernels K2 and K8);
+// kMulti = true: block b walks windows [b W, (b + 1) W) in turn (K2m). One
+// body of code, so both compute each window bit for bit alike; the
+// single-window instantiation keeps neither the loop nor its barrier.
+template <bool kMulti>
 __global__ void __launch_bounds__(kMaxThreads)
 collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted: (x y z vx), (vy vz m r)
                      const int* __restrict__ order,             // [n] sorted position -> body id
@@ -62,121 +77,126 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
                      const int* __restrict__ win,               // [n_win, 20]
                      float* __restrict__ out_d,                 // [n, 8] body order
                      int* __restrict__ out_j,                   // [n] body order
-                     float e, float fric) {
+                     int n_win, int windows_per_block, float e, float fric) {
   __shared__ float sx[kChunk], sy[kChunk], sz[kChunk];
   __shared__ float svx[kChunk], svy[kChunk], svz[kChunk];
   __shared__ float sm[kChunk], sr[kChunk];
   __shared__ int sg[kChunk];
   __shared__ int s_start[9], s_off[10];
 
-  const int* wd = win + static_cast<size_t>(blockIdx.x) * kWinInts;
-  const int ts = wd[0];
-  const int tn = wd[1];
-  if (tn <= 0) return;  // the same for every thread of the block
-  if (threadIdx.x == 0) {
-    int off = 0;
-    for (int s = 0; s < 9; ++s) {
-      s_start[s] = wd[2 + 2 * s];
-      s_off[s] = off;
-      off += wd[3 + 2 * s];
-    }
-    s_off[9] = off;
-  }
-  __syncthreads();
-  const int total = s_off[9];
   const float one_e = 1.f + e;
-
-  for (int t0 = 0; t0 < tn; t0 += blockDim.x) {
-    const int t = t0 + threadIdx.x;
-    const bool active = t < tn;
-    const int p = ts + (active ? t : 0);
-    const float4 fa = feats[2 * p];
-    const float4 fb = feats[2 * p + 1];
-    const float xi = fa.x, yi = fa.y, zi = fa.z;
-    const float vxi = fa.w, vyi = fb.x, vzi = fb.y;
-    const float mi = fb.z, ri = fb.w;
-    const int gi = order[p];
-
-    float a0 = 0.f, a1 = 0.f, a2s = 0.f, a3 = 0.f, a4 = 0.f, a5 = 0.f, a6 = 0.f, a7 = 0.f;
-    float dmax = kSentinel;
-    int jsel = INT_MAX;
-
-    for (int c0 = 0; c0 < total; c0 += kChunk) {
-      const int nc = min(kChunk, total - c0);
-      __syncthreads();  // every thread is done with the previous chunk
-      for (int l = threadIdx.x; l < nc; l += blockDim.x) {
-        const int lane = c0 + l;
-        int s = 0;
-        while (lane >= s_off[s + 1]) ++s;
-        const int q = s_start[s] + (lane - s_off[s]);
-        const float4 ga = feats[2 * q];
-        const float4 gb = feats[2 * q + 1];
-        sx[l] = ga.x;
-        sy[l] = ga.y;
-        sz[l] = ga.z;
-        svx[l] = ga.w;
-        svy[l] = gb.x;
-        svz[l] = gb.y;
-        sm[l] = src_ok[q] ? gb.z : 0.f;
-        sr[l] = gb.w;
-        sg[l] = order[q];
+  const int w_begin = kMulti ? static_cast<int>(blockIdx.x) * windows_per_block : static_cast<int>(blockIdx.x);
+  const int w_end = kMulti ? min(n_win, w_begin + windows_per_block) : w_begin + 1;
+  for (int wi = w_begin; wi < w_end; ++wi) {
+    const int* wd = win + static_cast<size_t>(wi) * kWinInts;
+    const int ts = wd[0];
+    const int tn = wd[1];
+    if (tn <= 0) continue;  // the same for every thread of the block
+    if (kMulti) __syncthreads();  // every thread is done with the previous window's strips and chunk
+    if (threadIdx.x == 0) {
+      int off = 0;
+      for (int s = 0; s < 9; ++s) {
+        s_start[s] = wd[2 + 2 * s];
+        s_off[s] = off;
+        off += wd[3 + 2 * s];
       }
-      __syncthreads();
-      if (!active || !(mi > 0.f)) continue;
-      for (int k = 0; k < nc; ++k) {
-        const float dx = __fsub_rn(sx[k], xi);
-        const float dy = __fsub_rn(sy[k], yi);
-        const float dz = __fsub_rn(sz[k], zi);
-        const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-        const float mj = sm[k];
-        const float min_d = __fadd_rn(ri, sr[k]);
-        const int gj = sg[k];
-        if (!(mj > 0.f) || gj == gi || !(r2 < __fmul_rn(min_d, min_d))) continue;
-
-        const float inv_dist = rsqrtf(r2 > 0.f ? r2 : 1.f);
-        const float dist = __fmul_rn(r2, inv_dist);
-        const float depth = __fsub_rn(min_d, dist);
-        if (depth > dmax || (depth == dmax && gj < jsel)) {
-          dmax = depth;
-          jsel = gj;
-        }
-        const float rvx = __fsub_rn(svx[k], vxi);
-        const float rvy = __fsub_rn(svy[k], vyi);
-        const float rvz = __fsub_rn(svz[k], vzi);
-        const float vn = __fmul_rn(
-            __fadd_rn(__fadd_rn(__fmul_rn(rvx, dx), __fmul_rn(rvy, dy)), __fmul_rn(rvz, dz)), inv_dist);
-        if (!(vn < 0.f)) continue;  // not approaching: every term is 0
-
-        const float m_sum = mi + mj;
-        const float r_ms = 1.f / (m_sum > 0.f ? m_sum : 1.f);
-        const float mu = mi * mj * r_ms;
-        const float tvn = vn * mu;
-        const float j_imp = -one_e * tvn;
-        const float ft = fric * mu;
-        const float c_a = (j_imp + ft * vn) * inv_dist;
-        const float c_b = (min_d - dist) * inv_dist * (kCorrection * mu);
-        a0 += c_a * dx - ft * rvx;
-        a1 += c_a * dy - ft * rvy;
-        a2s += c_a * dz - ft * rvz;
-        a3 += c_b * dx;
-        a4 += c_b * dy;
-        a5 += c_b * dz;
-        a6 += 0.5f * vn * tvn;
-        a7 += 1.f;
-      }
+      s_off[9] = off;
     }
-    if (active) {
-      const float sc = mi > 0.f ? 1.f / mi : 0.f;
-      float* o = out_d + static_cast<size_t>(gi) * 8;
-      o[0] = -a0 * sc;
-      o[1] = -a1 * sc;
-      o[2] = -a2s * sc;
-      o[3] = -a3 * sc;
-      o[4] = -a4 * sc;
-      o[5] = -a5 * sc;
-      o[6] = a6 * sc * kHeat;
-      o[7] = a7;
-      out_j[gi] = dmax > 0.f ? jsel : -1;
+    __syncthreads();
+    const int total = s_off[9];
+
+    for (int t0 = 0; t0 < tn; t0 += blockDim.x) {
+      const int t = t0 + threadIdx.x;
+      const bool active = t < tn;
+      const int p = ts + (active ? t : 0);
+      const float4 fa = feats[2 * p];
+      const float4 fb = feats[2 * p + 1];
+      const float xi = fa.x, yi = fa.y, zi = fa.z;
+      const float vxi = fa.w, vyi = fb.x, vzi = fb.y;
+      const float mi = fb.z, ri = fb.w;
+      const int gi = order[p];
+
+      float a0 = 0.f, a1 = 0.f, a2s = 0.f, a3 = 0.f, a4 = 0.f, a5 = 0.f, a6 = 0.f, a7 = 0.f;
+      float dmax = kSentinel;
+      int jsel = INT_MAX;
+
+      for (int c0 = 0; c0 < total; c0 += kChunk) {
+        const int nc = min(kChunk, total - c0);
+        __syncthreads();  // every thread is done with the previous chunk
+        for (int l = threadIdx.x; l < nc; l += blockDim.x) {
+          const int lane = c0 + l;
+          int s = 0;
+          while (lane >= s_off[s + 1]) ++s;
+          const int q = s_start[s] + (lane - s_off[s]);
+          const float4 ga = feats[2 * q];
+          const float4 gb = feats[2 * q + 1];
+          sx[l] = ga.x;
+          sy[l] = ga.y;
+          sz[l] = ga.z;
+          svx[l] = ga.w;
+          svy[l] = gb.x;
+          svz[l] = gb.y;
+          sm[l] = src_ok[q] ? gb.z : 0.f;
+          sr[l] = gb.w;
+          sg[l] = order[q];
+        }
+        __syncthreads();
+        if (!active || !(mi > 0.f)) continue;
+        for (int k = 0; k < nc; ++k) {
+          const float dx = __fsub_rn(sx[k], xi);
+          const float dy = __fsub_rn(sy[k], yi);
+          const float dz = __fsub_rn(sz[k], zi);
+          const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+          const float mj = sm[k];
+          const float min_d = __fadd_rn(ri, sr[k]);
+          const int gj = sg[k];
+          if (!(mj > 0.f) || gj == gi || !(r2 < __fmul_rn(min_d, min_d))) continue;
+
+          const float inv_dist = rsqrtf(r2 > 0.f ? r2 : 1.f);
+          const float dist = __fmul_rn(r2, inv_dist);
+          const float depth = __fsub_rn(min_d, dist);
+          if (depth > dmax || (depth == dmax && gj < jsel)) {
+            dmax = depth;
+            jsel = gj;
+          }
+          const float rvx = __fsub_rn(svx[k], vxi);
+          const float rvy = __fsub_rn(svy[k], vyi);
+          const float rvz = __fsub_rn(svz[k], vzi);
+          const float vn = __fmul_rn(
+              __fadd_rn(__fadd_rn(__fmul_rn(rvx, dx), __fmul_rn(rvy, dy)), __fmul_rn(rvz, dz)), inv_dist);
+          if (!(vn < 0.f)) continue;  // not approaching: every term is 0
+
+          const float m_sum = mi + mj;
+          const float r_ms = 1.f / (m_sum > 0.f ? m_sum : 1.f);
+          const float mu = mi * mj * r_ms;
+          const float tvn = vn * mu;
+          const float j_imp = -one_e * tvn;
+          const float ft = fric * mu;
+          const float c_a = (j_imp + ft * vn) * inv_dist;
+          const float c_b = (min_d - dist) * inv_dist * (kCorrection * mu);
+          a0 += c_a * dx - ft * rvx;
+          a1 += c_a * dy - ft * rvy;
+          a2s += c_a * dz - ft * rvz;
+          a3 += c_b * dx;
+          a4 += c_b * dy;
+          a5 += c_b * dz;
+          a6 += 0.5f * vn * tvn;
+          a7 += 1.f;
+        }
+      }
+      if (active) {
+        const float sc = mi > 0.f ? 1.f / mi : 0.f;
+        float* o = out_d + static_cast<size_t>(gi) * 8;
+        o[0] = -a0 * sc;
+        o[1] = -a1 * sc;
+        o[2] = -a2s * sc;
+        o[3] = -a3 * sc;
+        o[4] = -a4 * sc;
+        o[5] = -a5 * sc;
+        o[6] = a6 * sc * kHeat;
+        o[7] = a7;
+        out_j[gi] = dmax > 0.f ? jsel : -1;
+      }
     }
   }
 }
@@ -184,17 +204,29 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. One block of `threads` threads
-// (a multiple of 32, at most 256) per window. Launches on `stream` and
-// returns the launch's cudaError_t (0 on success); it does not synchronise.
+// (a multiple of 32, at most 256) per `windows_per_block` windows. Launches on
+// `stream` and returns the launch's cudaError_t (0 on success); it does not
+// synchronise.
 extern "C" int nbx_collide_fused(const void* feats, const void* order, const void* src_ok,
                                  const void* win, void* out_d, void* out_j, int n_win,
-                                 int threads, float e, float fric, void* stream) {
+                                 int windows_per_block, int threads, float e, float fric,
+                                 void* stream) {
   if (n_win <= 0) return static_cast<int>(cudaSuccess);
-  if (threads <= 0 || threads > kMaxThreads || threads % 32 != 0)
+  if (threads <= 0 || threads > kMaxThreads || threads % 32 != 0 || windows_per_block < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  collide_fused_kernel<<<n_win, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(feats), static_cast<const int*>(order),
-      static_cast<const unsigned char*>(src_ok), static_cast<const int*>(win),
-      static_cast<float*>(out_d), static_cast<int*>(out_j), e, fric);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* f = static_cast<const float4*>(feats);
+  const int* o = static_cast<const int*>(order);
+  const unsigned char* ok = static_cast<const unsigned char*>(src_ok);
+  const int* w = static_cast<const int*>(win);
+  float* d = static_cast<float*>(out_d);
+  int* j = static_cast<int*>(out_j);
+  if (windows_per_block == 1) {
+    collide_fused_kernel<false><<<n_win, threads, 0, s>>>(f, o, ok, w, d, j, n_win, 1, e, fric);
+  } else {
+    const int wpb = windows_per_block < n_win ? windows_per_block : n_win;
+    collide_fused_kernel<true><<<(n_win + wpb - 1) / wpb, threads, 0, s>>>(f, o, ok, w, d, j, n_win, wpb, e,
+                                                                           fric);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-"""Cell-binned collision pass at scale: the occupancy-bucketed layout and the
-fused collision kernel K2 (port of the bucketed path of `nbx/ops/collide.py`).
+"""Cell-binned collision pass at scale: every layout of the JAX package's
+`binned_collision_pass` (`nbx/ops/collide.py`) on one fused collision kernel.
 
 Physics per overlapping pair, as in `_collide_fused_body` of the JAX package:
 restitution impulse and friction impulse through the reduced mass, Baumgarte
@@ -7,43 +7,61 @@ push (0.8), impact heating (0.2 E, E = mu/2 vn^2), bounce count, and each
 target's deepest-overlap partner (largest depth, ties to the smallest body
 id).
 
-Layout (the JAX package's bucketed layout, same kept set and counters):
+All N bodies, dead ones included, are cell-sorted with k minor
+(`ops.p3m.cell_sort`), so a window of B cells of one (i, j) column, and the
+guarded (B + 2)-cell source strip around it, are each one contiguous run of
+the sorted order. A window is then one int32 descriptor (target start and
+count, 9 neighbour-strip starts and lengths), and the kernel reads the sorted
+bodies itself and writes each target's result straight to body order. The
+layouts differ in which bodies they keep and what they count into
+n_overflow; each keeps the JAX package's kept set and counters:
 
-  * all N bodies, dead ones included, are cell-sorted with k minor
-    (`ops.p3m.cell_sort`), so a window of B cells of one (i, j) column, and
-    the guarded (B + 2)-cell source strip around it, are each one contiguous
-    run of the sorted order;
-  * each occupied window goes to the first bucket whose caps cover its
-    target count and its largest neighbour-strip run; a window past a
-    bucket's budget spills to the next bucket, and only the last bucket
-    drops windows;
-  * targets are the first min(count, t_rows) bodies of the window's run;
-    sources are, per neighbour strip, the first min(run, s_capw) bodies,
-    then masked by the global symmetric-drop mask `t_ok` (a body without a
-    target slot is no source either);
-  * n_overflow counts dropped windows' bodies, target rows past t_rows and
-    source lanes past s_capw per strip.
+  * full column (band_cells=None, the TPU kernel K8) and banded per-cell caps
+    (band_cells=B): the first max_per_cell bodies of each cell by the stable
+    cell sort (`cell_bin`'s kept set) are copied into a kept-only sorted
+    order, where a B-cell window and its guarded strips are contiguous runs
+    again; a body past the cap is neither target nor source. n_overflow is
+    the number of such bodies. Full column is B = g: the guarded strip
+    clamps to the whole column, the pair set of K8's 9 column visits;
+  * bucketed (buckets=...): each occupied window goes to the first bucket
+    whose caps cover its target count and its largest neighbour-strip run; a
+    window past a bucket's budget spills to the next bucket, and only the
+    last bucket drops windows. Targets are the first min(count, t_rows)
+    bodies of the window's run; sources are, per neighbour strip, the first
+    min(run, s_capw) bodies, masked by the global symmetric-drop mask `t_ok`
+    (a body without a target slot is no source either). n_overflow counts
+    dropped windows' bodies, target rows past t_rows and source lanes past
+    s_capw in each selected window's 9 strips;
+  * occupancy-compacted (packed_caps and max_blocks): the one-bucket case of
+    the bucketed layout, bucket (t_cap, s_cap, max_blocks);
+  * band-packed (packed_caps alone): every window at caps (t_cap, s_cap); the
+    same kept set as one bucket whose budget holds every window, but the
+    source overflow is counted once per (column, band)'s own guarded strip,
+    not once per use.
 
 What does not carry over from the TPU: the materialised [blocks, 16, S]
-source blocks, the whole-grid strips table, the "grid"/"slice" strip
-constructions, the 128-lane padding and the dead padding row. Here each
-bucket hands the kernel one int32 descriptor per window (target start and
-count, 9 source starts and lengths), and the kernel reads the cell-sorted
-bodies itself and writes each target's result straight to body order.
+source blocks, K8's 9 scalar-prefetch-driven revisits of each column, the
+whole-grid strips table, the "grid"/"slice" strip constructions (the
+argument is accepted and changes nothing, as it changes no result in the
+JAX package), the 128-lane padding and the dead padding row.
 
-`collide_fused` sends a CUDA tensor to the kernel of
-`nbx_torch/csrc/collide_fused.cu` and a CPU tensor to
-`collide_fused_reference`, its plain PyTorch version; a CUDA call launches the
-kernel or raises. `collide_fused.launches` counts launches.
+`collide_fused` (windowed layouts), `collide_full_column` (the full-column
+layout) and `collide_fused_multi` (windows_per_block > 1, the TPU kernel
+K2m) launch the kernel of `nbx_torch/csrc/collide_fused.cu` on CUDA tensors
+and run `collide_fused_reference`, its plain PyTorch version, on CPU
+tensors; a CUDA call launches the kernel or raises. Each counts its launches
+in `.launches`.
 
-Host-side sizing (`bucketed_layout_for`, `bucket_flags_host`, ...) is numpy
-and gives the same integer tuples as the JAX package for the same positions.
-Nothing on the device side reads a value back to the host.
+Host-side sizing (`bucketed_layout_for`, `packed_caps_for`,
+`packed_layout_for`, ...) is numpy and gives the same integers as the JAX
+package for the same positions. Nothing on the device side reads a value
+back to the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -57,6 +75,7 @@ CORRECTION = 0.8  # Baumgarte factor
 HEAT_FRACTION = 0.2  # impact heating fraction
 DEPTH_SENTINEL = -1e30
 WIN_INTS = 20  # window descriptor: ts, tn, 9 x (strip start, strip length)
+CONSTRUCTIONS = ("auto", "grid", "slice")  # the JAX package's strip constructions
 
 _KERNEL = "collide_fused"
 _PAIR_BUDGET = 1 << 22  # pair lanes per chunk of the plain version
@@ -193,6 +212,91 @@ def bucketed_layout_for(
     )
 
 
+def _cap_pick(cnt: np.ndarray, quantile: float, slack: float) -> int:
+    """A cap covering the occupied entries of cnt (their max, or their
+    `quantile`) with `slack` headroom, at least 8."""
+    occ = cnt[cnt > 0]
+    if occ.size == 0:
+        return 8
+    v = occ.max() if quantile >= 1.0 else np.quantile(occ, quantile)
+    return max(8, int(np.ceil(v * slack)))
+
+
+def packed_caps_for(
+    pos,
+    box_size: float,
+    n_cells: int,
+    band_cells: int,
+    slack: float = 1.25,
+    quantile: float = 1.0,
+    max_source_lanes: int = 4096,
+) -> tuple[int, int]:
+    """packed_caps = (t_cap, s_cap) for the band-packed layout, covering this
+    frame's target windows and guarded strips (their max, or their occupancy
+    `quantile`: bounded work at the price of counted overflow) with `slack`
+    headroom. Host-side, Python ints: call once per scene, or again when
+    n_overflow goes nonzero. Raises, as the JAX package does, when the caps
+    need more than max_source_lanes fused source lanes: occupancy too peaked
+    for uniform window caps (use the banded per-cell-cap layout, a lower
+    quantile or a finer n_cells)."""
+    cnt_t, cnt_s = _window_counts(pos, box_size, n_cells, band_cells)
+    t_cap, s_cap = _cap_pick(cnt_t, quantile, slack), _cap_pick(cnt_s, quantile, slack)
+    if 9 * s_cap > max_source_lanes:
+        occ_frac = float((cnt_t > 0).mean())
+        raise ValueError(
+            f"packed caps ({t_cap}, {s_cap}) need {9 * s_cap} fused source"
+            f" lanes (> {max_source_lanes}): occupancy is too peaked for"
+            f" uniform window caps ({occ_frac:.1%} of windows occupied)."
+            " Use the banded per-cell-cap layout (band_cells without"
+            " packed_caps), a lower quantile=, or a finer n_cells."
+        )
+    return t_cap, s_cap
+
+
+def packed_layout_for(
+    pos,
+    box_size: float,
+    n_cells: int,
+    band_cells: int,
+    slack: float = 1.25,
+    quantile: float = 1.0,
+    block_slack: float = 1.3,
+    max_source_lanes: int = 8192,
+    max_block_pair_lanes: int = 2 * 1024 * 1024,
+) -> dict:
+    """An occupancy-compacted configuration for this frame:
+    dict(packed_caps=(t_cap, s_cap), max_blocks, occupied, occupied_frac).
+    Caps as packed_caps_for; max_blocks covers the occupied windows with
+    `block_slack` headroom for bodies moving into empty windows. Host-side,
+    Python ints. Raises where the JAX package raises (its bounds are TPU
+    compile bounds, kept so both packages accept the same configurations)."""
+    cnt_t, cnt_s = _window_counts(pos, box_size, n_cells, band_cells)
+    t_cap, s_cap = _cap_pick(cnt_t, quantile, slack), _cap_pick(cnt_s, quantile, slack)
+    if 9 * s_cap > max_source_lanes:
+        raise ValueError(
+            f"compacted packed caps ({t_cap}, {s_cap}) need {9 * s_cap}"
+            f" fused source lanes (> {max_source_lanes}). Use a finer n_cells"
+            " or a lower quantile."
+        )
+    t_rows = _round_up(max(t_cap, 8), 8)
+    s_rows = _round_up(max(9 * s_cap, 9 * 8), LANE)
+    if t_rows * s_rows > max_block_pair_lanes:
+        raise ValueError(
+            f"compacted packed block ({t_rows} x {s_rows}) ="
+            f" {t_rows * s_rows} pair lanes per window"
+            f" (> {max_block_pair_lanes}). Use a finer n_cells (smaller"
+            " windows) or a lower quantile."
+        )
+    occupied = int((cnt_t > 0).sum())
+    max_blocks = max(8, -(-int(np.ceil(occupied * block_slack)) // 8) * 8)
+    return dict(
+        packed_caps=(t_cap, s_cap),
+        max_blocks=max_blocks,
+        occupied=occupied,
+        occupied_frac=occupied / int(cnt_t.size),
+    )
+
+
 # ---- device-side layout -----------------------------------------------------
 
 def _column_neighbors_of(cc: torch.Tensor, g: int) -> torch.Tensor:
@@ -214,35 +318,53 @@ def _bucket_block_geom(t_cap: int, s_cap: int) -> tuple[int, int]:
     return _round_up(max(t_cap, 8), 8), max(s_cap, 8)
 
 
-def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets):
-    """Window descriptors of every bucket, the symmetric-drop mask and the
-    overflow count.
-
-    Returns ([(win [bmax, 20] i32, t_rows, s_capw) per bucket],
-    t_ok [n] bool over sorted positions, n_overflow [] i32)."""
+def _window_tables(starts: torch.Tensor, g: int, b: int):
+    """Every (column, band) window of a cell-sorted order with cell runs
+    starts [g^3 + 1]: (ts [n_cols, n_bands] target start, cnt [n_cols,
+    n_bands] target count, ss9 [n_cols, n_bands, 9] and run9 [n_cols,
+    n_bands, 9] the start and length of each neighbour column's guarded
+    strip), int64. Off-grid neighbours have empty strips."""
     dev = starts.device
     n_cols = g * g
     g3 = n_cols * g
     n_bands = -(-g // b)
     st = starts.long()
-
     cols = torch.arange(n_cols, device=dev)
     w_r = torch.arange(n_bands, device=dev)
-    ts_tab = st[cols[:, None] * g + w_r[None, :] * b]  # [n_cols, n_bands]
-    te_tab = st[cols[:, None] * g + torch.clamp(w_r[None, :] * b + b, max=g)]
-    cnt_t = te_tab - ts_tab
+    ts_tab = st[cols[:, None] * g + w_r[None, :] * b]
+    cnt_t = st[cols[:, None] * g + torch.clamp(w_r[None, :] * b + b, max=g)] - ts_tab
     lo = torch.clamp(w_r * b - 1, min=0)  # guarded strip cells [lo, hi)
     hi = torch.clamp(w_r * b + b + 1, max=g)
     neigh = _column_neighbors_of(cols, g)[:, None, :]  # [n_cols, 1, 9]
     okn = neigh < n_cols
-    ss9 = st[torch.where(okn, neigh * g + lo[None, :, None], g3)]  # [n_cols, n_bands, 9]
-    se9 = st[torch.where(okn, neigh * g + hi[None, :, None], g3)]
-    run9 = se9 - ss9
+    ss9 = st[torch.where(okn, neigh * g + lo[None, :, None], g3)]
+    run9 = st[torch.where(okn, neigh * g + hi[None, :, None], g3)] - ss9
+    return ts_tab, cnt_t, ss9, run9
+
+
+def _descriptors(ts, tn, ss9, run9) -> torch.Tensor:
+    """Window descriptors [W, 20] i32 from per-window target starts and
+    counts [W] and strip starts and lengths [W, 9]."""
+    strips = torch.stack([ss9, run9], dim=-1).reshape(-1, 18)
+    return torch.cat([ts.reshape(-1, 1), tn.reshape(-1, 1), strips], dim=1).to(torch.int32).contiguous()
+
+
+def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets, own_strips: bool = False):
+    """Window descriptors of every bucket, the symmetric-drop mask and the
+    overflow count. own_strips=True counts the source overflow once per
+    (column, band)'s own guarded strip (the band-packed layout) instead of
+    once per use in each selected window's 9 strips.
+
+    Returns ([(win [bmax, 20] i32, t_rows, s_capw) per bucket],
+    t_ok [n] bool over sorted positions, n_overflow [] i32)."""
+    dev = starts.device
+    n_bands = -(-g // b)
+    ts_tab, cnt_t, ss9, run9 = _window_tables(starts, g, b)
     maxrun = run9.amax(2)
 
     # bucket assignment: first covering bucket; over-budget windows spill to
     # the next bucket, and only the last one drops
-    sels, flags, wranks = [], [], []
+    sels, flags = [], []
     remaining = cnt_t > 0
     for bi, (t_cap, s_cap, bmax) in enumerate(buckets):
         if bi == len(buckets) - 1:
@@ -255,7 +377,6 @@ def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets):
         remaining = remaining & ~sel.reshape(cnt_t.shape)
         sels.append(sel)
         flags.append(flf)
-        wranks.append(wrank)
 
     # global symmetric-drop mask over sorted positions: a body is a source
     # only if it holds a target slot in some bucket
@@ -283,16 +404,38 @@ def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets):
         cnt_sel = torch.where(wvalid, cnt_t[col_sel, w_sel], 0)
         n_overflow = n_overflow + torch.clamp(cnt_sel - t_rows, min=0).sum()
         run_sel = torch.where(wvalid[:, None], run9[col_sel, w_sel], 0)
-        n_overflow = n_overflow + torch.clamp(run_sel - s_capw, min=0).sum()
-        strips = torch.stack(
-            [ss9[col_sel, w_sel], torch.clamp(run_sel, max=s_capw)], dim=2
-        ).reshape(-1, 18)
-        win = torch.cat(
-            [ts_tab[col_sel, w_sel][:, None], torch.clamp(cnt_sel, max=t_rows)[:, None], strips],
-            dim=1,
-        ).to(torch.int32).contiguous()
+        if own_strips:  # the centre of the 9 neighbours is the window's own column
+            n_overflow = n_overflow + torch.clamp(run9[..., 4] - s_capw, min=0).sum()
+        else:
+            n_overflow = n_overflow + torch.clamp(run_sel - s_capw, min=0).sum()
+        win = _descriptors(ts_tab[col_sel, w_sel], torch.clamp(cnt_sel, max=t_rows), ss9[col_sel, w_sel],
+                           torch.clamp(run_sel, max=s_capw))
         out.append((win, t_rows, s_capw))
     return out, t_ok, n_overflow.to(torch.int32)
+
+
+def _kept_windows(pos, box_size: float, g: int, b: int, k: int):
+    """The per-cell-cap layouts' windows: the first k bodies of each cell by
+    the stable cell sort are copied into a kept-only sorted order, and every
+    (column, band) window of b cells gets a descriptor into it.
+
+    Returns (order_k [n] i32 kept position -> body id (rows past the kept
+    bodies are never read), win [n_cols * n_bands, 20] i32, t_rows, s_capw
+    (the largest target count and strip length a window can hold),
+    n_overflow [] i32 the bodies past k in their cells)."""
+    n = pos.shape[0]
+    order, starts, cid_sorted = cell_sort(pos, box_size, g)
+    cid = cid_sorted.long()
+    st = starts.long()
+    kstarts = torch.cat([st.new_zeros(1), torch.cumsum(torch.clamp(st[1:] - st[:-1], max=k), 0)])
+    rank = torch.arange(n, device=pos.device) - st[cid]
+    keep = rank < k
+    dest = torch.where(keep, kstarts[cid] + rank, n)
+    order_k = order.new_zeros(n + 1)
+    order_k[dest] = order  # dropped bodies all land on the spare row n
+    ts_tab, cnt_t, ss9, run9 = _window_tables(kstarts, g, b)
+    win = _descriptors(ts_tab, cnt_t, ss9, run9)
+    return order_k[:n], win, b * k, min(b + 2, g) * k, n - keep.sum(dtype=torch.int32)
 
 
 # ---- K2: the kernel and its plain version ----------------------------------
@@ -310,15 +453,20 @@ def collide_fused_reference(
     s_capw: int,
 ) -> None:
     """Plain PyTorch version of the kernel: the same windows, kept set and
-    pair math, over [windows, t_rows, 9 s_capw] pair tensors in chunks of
-    windows of at most _PAIR_BUDGET pair lanes. Writes each target's
-    delta row (dvx dvy dvz dpx dpy dpz heat n_bounce) and partner (-1 =
-    none) to body order; other rows are left as they are."""
+    pair math, over [windows, T, 9 S] pair tensors in chunks of windows of at
+    most _PAIR_BUDGET pair lanes, T and S the largest target count and strip
+    length these windows hold (at most t_rows and s_capw; read on the host).
+    Windows without targets are skipped. Writes each target's delta row (dvx
+    dvy dvz dpx dpy dpz heat n_bounce) and partner (-1 = none) to body order;
+    other rows are left as they are."""
     n = feats.shape[0]
+    win = win[win[:, 1] > 0]
     n_win = win.shape[0]
     if n_win == 0 or n == 0:
         return
     dev = feats.device
+    t_rows = max(1, min(t_rows, int(win[:, 1].max())))
+    s_capw = max(1, min(s_capw, int(win[:, 3::2].max())))
     s_all = 9 * s_capw
     one_e = f32(1.0 + f32(restitution))
     fric = f32(friction)
@@ -403,35 +551,23 @@ def _entry():
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
 
 
-def collide_fused(
-    feats: torch.Tensor,
-    order: torch.Tensor,
-    src_ok: torch.Tensor,
-    win: torch.Tensor,
-    out_d: torch.Tensor,
-    out_j: torch.Tensor,
-    restitution: float,
-    friction: float,
-    t_rows: int,
-    s_capw: int,
-) -> None:
-    """One bucket's collision pass (see collide_fused_reference for the
-    arguments): writes every target's delta row and deepest partner to body
-    order in out_d / out_j. A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel, one thread block per window."""
+def _run(name, feats, order, src_ok, win, out_d, out_j, restitution, friction, t_rows, s_capw,
+         windows_per_block: int) -> bool:
+    """The plain version on CPU tensors, the kernel on CUDA tensors (one
+    thread block per windows_per_block windows); True if it launched."""
     if feats.device.type == "cpu":
         collide_fused_reference(feats, order, src_ok, win, out_d, out_j,
                                 restitution, friction, t_rows, s_capw)
-        return
+        return False
     if feats.device.type != "cuda":
-        raise ValueError(f"collide_fused runs on CPU or CUDA tensors, got {feats.device}")
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {feats.device}")
     n, n_win = feats.shape[0], win.shape[0]
     dev = feats.device
     _check("feats", feats, torch.float32, (n, 8), dev)
@@ -442,34 +578,62 @@ def collide_fused(
     _check("out_j", out_j, torch.int32, (n,), dev)
     if feats.data_ptr() % 16:
         raise ValueError("feats must be 16-byte aligned (rows are read as float4)")
+    if windows_per_block < 1:
+        raise ValueError(f"windows_per_block must be >= 1, got {windows_per_block}")
     if n_win == 0 or n == 0:
-        return
+        return False
     threads = min(256, _round_up(max(t_rows, 1), 32))
     with torch.cuda.device(dev):
         err = _entry()(
             feats.data_ptr(), order.data_ptr(), src_ok.data_ptr(), win.data_ptr(),
-            out_d.data_ptr(), out_j.data_ptr(), n_win, threads,
+            out_d.data_ptr(), out_j.data_ptr(), n_win, windows_per_block, threads,
             f32(restitution), f32(friction), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"collide_fused launch failed: cudaError_t {err}")
-    collide_fused.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    return True
+
+
+def collide_fused(feats, order, src_ok, win, out_d, out_j, restitution: float, friction: float,
+                  t_rows: int, s_capw: int) -> None:
+    """One window set's collision pass (see collide_fused_reference for the
+    arguments): writes every target's delta row and deepest partner to body
+    order in out_d / out_j. A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel, one thread block per window (the TPU kernel
+    K2's launches: the bucketed, banded, band-packed and compacted layouts)."""
+    if _run("collide_fused", feats, order, src_ok, win, out_d, out_j, restitution, friction, t_rows,
+            s_capw, 1):
+        collide_fused.launches += 1
+
+
+def collide_full_column(feats, order, src_ok, win, out_d, out_j, restitution: float, friction: float,
+                        t_rows: int, s_capw: int) -> None:
+    """collide_fused over the full-column layout's windows, one block per
+    (i, j) column against its 9 neighbour columns: the function of the TPU
+    kernel K8, whose 9 revisits per column are one visit here. Counted
+    apart from collide_fused."""
+    if _run("collide_full_column", feats, order, src_ok, win, out_d, out_j, restitution, friction,
+            t_rows, s_capw, 1):
+        collide_full_column.launches += 1
+
+
+def collide_fused_multi(feats, order, src_ok, win, out_d, out_j, restitution: float, friction: float,
+                        t_rows: int, s_capw: int, windows_per_block: int) -> None:
+    """collide_fused with each thread block walking windows_per_block
+    windows in turn (the TPU kernel K2m): the same pair set and arithmetic,
+    so on the card bitwise the result of windows_per_block = 1. The plain
+    version is collide_fused's (windows are independent)."""
+    if _run("collide_fused_multi", feats, order, src_ok, win, out_d, out_j, restitution, friction,
+            t_rows, s_capw, windows_per_block):
+        collide_fused_multi.launches += 1
 
 
 collide_fused.launches = 0
+collide_full_column.launches = 0
+collide_fused_multi.launches = 0
 
 
 # ---- the pass ---------------------------------------------------------------
-
-def _unported_layout(band_cells, packed_caps, max_blocks) -> str:
-    if band_cells is None:
-        return "the full-column layout (band_cells=None, kernel K8)"
-    if max_blocks is not None:
-        return "the occupancy-compacted layout (max_blocks)"
-    if packed_caps is not None:
-        return "the band-packed layout (packed_caps)"
-    return "the banded per-cell-cap layout (band_cells without buckets)"
-
 
 def binned_collision_pass(
     pos: torch.Tensor,  # [N, 3] binning domain [0, box)^3 (outside clamps to faces)
@@ -485,46 +649,109 @@ def binned_collision_pass(
     packed_caps: tuple[int, int] | None = None,
     max_blocks: int | None = None,
     buckets: tuple[tuple[int, int, int], ...] | None = None,
+    windows_per_block: int = 1,
+    construction: str = "auto",
 ):
-    """One fused collision sweep over the 27-cell neighbourhoods, in the
-    occupancy-bucketed layout (buckets from bucketed_layout_for; band_cells
-    required). max_per_cell is accepted for the JAX signature and unused, as
-    there.
+    """One fused collision sweep over the 27-cell neighbourhoods (module
+    docstring for the layouts). One layout switch at a time, as in the JAX
+    package:
+
+      * buckets=((t_cap, s_cap, max_blocks), ...) (from bucketed_layout_for;
+        needs band_cells): the occupancy-bucketed layout;
+      * packed_caps=(t_cap, s_cap) with max_blocks (from packed_layout_for;
+        needs band_cells): the occupancy-compacted layout;
+      * packed_caps alone (from packed_caps_for; needs band_cells): the
+        band-packed layout;
+      * band_cells=B alone: the banded layout, max_per_cell bodies a cell;
+      * none of them: the full-column layout, max_per_cell bodies a cell.
+
+    max_per_cell is read by the last two only. windows_per_block=W > 1 runs W
+    windows in each thread block of the bucketed layout (the other layouts
+    ignore it, as the JAX package does). construction ("auto" | "grid" |
+    "slice") names a JAX strip construction; every value computes the same.
 
     Returns (dvel [N, 3], dpos [N, 3], dtemp [N], best, n_bounces,
     n_overflow, cell_too_small): Jacobi deltas to add to the state, and
     `best`, each body's deepest-overlap partner record: dict(j [N] i32
     (-1 = none), vn, q, energy, m_j [N] f32, approaching [N] bool)."""
-    if buckets is None:
-        raise NotImplementedError(
-            f"{_unported_layout(band_cells, packed_caps, max_blocks)} is not ported"
-            " yet (ROADMAP.md Queue 2); pass buckets= from bucketed_layout_for"
-        )
+    if construction not in CONSTRUCTIONS:
+        raise ValueError(f"construction must be one of {CONSTRUCTIONS}, got {construction!r}")
+    run, layout, fused = _layout_call(n_cells, max_per_cell, band_cells, packed_caps, max_blocks, buckets,
+                                      windows_per_block)
+    return run(pos, vel, mass, radius, box_size, n_cells, *layout, restitution, friction, fused)
+
+
+def _layout_call(g, max_per_cell, band_cells, packed_caps, max_blocks, buckets, windows_per_block=1):
+    """(pass function, its layout arguments, kernel wrapper) of one layout
+    switch, with the JAX package's argument checks: run(pos, vel, mass,
+    radius, box_size, g, *layout, restitution, friction, fused) is the pass
+    (fused = collide_fused_reference runs its plain version)."""
+    if windows_per_block < 1:
+        raise ValueError(f"windows_per_block must be >= 1, got {windows_per_block}")
+    if buckets is not None:
+        if band_cells is None:
+            raise ValueError("buckets requires band_cells")
+        if packed_caps is not None or max_blocks is not None:
+            raise ValueError("buckets excludes packed_caps/max_blocks (one layout switch at a time)")
+        fused = collide_fused if windows_per_block == 1 else functools.partial(
+            collide_fused_multi, windows_per_block=windows_per_block)
+        return _bucketed_pass, (band_cells, buckets), fused
+    if max_blocks is not None:
+        if packed_caps is None or band_cells is None:
+            raise ValueError("max_blocks requires band_cells and packed_caps")
+        return _bucketed_pass, (band_cells, ((*packed_caps, max_blocks),)), collide_fused
+    if packed_caps is not None:
+        if band_cells is None:
+            raise ValueError("packed_caps requires band_cells")
+        # every window in one bucket; the source overflow per own strip
+        n_windows = g * g * -(-g // band_cells)
+        return (functools.partial(_bucketed_pass, own_strips=True),
+                (band_cells, ((*packed_caps, n_windows),)), collide_fused)
     if band_cells is None:
-        raise ValueError("buckets requires band_cells")
-    if packed_caps is not None or max_blocks is not None:
-        raise ValueError("buckets excludes packed_caps/max_blocks (one layout switch at a time)")
-    del max_per_cell
-    return _bucketed_pass(pos, vel, mass, radius, box_size, n_cells, band_cells, buckets,
-                          restitution, friction, collide_fused)
+        return _per_cell_pass, (g, max_per_cell), collide_full_column
+    if not 1 <= band_cells <= g:
+        raise ValueError(f"band_cells must be in [1, {g}], got {band_cells}")
+    return _per_cell_pass, (band_cells, max_per_cell), collide_fused
+
+
+def _sorted_feats(pos, vel, mass, radius, order):
+    """[n, 8] rows x y z vx vy vz m r in the given order."""
+    return torch.cat([pos, vel, mass[:, None], radius[:, None]], dim=1)[order.long()]
+
+
+def _outputs(n: int, dev):
+    return (torch.zeros((n, 8), dtype=torch.float32, device=dev),
+            torch.full((n,), -1, dtype=torch.int32, device=dev))
 
 
 def _bucketed_pass(pos, vel, mass, radius, box_size, g, b, buckets, restitution, friction,
-                   fused):
-    """binned_collision_pass's bucketed layout, with `fused` (collide_fused,
-    or collide_fused_reference to hold the kernel against it) run once per
+                   fused, own_strips: bool = False):
+    """binned_collision_pass's bucketed layout (and the compacted and
+    band-packed layouts through it), with `fused` (a kernel wrapper, or
+    collide_fused_reference to hold the kernel against it) run once per
     bucket."""
     n = pos.shape[0]
-    dev = pos.device
     cell_too_small = 2.0 * radius.max() > cell_size(box_size, g)
     order, starts, cid_sorted = cell_sort(pos, box_size, g)
-    feats = torch.cat([pos, vel, mass[:, None], radius[:, None]], dim=1)[order.long()]
-    windows, t_ok, n_overflow = _bucket_windows(starts, cid_sorted, n, g, b, buckets)
-
-    out_d = torch.zeros((n, 8), dtype=torch.float32, device=dev)
-    out_j = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    feats = _sorted_feats(pos, vel, mass, radius, order)
+    windows, t_ok, n_overflow = _bucket_windows(starts, cid_sorted, n, g, b, buckets, own_strips)
+    out_d, out_j = _outputs(n, pos.device)
     for win, t_rows, s_capw in windows:
         fused(feats, order, t_ok, win, out_d, out_j, restitution, friction, t_rows, s_capw)
+    return _epilogue_finish(out_d, out_j, pos, vel, mass, n_overflow, cell_too_small)
+
+
+def _per_cell_pass(pos, vel, mass, radius, box_size, g, b, k, restitution, friction, fused):
+    """The banded layout (b < g) or the full-column layout (b = g) at k
+    bodies a cell, with `fused` (a kernel wrapper, or
+    collide_fused_reference)."""
+    n = pos.shape[0]
+    cell_too_small = 2.0 * radius.max() > cell_size(box_size, g)
+    order_k, win, t_rows, s_capw, n_overflow = _kept_windows(pos, box_size, g, b, k)
+    feats = _sorted_feats(pos, vel, mass, radius, order_k)
+    src_ok = torch.ones(n, dtype=torch.bool, device=pos.device)  # every kept body is a source
+    out_d, out_j = _outputs(n, pos.device)
+    fused(feats, order_k, src_ok, win, out_d, out_j, restitution, friction, t_rows, s_capw)
     return _epilogue_finish(out_d, out_j, pos, vel, mass, n_overflow, cell_too_small)
 
 

@@ -1,10 +1,13 @@
-"""nbx_torch.ops.collide (the bucketed collision pass, kernel K2's plain
-version on the CPU) and its binning helpers against nbx.ops.collide /
-nbx.ops.p3m, the Pallas kernel in interpret mode as the JAX suite runs it.
+"""nbx_torch.ops.collide (every layout of the collision pass, the kernel's
+plain version on the CPU) and its binning and sizing helpers against
+nbx.ops.collide / nbx.ops.p3m, the Pallas kernels in interpret mode as the
+JAX suite runs them.
 
-Cell sorts, bucket sizing, partners, bounce and overflow counts and the
-cell-size flag must match exactly; the deltas to 1e-5 of each field's largest
-magnitude (float32 sums in another order)."""
+Cell sorts, layout sizing, partners, `approaching`, bounce and overflow
+counts and the cell-size flag must match exactly; the deltas and the partner
+record's floats to 1e-5 of each field's largest magnitude (float32 sums in
+another order; the full-column TPU kernel also uses other, equivalent
+arithmetic)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -112,27 +115,10 @@ def _pass_case(name):
 @pytest.mark.parametrize("name", ["two_buckets", "three_buckets", "tiny_budgets", "dead_bodies"])
 def test_binned_pass_matches(name):
     pos, vel, mass, radius, g, b, buckets = _pass_case(name)
-    got = collide.binned_collision_pass(
-        _t(pos), _t(vel), _t(mass), _t(radius), BOX, g, band_cells=b, buckets=buckets)
-    want = jcollide.binned_collision_pass(
-        jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(mass), jnp.asarray(radius), BOX,
-        n_cells=g, band_cells=b, buckets=buckets, interpret=True)
-    dv, dp, dt, best, nb, ovf, small = got
-    jdv, jdp, jdt, jbest, jnb, jovf, jsmall = want
-    assert_close(dv.numpy(), jdv, "dvel")
-    assert_close(dp.numpy(), jdp, "dpos")
-    assert_close(dt.numpy(), jdt, "dtemp")
-    np.testing.assert_array_equal(best["j"].numpy(), np.asarray(jbest["j"]))
-    np.testing.assert_array_equal(best["approaching"].numpy(), np.asarray(jbest["approaching"]))
-    for k in ("vn", "q", "energy", "m_j"):
-        assert_close(best[k].numpy(), jbest[k], k)
-    assert int(nb) == int(jnb) > 0
-    assert int(ovf) == int(jovf)
-    assert bool(small) == bool(jsmall)
-    if name == "tiny_budgets":
-        assert int(ovf) > 0
-    else:
-        assert int(ovf) == 0
+    got, want = _both_passes(pos, vel, mass, radius, g, band_cells=b, buckets=buckets)
+    _assert_pass_matches(got, want)
+    assert int(got[4]) > 0
+    assert (int(got[5]) > 0) == (name == "tiny_budgets")
 
 
 def test_buckets_populated():
@@ -145,22 +131,188 @@ def test_buckets_populated():
         assert all(f.any() for f in flags), name
 
 
-@pytest.mark.parametrize("kw", [
-    dict(),  # full column (K8)
-    dict(band_cells=4),  # banded per-cell caps
-    dict(band_cells=4, packed_caps=(32, 64)),
-    dict(band_cells=4, packed_caps=(32, 64), max_blocks=16),
+def _assert_pass_matches(got, want):
+    """Every output of binned_collision_pass against the JAX package's."""
+    dv, dp, dt, best, nb, ovf, small = got
+    jdv, jdp, jdt, jbest, jnb, jovf, jsmall = want
+    assert_close(dv.numpy(), jdv, "dvel")
+    assert_close(dp.numpy(), jdp, "dpos")
+    assert_close(dt.numpy(), jdt, "dtemp")
+    np.testing.assert_array_equal(best["j"].numpy(), np.asarray(jbest["j"]))
+    np.testing.assert_array_equal(best["approaching"].numpy(), np.asarray(jbest["approaching"]))
+    for k in ("vn", "q", "energy", "m_j"):
+        assert_close(best[k].numpy(), jbest[k], k)
+    assert int(nb) == int(jnb)
+    assert int(ovf) == int(jovf)
+    assert bool(small) == bool(jsmall)
+
+
+def _both_passes(pos, vel, mass, radius, g, **kw):
+    got = collide.binned_collision_pass(_t(pos), _t(vel), _t(mass), _t(radius), BOX, g, **kw)
+    want = jcollide.binned_collision_pass(
+        jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(mass), jnp.asarray(radius), BOX,
+        n_cells=g, interpret=True, **kw)
+    return got, want
+
+
+def _layout_case(name):
+    """(pos, vel, mass, radius, g, layout keywords, overflows) of the named
+    case of the full-column, banded, band-packed and compacted layouts."""
+    pos, vel, mass = _clustered_scene(seed=9 if name.endswith("dead") else 7)
+    radius = _radius(mass, 2.0)
+    if name.endswith("dead"):
+        mass[::5] = 0.0  # dead slots still bin and take their cells' slots
+    cases = {
+        # per-cell caps K: the clustered scene holds up to 49 bodies a cell at
+        # g = 8 and 70 at g = 4
+        "full_column_cover": (4, dict(max_per_cell=80), False),
+        "full_column_k16": (8, dict(max_per_cell=16), True),
+        "full_column_dead": (8, dict(max_per_cell=16), True),
+        "banded_cover": (4, dict(band_cells=2, max_per_cell=80), False),
+        "banded_k4": (8, dict(band_cells=4, max_per_cell=4), True),
+        "banded_dead": (8, dict(band_cells=3, max_per_cell=16), True),  # 3 does not divide 8
+        # band-packed: caps from packed_caps_for cover every window; (8, 10)
+        # drops target rows and source lanes; (68, 24) source lanes only
+        "band_packed_cover": (8, dict(band_cells=4, packed_caps="sized"), False),
+        "band_packed_tiny": (8, dict(band_cells=4, packed_caps=(8, 10)), True),
+        "band_packed_sources": (8, dict(band_cells=4, packed_caps=(68, 24)), True),
+        # compacted: packed_layout_for covers; a budget of 40 of the 72
+        # occupied windows drops windows only; tiny caps on dead bodies
+        "compacted_cover": (8, dict(band_cells=4, packed_caps="sized"), False),
+        "compacted_budget": (8, dict(band_cells=4, packed_caps=(68, 70), max_blocks=40), True),
+        "compacted_dead": (8, dict(band_cells=4, packed_caps=(16, 24), max_blocks=64), True),
+    }
+    g, kw, overflows = cases[name]
+    if kw.get("packed_caps") == "sized":
+        if name.startswith("compacted"):
+            lay = collide.packed_layout_for(pos, BOX, g, kw["band_cells"])
+            kw = dict(kw, packed_caps=lay["packed_caps"], max_blocks=lay["max_blocks"])
+        else:
+            kw = dict(kw, packed_caps=collide.packed_caps_for(pos, BOX, g, kw["band_cells"]))
+    return pos, vel, mass, radius, g, kw, overflows
+
+
+LAYOUT_CASES = ["full_column_cover", "full_column_k16", "full_column_dead", "banded_cover", "banded_k4",
+                "banded_dead", "band_packed_cover", "band_packed_tiny", "band_packed_sources",
+                "compacted_cover", "compacted_budget", "compacted_dead"]
+
+
+@pytest.mark.parametrize("name", LAYOUT_CASES)
+def test_layout_pass_matches(name):
+    pos, vel, mass, radius, g, kw, overflows = _layout_case(name)
+    got, want = _both_passes(pos, vel, mass, radius, g, **kw)
+    _assert_pass_matches(got, want)
+    assert int(got[4]) > 0
+    assert (int(got[5]) > 0) == overflows
+
+
+def test_band_packed_counts_source_overflow_per_own_strip():
+    """The band-packed layout counts a strip's missed lanes once, the
+    compacted layout once per window that reads it: on the same caps with a
+    budget for every window, the kept set is the same and the counts differ."""
+    pos, vel, mass, radius, g, kw, _ = _layout_case("band_packed_sources")
+    t = (_t(pos), _t(vel), _t(mass), _t(radius), BOX, g)
+    packed = collide.binned_collision_pass(*t, **kw)
+    compact = collide.binned_collision_pass(*t, max_blocks=g * g * 2, **kw)
+    for a, b in zip(packed[:3], compact[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(packed[3]["j"], compact[3]["j"])
+    assert 0 < int(packed[5]) < int(compact[5])
+
+
+@pytest.mark.parametrize("seed,g,b,q", [(7, 8, 4, 1.0), (11, 8, 2, 0.8), (8, 6, 3, 0.5), (5, 8, 8, 0.95)])
+def test_packed_sizing_matches(seed, g, b, q):
+    pos, _, _ = _clustered_scene(seed=seed)
+    got = collide.packed_caps_for(pos, BOX, g, b, quantile=q)
+    assert got == jcollide.packed_caps_for(jnp.asarray(pos), BOX, g, b, quantile=q)
+    assert all(isinstance(v, int) for v in got)
+    lay = collide.packed_layout_for(pos, BOX, g, b, quantile=q, block_slack=1.1)
+    jlay = jcollide.packed_layout_for(jnp.asarray(pos), BOX, g, b, quantile=q, block_slack=1.1)
+    assert lay == jlay
+    assert isinstance(lay["max_blocks"], int) and all(isinstance(v, int) for v in lay["packed_caps"])
+
+
+@pytest.mark.parametrize("fn,kw", [
+    ("packed_caps_for", dict(max_source_lanes=256)),
+    ("packed_layout_for", dict(max_source_lanes=256)),
+    ("packed_layout_for", dict(max_block_pair_lanes=4096)),
 ])
-def test_unported_layouts_raise(kw):
-    pos, vel, mass = _clustered_scene(n=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        collide.binned_collision_pass(_t(pos), _t(vel), _t(mass), _t(mass), BOX, 8, **kw)
+def test_packed_sizing_raises_where_jax_raises(fn, kw):
+    pos, _, _ = _clustered_scene()
+    with pytest.raises(ValueError):
+        getattr(jcollide, fn)(jnp.asarray(pos), BOX, 8, 4, **kw)
+    with pytest.raises(ValueError):
+        getattr(collide, fn)(pos, BOX, 8, 4, **kw)
 
 
-def test_kernel_wrapper_counts_no_cpu_launch():
-    """On CPU tensors the wrapper runs the plain version and counts nothing."""
+@pytest.mark.parametrize("construction", ["auto", "grid", "slice"])
+@pytest.mark.parametrize("windows", [1, 4])
+def test_windows_per_block_and_construction_change_nothing(windows, construction):
+    """The bucketed pass gives the same outputs for every windows_per_block
+    and construction (on the CPU the plain version runs; the card tests hold
+    the kernel at W > 1 bitwise against W = 1)."""
     pos, vel, mass, radius, g, b, buckets = _pass_case("two_buckets")
-    before = collide.collide_fused.launches
-    collide.binned_collision_pass(_t(pos), _t(vel), _t(mass), _t(radius), BOX, g,
-                                  band_cells=b, buckets=buckets)
-    assert collide.collide_fused.launches == before
+    t = (_t(pos), _t(vel), _t(mass), _t(radius), BOX, g)
+    base = collide.binned_collision_pass(*t, band_cells=b, buckets=buckets)
+    got = collide.binned_collision_pass(*t, band_cells=b, buckets=buckets, windows_per_block=windows,
+                                        construction=construction)
+    for a, w in zip(got[:3], base[:3]):
+        assert torch.equal(a, w)
+    for k in base[3]:
+        assert torch.equal(got[3][k], base[3][k])
+    assert [int(x) for x in got[4:]] == [int(x) for x in base[4:]]
+
+
+def test_multi_window_matches_jax():
+    """windows_per_block=4 and the slice construction on both packages."""
+    pos, vel, mass, radius, g, b, buckets = _pass_case("two_buckets")
+    got, want = _both_passes(pos, vel, mass, radius, g, band_cells=b, buckets=buckets,
+                             windows_per_block=4, construction="slice")
+    _assert_pass_matches(got, want)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(buckets=((8, 8, 8),)),  # buckets without band_cells
+    dict(band_cells=4, buckets=((8, 8, 8),), packed_caps=(8, 8)),
+    dict(band_cells=4, buckets=((8, 8, 8),), max_blocks=8),
+    dict(band_cells=4, max_blocks=8),  # max_blocks without packed_caps
+    dict(packed_caps=(8, 8), max_blocks=8),  # ... without band_cells
+    dict(packed_caps=(8, 8)),  # packed_caps without band_cells
+    dict(band_cells=0),
+    dict(band_cells=9),
+])
+def test_layout_argument_errors(kw):
+    """The JAX package's layout checks, with its ValueErrors."""
+    pos, vel, mass = _clustered_scene(n=32)
+    r = _radius(mass, 1.0)
+    with pytest.raises(ValueError):
+        jcollide.binned_collision_pass(jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(mass), jnp.asarray(r),
+                                       BOX, n_cells=8, interpret=True, **kw)
+    with pytest.raises(ValueError):
+        collide.binned_collision_pass(_t(pos), _t(vel), _t(mass), _t(r), BOX, 8, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(construction="sliec"), dict(windows_per_block=0)])
+def test_port_rejects_unknown_construction_and_window_count(kw):
+    """Where the JAX package silently takes an unknown construction as "grid"
+    and W < 1 as 1, the port raises."""
+    pos, vel, mass, radius, g, b, buckets = _pass_case("two_buckets")
+    with pytest.raises(ValueError):
+        collide.binned_collision_pass(_t(pos), _t(vel), _t(mass), _t(radius), BOX, g, band_cells=b,
+                                      buckets=buckets, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(windows_per_block=1), dict(windows_per_block=4), dict(band_cells=None)])
+def test_kernel_wrapper_counts_no_cpu_launch(kw):
+    """On CPU tensors every wrapper (collide_fused, collide_fused_multi,
+    collide_full_column) runs the plain version and counts nothing."""
+    pos, vel, mass, radius, g, b, buckets = _pass_case("two_buckets")
+    wrappers = (collide.collide_fused, collide.collide_fused_multi, collide.collide_full_column)
+    before = [w.launches for w in wrappers]
+    if kw.get("band_cells", b) is None:
+        kw = dict(max_per_cell=16)
+    else:
+        kw = dict(kw, band_cells=b, buckets=buckets)
+    out = collide.binned_collision_pass(_t(pos), _t(vel), _t(mass), _t(radius), BOX, g, **kw)
+    assert int(out[4]) > 0
+    assert [w.launches for w in wrappers] == before

@@ -21,6 +21,7 @@ from nbx.config import SimConfig as JaxConfig
 from nbx.config import default_materials as jax_default_materials
 from nbx_torch import collisions_scaled as cs
 from nbx_torch import convert
+from nbx_torch.bench import granular
 from nbx_torch.config import Materials, f32
 from nbx_torch.ops.collide import bucketed_layout_for
 from nbx_torch.ops.p3m import p3m_acceleration
@@ -189,6 +190,49 @@ def test_scan_rejects_p3m():
         cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass, device="cpu"), cfg, BOX, 1,
                                   n_cells=G_CELLS, band_cells=BAND, buckets=buckets, force_impl="p3m",
                                   pm_grid=16, p3m=dict(p3m_cells=4))
+
+
+@pytest.mark.parametrize("layout", ["default", "demo_banded"])
+def test_scan_layouts_match(layout):
+    """The scan with its default layout arguments (full columns, 16 bodies a
+    cell) and with the granular demo's banded configuration (its disk with
+    the live m = 2000 core, K = 12, direct-sum gravity "auto"; the band, 3,
+    does not divide the grid, as the demo's 6 does not divide its 28), a
+    few steps against the JAX scan. The grid is 8, not the JAX package's 32
+    and 28: its Pallas kernels in interpret mode take minutes a step there."""
+    if layout == "default":
+        pos, vel, mass = _scan_scene()
+        jcfg, cfg = _configs(G=0.5, dt=0.016, sub_steps=1, merge_time=0.02, fracture_threshold=4.0)
+        kw, n_steps = dict(n_cells=G_CELLS, force_impl="dense"), 3
+    else:
+        pos, vel, mass = granular.debris_disk(255, core_mass=2000.0)
+        jcfg, cfg = _configs(G=0.5, dt=0.016, sub_steps=1, merge_time=0.25, fracture_threshold=8.0)
+        kw, n_steps = dict(n_cells=G_CELLS, max_per_cell=12, band_cells=3, force_impl="auto"), 2
+    jst0 = jcs.make_granular_state(pos, vel, mass, key=2)
+    jst, jtot, jev = jcs.granular_full_kdk_scan(jst0, jcfg, BOX, n_steps, interpret=True, log_events=True,
+                                                **kw)
+    st, tot, ev = cs.granular_full_kdk_scan(
+        port_granular_state(jst0), cfg, BOX, n_steps, draws=jax_scan_draws(jst0.key, jcfg, n_steps),
+        log_events=True, **kw)
+    assert_totals_match(tot, jtot)
+    assert_scaled_events_match(ev, jev)
+    assert_granular_matches(st, jst)
+    assert int(tot["n_bounces"]) > 0 and int(tot["n_overflow"]) > 0
+    assert bool(tot["cell_too_small"]) == (layout == "demo_banded")  # the core's radius, about 7.8
+
+
+def test_scan_with_every_default_is_full_columns():
+    """granular_full_kdk_scan(st, cfg, box, n) runs the full-column layout at
+    16 bodies a cell on a 32^3 grid: the steps of band_cells = 32 (the same
+    windows through the other wrapper)."""
+    pos, vel, mass = _scan_scene()
+    _, cfg = _configs(G=0.5, dt=0.016, sub_steps=1, merge_time=0.02, fracture_threshold=4.0)
+    a, ta = cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass, seed=1, device="cpu"), cfg, BOX, 2)
+    b, tb = cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass, seed=1, device="cpu"), cfg, BOX, 2,
+                                      n_cells=32, max_per_cell=16, band_cells=32, force_impl="auto")
+    for f in ("pos", "vel", "mass", "temp", "partner"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert {k: int(v) for k, v in ta.items()} == {k: int(v) for k, v in tb.items()}
 
 
 def test_granular_state_round_trip():

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each held against its plain PyTorch
-version, the frame step and the at-scale granular step on the card against
-the same steps on the CPU, and the steps free of host syncs (P3M's and the
-drift gate's too).
+version (the collision kernel in every layout, and at several windows a
+block bitwise against one), the frame step and the at-scale granular step
+(bucketed, and with the default full columns) on the card against the same
+steps on the CPU, and the steps free of host syncs (P3M's and the drift
+gate's too).
 
 Marked `cuda`: every test skips where torch sees no CUDA device. On a
 machine with a card (nvcc on PATH or under CUDA_HOME; no JAX needed):
@@ -183,6 +185,84 @@ def test_collide_kernel_matches_plain(dev, case):
     assert (int(got[5]) > 0) == (case == "tiny_budgets")
 
 
+# (seed, dead bodies, g, layout keywords): full column, banded, band-packed
+# and compacted, with caps that cover and caps that overflow
+LAYOUT_CASES = {
+    "full_column_cover": (7, False, 4, dict(max_per_cell=80)),
+    "full_column_k16_dead": (9, True, 8, dict(max_per_cell=16)),
+    "banded_k4": (7, False, 8, dict(band_cells=4, max_per_cell=4)),
+    "banded_b3_dead": (9, True, 8, dict(band_cells=3, max_per_cell=16)),
+    "band_packed_cover": (7, False, 8, dict(band_cells=4, packed_caps=(68, 70))),
+    "band_packed_sources": (7, False, 8, dict(band_cells=4, packed_caps=(68, 24))),
+    "compacted_budget": (7, False, 8, dict(band_cells=4, packed_caps=(68, 70), max_blocks=40)),
+    "compacted_dead": (9, True, 8, dict(band_cells=4, packed_caps=(16, 24), max_blocks=64)),
+}
+
+
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_layout_pass_kernel_matches_plain(dev, case):
+    """Each of the other layouts' pass through the kernel (K8's function for
+    full columns) against the same pass through the plain version."""
+    seed, dead, g, kw = LAYOUT_CASES[case]
+    inputs = _collide_inputs(*_clustered(seed, dead=dead), 2.0, dev)
+    run, layout, fused = collide._layout_call(g, kw.get("max_per_cell", 16), kw.get("band_cells"),
+                                              kw.get("packed_caps"), kw.get("max_blocks"), None)
+    assert (fused is collide.collide_full_column) == case.startswith("full_column")
+    before = fused.launches
+    got = run(*inputs, BOX, g, *layout, 0.2, 0.5, fused)
+    assert fused.launches == before + 1
+    want = run(*inputs, BOX, g, *layout, 0.2, 0.5, collide.collide_fused_reference)
+    for i in range(3):
+        assert _rel_err(got[i], want[i]) < TOL
+    assert torch.equal(got[3]["j"], want[3]["j"])
+    for i in (4, 5, 6):
+        assert int(got[i]) == int(want[i])
+    assert int(got[4]) > 0
+    assert (int(got[5]) > 0) == (case not in ("full_column_cover", "band_packed_cover"))
+
+
+@pytest.mark.parametrize("windows", [2, 4, 8, 1000])
+def test_multi_window_kernel_is_bitwise_one_window(dev, windows):
+    """K2m: every output of the bucketed pass at W windows a block equals
+    W = 1's bit for bit (W past the window count: one block)."""
+    pos, vel, mass = granular_cloud(16384, seed=1, box=50.0)
+    buckets = collide.bucketed_layout_for(pos, 50.0, 40, 12)
+    inputs = _collide_inputs(pos, vel, mass, 1.0, dev)
+    base = collide.binned_collision_pass(*inputs, 50.0, 40, band_cells=12, buckets=buckets)
+    before = collide.collide_fused_multi.launches
+    got = collide.binned_collision_pass(*inputs, 50.0, 40, band_cells=12, buckets=buckets,
+                                        windows_per_block=windows)
+    assert collide.collide_fused_multi.launches == before + len(buckets)
+    for a, b in zip(got[:3], base[:3]):
+        assert torch.equal(a, b)
+    for k in base[3]:
+        assert torch.equal(got[3][k], base[3][k])
+    assert [int(x) for x in got[4:]] == [int(x) for x in base[4:]] and int(got[4]) > 0
+
+
+def test_default_scan_runs_full_columns_on_the_card(dev):
+    """granular_full_kdk_scan(st, cfg, box, n) with every default launches
+    the full-column kernel once a step, and matches the CPU's steps."""
+    box = BOX * (4096 / 131072.0) ** (1.0 / 3.0)
+    pos, vel, mass = granular_cloud(4096, seed=0, box=box)
+    cfg_cpu = SimConfig(G=0.5, dt=0.016, sub_steps=1, merge_time=0.25, fracture_threshold=8.0)
+    gen = torch.Generator().manual_seed(0)
+    draws = [draw_fracture_uniforms(cfg_cpu, gen, "cpu") for _ in range(2)]
+    before = collide.collide_full_column.launches
+    a, ta = collisions_scaled.granular_full_kdk_scan(
+        collisions_scaled.make_granular_state(pos, vel, mass, device=dev), cfg_cpu.to(dev), box, 2,
+        draws=[d.to(dev) for d in draws])
+    assert collide.collide_full_column.launches == before + 2
+    b, tb = collisions_scaled.granular_full_kdk_scan(
+        collisions_scaled.make_granular_state(pos, vel, mass, device="cpu"), cfg_cpu, box, 2, draws=draws)
+    for k in ta:
+        assert torch.equal(ta[k].cpu(), tb[k]), k
+    assert torch.equal(a.partner.cpu(), b.partner)
+    for f in ("pos", "vel"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()), f
+
+
 def test_collide_wrapper_rejects_bad_inputs(dev):
     n = 64
     feats = torch.zeros((n, 8), device=dev)
@@ -194,8 +274,11 @@ def test_collide_wrapper_rejects_bad_inputs(dev):
     args = [feats, order, ok, win, out_d, out_j, 0.2, 0.5, 8, 8]
     for i, bad in ((0, feats.double()), (1, order.long()), (3, win[:, :10]), (4, out_d.cpu()),
                    (0, torch.zeros((n, 16), device=dev)[:, ::2])):
-        with pytest.raises((TypeError, ValueError)):
-            collide.collide_fused(*args[:i], bad, *args[i + 1:])
+        for wrapper in (collide.collide_fused, collide.collide_full_column):
+            with pytest.raises((TypeError, ValueError)):
+                wrapper(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(ValueError):
+        collide.collide_fused_multi(*args, windows_per_block=0)
 
 
 def _server_setup(dev, n=4096, g=16, b=4, pm_grid=32):
