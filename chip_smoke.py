@@ -10,9 +10,10 @@ paths through their public entry points: the frame step (`scene.make_state`,
 (`ops.p3m.p3m_acceleration`, and the granular step with force_impl="p3m"),
 the gravity-only integration path (`bench.drift.drift_run`,
 `integrators.init_hermite` / `run_hermite`, the `bench latency` and
-`bench throughput` mains) and every layout of the collision pass (the
+`bench throughput` mains), every layout of the collision pass (the
 `bench granular` and `bench collsplit` mains, the granular demo's
-configuration, the scan with its default full-column layout):
+configuration, the scan with its default full-column layout) and the
+spatial halo-exchange step (`parallel.spatial`, the `bench spatial` main):
 
   0. device: name and power limit; TF32 off
   1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
@@ -85,6 +86,22 @@ configuration, the scan with its default full-column layout):
      set_sync_debug_mode("error"); 3 steps of granular_full_kdk_scan with
      every default (full columns, g = 32, K = 16) at N = 4,096 held against
      the same steps on the CPU
+ 18. the gravity-fused collision kernel K7 against its plain version on the
+     card, through the spatial step's local entries: the clustered 192-body
+     scenes as slabs of 1-D and 2-D meshes (caps that cover and overflow,
+     dead bodies), then the 131,072-body cloud's local grids at
+     `bench spatial`'s 32,8,96,104, as D = 1 (the whole grid) and as four
+     virtual slabs on the one card (owned rows plus the boundary layers their
+     neighbours would send); K7's deltas and partners bitwise K2's on the
+     same windows; at zero-overflow caps the slabs' union equal to D = 1;
+     K7 and K2 timed on D = 1's windows
+ 19. the spatial halo-exchange step at world size 1 (a process group of this
+     process alone, NCCL for the card and gloo for the CPU): `bench
+     spatial`'s scene with pm, with p3m (K7's path) and with
+     spatial_buckets_for buckets, 20 steps each (mass conserved where
+     nothing is dropped); one p3m step under set_sync_debug_mode("error");
+     3 steps at N = 4,096 with pm and with p3m on the card and on the CPU
+ 20. `bench spatial` through its main at its defaults
 
 Every phase raises on failure, so the script exits non-zero; it needs a CUDA
 device and has no CPU fallback. The line before the last is the kernels'
@@ -100,7 +117,10 @@ kernel has three entries: collide_fused (K2; the at-scale path, phase 7),
 collide_full_column (K8's function; launches on the layout bench's path,
 phase 17, timed on the disk's full-column configuration, phase 15) and
 collide_fused_multi (K2m; launches on the bench's u0.8x4 path, timed at
-W = 4, phase 16). The last line is {"ok": true, "device": {...}}.
+W = 4, phase 16). K7 (collide_fused_grav) launches on the spatial step's p3m
+path (phase 19) and is timed on D = 1's windows (phase 18). It prints its
+total and the time of phases 11-14, 15-17 and 18-20 before the kernels line.
+The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -115,13 +135,15 @@ import torch
 
 from nbx_torch import collisions_scaled, diagnostics, integrators, scene, sim
 from nbx_torch.bench import collsplit, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
+from nbx_torch.bench import spatial as spatial_bench
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
-from nbx_torch.config import SimConfig, body_radius
+from nbx_torch.config import SimConfig, body_radius, f32
 from nbx_torch.ops import _build, collide, p3m, ppkernel
 from nbx_torch.ops.pairwise import (pairwise_acc, pairwise_acc_jerk, pairwise_acc_jerk_reference,
                                    pairwise_acc_reference, potential_per_body, potential_per_body_reference)
 from nbx_torch.ops.pm import isolated_green_hat, out_of_box_count, pm_acceleration
+from nbx_torch.parallel import shard, spatial
 
 KERNEL_TOL = 1e-5  # max|kernel - plain| / max|plain|, the bar of tests/test_tpu_only.py
 HEADLINE_N = 262_144
@@ -151,6 +173,9 @@ K6_PAIR_OPS, K3_PAIR_OPS = 40, 11  # one rsqrt a pair each, as K1
 K2_LANE_OPS = 11
 PP_PAIR_OPS, PP_PAIR_SFU = 36, 3
 PP_REACT_PAIR_OPS = PP_PAIR_OPS + 7
+# K7 on every source lane: K2's overlap test and the P3M law, whose
+# differences and r^2 (8) the two share; the law's three special functions.
+K7_LANE_OPS, K7_LANE_SFU = K2_LANE_OPS + PP_PAIR_OPS - 8, PP_PAIR_SFU
 
 
 def bound(ops: float, sfu: float, nbytes: float) -> dict:
@@ -1358,6 +1383,299 @@ def default_scan_vs_cpu(dev, n: int = 4096, steps: int = 3) -> None:
             "and CPU")
 
 
+# ---- the spatial halo-exchange step: K7 --------------------------------------------
+
+SPATIAL_CFG = "32,8,96,104"  # bench spatial's default g, B, Tc, Sc
+SLAB_TOL = 1e-5  # D slabs' union against the whole grid: float32 sums in another order
+
+
+def slab_rows(pos, box: float, g: int, d_x: int, d_y: int, me_x: int, me_y: int, junk: int = 0):
+    """One virtual slab's local rows, by indexing: the bodies of its owned
+    columns, then those of the boundary layers its neighbours would send (the
+    rest of its local grid; every one, as a halo cap that holds them all),
+    then `junk` rows outside the grid (parked by the sort). Cells as
+    `cell_sort_slabgrid` computes them. Returns (rows, the number of owned
+    rows, the slab's (x0_cell, slab_x, y0_cell, slab_y))."""
+    two_d = d_y > 1
+    w_x, w_y = g // d_x, g // d_y
+    h = torch.full((), f32(box / g), dtype=torch.float32, device=pos.device)
+    c = (pos[:, :2] / h).to(torch.int32).clamp(0, g - 1)
+    lx = c[:, 0] - (me_x * w_x - 1)
+    ly = c[:, 1] - (me_y * w_y - 1) if two_d else torch.ones_like(lx)
+    in_grid = (lx >= 0) & (lx < w_x + 2) & (ly >= 0) & (ly < (w_y + 2 if two_d else 3))
+    owned = (lx >= 1) & (lx <= w_x) & (ly >= 1) & (ly <= (w_y if two_d else 1))
+    rows = [owned.nonzero()[:, 0], (in_grid & ~owned).nonzero()[:, 0], (~in_grid).nonzero()[:junk, 0]]
+    return torch.cat(rows), rows[0].shape[0], (me_x * w_x - 1, w_x, me_y * w_y - 1 if two_d else 0,
+                                               w_y if two_d else None)
+
+
+def local_both(inputs, rows, box: float, g: int, b: int, caps, slab, sg, layout: str = "packed"):
+    """One slab's local pass through K7 (with short gravity sg; K2 without),
+    through the plain version, and through K2 on the same windows. Returns
+    (kernel outputs, plain outputs, K2's outputs, the kernel's calls, K2's
+    calls)."""
+    p, v, m, r = (x[rows] for x in inputs)
+    x0, w_x, y0, w_y = slab
+    if layout == "packed":
+        buckets, src_over = ((*caps, w_x * (w_y or g) * -(-g // b)),), "own_all"
+    else:
+        buckets, src_over = caps, "own"
+    args = (p, v, m, r, box, g, b, buckets, src_over, 0.2, 0.5, x0, w_x, y0, w_y)
+    rec, calls = record_launches(collide.collide_fused_grav if sg is not None else collide.collide_fused)
+    got = collide._local_pass(*args, sg, fused=rec)
+    want = collide._local_pass(*args, sg, fused=collide.collide_fused_reference)
+    rec2, calls2 = record_launches(collide.collide_fused)
+    k2 = collide._local_pass(*args, None, fused=rec2)
+    return got, want, k2, calls, calls2
+
+
+DELTA_FIELDS = ("dvx", "dvy", "dvz", "dpx", "dpy", "dpz", "heat")  # out_d's columns before the bounces
+
+
+def check_local(name: str, got, want, k2, phase: int = 18) -> float:
+    """K7 against its plain version (deltas and gravity to KERNEL_TOL of each
+    field's largest magnitude; partners, bounces and n_overflow exactly), and
+    its collision outputs bitwise K2's on the same windows."""
+    err, worst = 0.0, (0.0, "")
+    for i, field in enumerate(DELTA_FIELDS):
+        abs_err = float((got[0][:, i] - want[0][:, i]).abs().max())
+        rel = abs_err / max(float(want[0][:, i].abs().max()), 1e-30)
+        check(rel < KERNEL_TOL, f"{name} {field}: relative error {rel} >= {KERNEL_TOL}")
+        err, worst = max(err, abs_err), max(worst, (rel, field))
+    log(phase, f"{name} deltas, each column to its own max|plain|: max|kernel-plain|={err:.3e}, worst rel "
+               f"{worst[0]:.3e} ({worst[1] or '-'}) (tol {KERNEL_TOL:g})")
+    check(torch.equal(got[0][:, 7], want[0][:, 7]), f"{name}: bounces equal")
+    check(torch.equal(got[1], want[1]), f"{name}: partners equal")
+    check(int(got[-1]) == int(want[-1]), f"{name}: n_overflow equal ({int(got[-1])} vs {int(want[-1])})")
+    if len(got) == 4:
+        err = max(err, compare(f"{name} grav", got[2], want[2], phase=phase))
+        check(float(want[2].abs().max()) > 0, f"{name}: gravity found")
+    same = torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1]) and int(got[-1]) == int(k2[-1])
+    check(same, f"{name}: K7's deltas, partners and n_overflow bitwise K2's on the same windows")
+    log(phase, f"{name}: partners equal ({int((got[1] >= 0).sum())} bodies with one), bounces "
+               f"{int(got[0][:, 7].sum())}, n_overflow {int(got[-1])}; K7's collision outputs bitwise K2's")
+    return err
+
+
+def time_local(phase: int, label: str, calls, calls2, n: int) -> dict:
+    """K7's launches of one pass and K2's on the same windows, by CUDA
+    events, against K7's plain version; K7's bound from the run's lanes
+    (each target against every kept lane of its window's strips)."""
+    calls = [(*c[:4], c[4].clone(), c[5].clone(), *c[6:10], c[10], c[11].clone()) for c in calls]
+    calls2 = [(*c[:4], c[4].clone(), c[5].clone(), *c[6:]) for c in calls2]
+
+    def run(fn, cs):
+        for c in cs:
+            fn(*c)
+
+    run(collide.collide_fused_grav, calls)  # warm-up
+    ms = cuda_ms(lambda: run(collide.collide_fused_grav, calls), 5)
+    ms2 = cuda_ms(lambda: run(collide.collide_fused, calls2), 5)
+    ms_again = cuda_ms(lambda: run(collide.collide_fused_grav, calls), 5)
+    plain_ms = cuda_ms(lambda: run(collide.collide_fused_reference, calls), 1)
+    lanes = sum(int((c[3][:, 1].long() * c[3][:, 3::2].long().sum(1)).sum()) for c in calls)
+    nbytes = n * (32 + 4 + 1 + 32 + 4 + 12) + sum(c[3].numel() * 4 for c in calls)
+    b = bound(lanes * K7_LANE_OPS, lanes * K7_LANE_SFU, nbytes)
+    log(phase, f"{label}: K7 {ms:.4f} / {ms_again:.4f} ms, K2 on the same windows {ms2:.4f} ms (K7/K2 "
+               f"{ms / ms2:.2f}x), K7 plain {plain_ms:.3f} ms; {lanes} source lanes, {bound_text(b)}")
+    return dict(ms=ms, plain_ms=plain_ms, k2_ms=ms2, **record(b))
+
+
+# (label, seed, dead bodies, radius scale, slab (d_x, d_y, me_x, me_y), layout,
+# caps: "sized" = packed_caps_for / bucketed_layout_for on the scene, or given)
+SMALL_GRAV = [
+    ("1-D first slab, packed, sized caps (covers)", 7, False, 2.0, (4, 1, 0, 0), "packed", "sized"),
+    ("1-D inner slab, packed (8, 10) (overflows)", 7, False, 2.0, (4, 1, 1, 0), "packed", (8, 10)),
+    ("1-D inner slab, packed, dead bodies", 9, True, 2.0, (4, 1, 1, 0), "packed", "sized"),
+    ("2-D slab, bucketed, sized (covers)", 7, False, 2.0, (2, 4, 0, 1), "bucketed", "sized"),
+    ("2-D slab, bucketed, tiny budgets (overflows)", 8, False, 4.0, (2, 4, 0, 1), "bucketed",
+     ((8, 10, 4), (24, 40, 2))),
+    ("whole grid (D = 1), packed, dead bodies", 9, True, 2.0, (1, 1, 0, 0), "packed", "sized"),
+]
+
+
+def phase_grav_kernel(dev, n_big: int = SCALED_N, n_slabs: int = 4) -> dict:
+    """K7 against its plain version on the card: the clustered 192-body
+    scenes as slabs of 1-D and 2-D meshes (caps that cover and overflow, dead
+    bodies), then the 131,072-body cloud's local grids at bench spatial's
+    32,8,96,104: D = 1 (the whole grid, no halo) and n_slabs virtual slabs on
+    this one card; K7's collision outputs bitwise K2's on the same windows
+    throughout; at zero-overflow caps (packed_caps_for) the slabs' union
+    equal to D = 1. Times K7 and K2 on D = 1's windows. Returns K7's
+    kernels-line entry (without its launches)."""
+    g8 = 8
+    err = 0.0
+    sg = (0.5, BOX / g8 / 3.0, 0.5)
+    for label, seed, dead, scale, (d_x, d_y, me_x, me_y), layout, caps in SMALL_GRAV:
+        pos, vel, mass = clustered_scene(seed=seed)
+        if dead:
+            mass[::5] = 0.0
+        if caps == "sized":
+            caps = (collide.packed_caps_for(pos, BOX, g8, 2) if layout == "packed" else
+                    tuple((t, s_, 64) for t, s_, _ in collide.bucketed_layout_for(pos, BOX, g8, 2, 0.6)))
+        inputs = collide_inputs(pos, vel, mass, scale, dev)
+        rows, _, slab = slab_rows(inputs[0], BOX, g8, d_x, d_y, me_x, me_y, junk=8)
+        got, want, k2, _, _ = local_both(inputs, rows, BOX, g8, 2, caps, slab, sg, layout)
+        err = max(err, check_local(f"clustered n=192 {label} caps {caps}", got, want, k2))
+        check((int(got[-1]) > 0) == ("overflows" in label), f"{label}: n_overflow {int(got[-1])}")
+
+    g, b, tc, sc_ = (int(x) for x in SPATIAL_CFG.split(","))
+    pos, vel, mass = granular_cloud(n_big, seed=0, box=BOX)
+    inputs = collide_inputs(pos, vel, mass, 1.0, dev)
+    sg = (0.5, BOX / g / 3.0, 0.5)
+    every = torch.arange(n_big, device=dev)
+    whole = (-1, g, 0, None)
+    got, want, k2, calls, calls2 = local_both(inputs, every, BOX, g, b, (tc, sc_), whole, sg)
+    err = max(err, check_local(f"cloud n={n_big} D=1 caps ({tc}, {sc_})", got, want, k2))
+    t = time_local(18, f"cloud n={n_big} D=1 {SPATIAL_CFG}", calls, calls2, n_big)
+    for d in range(n_slabs):
+        rows, _, slab = slab_rows(inputs[0], BOX, g, n_slabs, 1, d, 0)
+        got, want, k2, _, _ = local_both(inputs, rows, BOX, g, b, (tc, sc_), slab, sg)
+        err = max(err, check_local(f"cloud n={n_big} slab {d} of {n_slabs} ({rows.shape[0]} rows)", got, want, k2))
+
+    caps = collide.packed_caps_for(pos, BOX, g, b)  # zero overflow
+    w_d, w_j, w_g, w_o = collide.packed_collision_blocks_local(*inputs, BOX, g, b, caps, 0.2, 0.5, -1, g,
+                                                               short_gravity=sg)
+    check(int(w_o) == 0, "D = 1 at packed_caps_for: no overflow")
+    u_d, u_j, u_g = torch.zeros_like(w_d), torch.full_like(w_j, -1), torch.zeros_like(w_g)
+    n_ovf = 0
+    for d in range(n_slabs):
+        rows, n_own, (x0, w_x, _, _) = slab_rows(inputs[0], BOX, g, n_slabs, 1, d, 0)
+        o_d, o_j, o_g, o = collide.packed_collision_blocks_local(*(x[rows] for x in inputs), BOX, g, b, caps, 0.2,
+                                                                 0.5, x0, w_x, short_gravity=sg)
+        own = rows[:n_own]
+        u_d[own], u_g[own] = o_d[:n_own], o_g[:n_own]
+        u_j[own] = torch.where(o_j[:n_own] >= 0, rows[o_j[:n_own].long().clamp(min=0)].to(torch.int32), -1)
+        n_ovf += int(o)
+    check(n_ovf == 0, f"{n_slabs} slabs at packed_caps_for {caps}: no overflow")
+    check(torch.equal(u_j, w_j), f"{n_slabs} slabs' partners equal D = 1's")
+    check(torch.equal(u_d[:, 7], w_d[:, 7]), f"{n_slabs} slabs' bounces equal D = 1's")
+    for name, a, b_ in (("deltas", u_d[:, :7], w_d[:, :7]), ("grav", u_g, w_g)):
+        rel = float((a - b_).abs().max()) / max(float(b_.abs().max()), 1e-30)
+        log(18, f"cloud n={n_big}: {n_slabs} slabs' union against D = 1 at caps {caps}: {name} rel {rel:.3e} "
+                f"(tol {SLAB_TOL:g})")
+        check(rel < SLAB_TOL, f"{n_slabs} slabs' {name} equal D = 1's")
+    log(18, f"cloud n={n_big}: partners ({int((w_j >= 0).sum())} bodies with one) and bounces "
+            f"({int(w_d[:, 7].sum())}) of the {n_slabs} slabs equal D = 1's")
+    return dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None)
+
+
+def spatial_setup(dev, n: int = SCALED_N, token: str = SPATIAL_CFG, force: str = "pm", buckets=None,
+                  mesh=None):
+    """bench spatial's scene and step at world size 1 on `dev`: (step,
+    state, cfg, h). mesh defaults to a mesh of the world on dev's type."""
+    g, b, caps = spatial_bench.parse_config(token)
+    box = BOX * (n / SCALED_N) ** (1.0 / 3.0)
+    pos, vel, mass = granular_cloud(n, seed=0, box=box)
+    cfg = granular.bench_config().to(dev)
+    mesh = mesh or shard.make_mesh(device_type=torch.device(dev).type)
+    if buckets == "sized":
+        buckets = spatial.spatial_buckets_for(mesh, pos, box, g, b)
+    halo_cap, mig_cap = spatial_bench.spatial_caps(n, g)
+    pm_grid = spatial_bench.PM_GRID if n == SCALED_N else max(64, 3 * g)  # p3m needs pm_grid >= 3 g
+    step = spatial.make_spatial_granular_step(mesh, cfg, box, g, b, caps, halo_cap=halo_cap, mig_cap=mig_cap,
+                                              force_impl=force, pm_grid=pm_grid, buckets=buckets)
+    return step, spatial.spatial_state_for(mesh, pos, vel, mass, box, g), cfg, cfg.dt, buckets
+
+
+def spatial_run(dev, label: str, force: str, buckets=None, steps: int = 20, n: int = SCALED_N):
+    """bench spatial's scene at world size 1: 2 warm-up steps, then `steps`
+    steps, host-timed to a synchronise. Returns (ms/step, the final state,
+    the summed counters, the buckets)."""
+    step, st, cfg, h, buckets = spatial_setup(dev, n=n, force=force, buckets=buckets)
+    m0 = float(st.mass.double().sum())
+    for _ in range(2):
+        st, _ = step(st, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs = []
+    for _ in range(steps):
+        st, c = step(st, h)
+        cs.append(c)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    tot = {k: (bool(torch.stack([c[k] for c in cs]).any()) if k == "cell_too_small"
+               else int(torch.stack([c[k] for c in cs]).sum())) for k in cs[0]}
+    check(all_finite(st.pos, st.vel, st.acc, st.mass, st.temp, st.contact_t), f"{label}: state finite")
+    m1 = float(st.mass.double().sum())
+    if tot["n_dropped"] == 0:
+        check(abs(m1 - m0) <= 1e-5 * m0, f"{label}: mass conserved ({m0} -> {m1})")
+    log(19, f"{label}: {ms:.3f} ms/step over {steps} steps; counters summed {tot}; mass {m0:.6f} -> {m1:.6f}; "
+            f"alive {int((st.mass > 0).sum())}; buckets {buckets}")
+    return ms, st, tot, buckets
+
+
+def phase_spatial(dev, steps: int = 20, n: int = SCALED_N, n_cpu: int = 4096, cpu_steps: int = 3) -> int:
+    """The spatial step on the card at world size 1 (a process group of this
+    process alone: gloo for CPU tensors, NCCL for the card's): bench
+    spatial's scene with pm, with p3m (K7's path: its launches counted from
+    0 there) and with spatial_buckets_for buckets, `steps` steps each; one
+    p3m step under set_sync_debug_mode("error"); then cpu_steps steps at
+    N = n_cpu on the card and on the CPU with the same draws: counters and
+    partners exactly, floats to SCALED_CPU_TOL. Returns K7's launches on
+    the p3m path."""
+    before = collide.collide_fused.launches
+    spatial_run(dev, "spatial pm", "pm", steps=steps, n=n)
+    check(collide.collide_fused.launches - before == steps + 2, "pm: K2 launched once a step")
+    collide.collide_fused_grav.launches = 0  # K7's path: the spatial step with p3m
+    _, st, _, _ = spatial_run(dev, "spatial p3m", "p3m", steps=steps, n=n)
+    k7 = collide.collide_fused_grav.launches
+    check(k7 == steps + 2, f"p3m: K7 launched {k7} times in {steps + 2} steps")
+    before = collide.collide_fused.launches
+    _, _, _, buckets = spatial_run(dev, "spatial pm, bucketed", "pm", buckets="sized", steps=steps, n=n)
+    check(collide.collide_fused.launches - before == (steps + 2) * len(buckets), "bucketed: K2 a bucket a step")
+
+    step, _, cfg, h, _ = spatial_setup(dev, n=n, force="p3m")
+    torch.cuda.synchronize()
+    before = collide.collide_fused_grav.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, c = step(st, h)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(collide.collide_fused_grav.launches - before == 1, "K7 ran in the sync-checked step")
+    log(19, "one p3m spatial step ran under set_sync_debug_mode('error'): no host sync")
+    collide.collide_fused_grav.launches = k7
+
+    # the card against the CPU, one process: a CUDA mesh and a CPU mesh
+    cuda_mesh = shard.make_mesh(device_type="cuda")
+    cpu_mesh = shard.make_mesh(device_type="cpu")
+    for force in ("pm", "p3m"):
+        step_a, a, cfg_a, h, _ = spatial_setup(dev, n=n_cpu, token="16,4,96,104", force=force, mesh=cuda_mesh)
+        step_b, b, cfg_b, _, _ = spatial_setup("cpu", n=n_cpu, token="16,4,96,104", force=force, mesh=cpu_mesh)
+        gen = torch.Generator().manual_seed(11)
+        for i in range(cpu_steps):
+            draws = draw_fracture_uniforms(cfg_b, gen, "cpu")
+            a, ca = step_a(a, h, draws.to(dev))
+            b, cb = step_b(b, h, draws)
+            for k in ca:
+                check(bool((ca[k].cpu() == cb[k]).all()), f"{force} step {i}: {k} equal on card and CPU "
+                                                          f"({ca[k].tolist()} vs {cb[k].tolist()})")
+        for f in ("uid", "partner_uid", "mat", "uid_next"):
+            check(torch.equal(getattr(a, f).cpu(), getattr(b, f)), f"{force}: {f} equal on card and CPU")
+        for f in ("pos", "vel", "acc", "mass", "temp", "contact_t"):
+            x, y = getattr(a, f).cpu(), getattr(b, f)
+            err = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+            log(19, f"N={n_cpu} {force}, {cpu_steps} spatial steps card vs CPU: {f} max rel err {err:.3e} "
+                    f"(tol {SCALED_CPU_TOL:g})")
+            check(err < SCALED_CPU_TOL, f"{force}: {f} card vs CPU after {cpu_steps} steps")
+        log(19, f"N={n_cpu} {force}: last counters {{{', '.join(f'{k}: {int(v)}' for k, v in cb.items())}}} "
+                "equal on card and CPU")
+    return k7
+
+
+def phase_spatial_bench(dev) -> None:
+    """`bench spatial` through its main at its defaults (131,072-body cloud,
+    32,8,96,104, pm, PM 128^3)."""
+    ref, rec = spatial_bench.main(device=dev)
+    check(0 < ref["ms_per_step"] < float("inf") and 0 < rec["ms_per_step"] < float("inf"), "both paths timed")
+    log(20, f"bench spatial {rec['n']} {rec['g']},{rec['band']},{rec['caps']} {rec['force']} d={rec['d']}: "
+            f"single scan {ref['ms_per_step']:.4f} ms/step, spatial step {rec['ms_per_step']:.4f} ms/step, "
+            f"overhead_vs_single {rec['overhead_vs_single']:.4f}; last step's counters {rec['counters']}")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     name = phase_device()
@@ -1391,8 +1709,13 @@ def main() -> None:
     k2m, k2m_launches = phase_multi_window(dev)  # resets K2m's count: the bench's u0.8x4 path
     k8_launches = phase_layout_benches(dev)  # resets K8's count: the layout bench's path
     t17 = time.perf_counter()
-    print(f"[done] every phase passed: {t17 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
-          f"phases 15-17 {t17 - t14:.1f} s", flush=True)
+    k7 = phase_grav_kernel(dev)
+    with shard.local_world("cpu:gloo,cuda:nccl"):
+        k7_launches = phase_spatial(dev)  # resets K7's count: the spatial step's p3m path
+        phase_spatial_bench(dev)
+    t20 = time.perf_counter()
+    print(f"[done] every phase passed: {t20 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
+          f"phases 15-17 {t17 - t14:.1f} s, phases 18-20 {t20 - t17:.1f} s", flush=True)
     records = [
         dict(name="pairwise_f32r", route="cuda", source="nbx_torch/csrc/pairwise_f32r.cu",
              replaces="nbx/ops/pairwise.py:168", launches=k1_launches, **k1),
@@ -1410,6 +1733,8 @@ def main() -> None:
              replaces="nbx/ops/pairwise.py:573", launches=k6_launches, **k6),
         dict(name="potential", route="cuda", source="nbx_torch/csrc/potential.cu",
              replaces="nbx/ops/pairwise.py:682", launches=k3_launches, **k3),
+        dict(name="collide_fused_grav", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
+             replaces="nbx/ops/collide.py:261", launches=k7_launches, **k7),
     ]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

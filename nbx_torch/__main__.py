@@ -1,6 +1,6 @@
 """nbx_torch command-line interface.
 
-    python -m nbx_torch bench throughput|drift|latency|granular|collsplit [args...]
+    python -m nbx_torch bench throughput|drift|latency|granular|collsplit|spatial [args...]
 
 Arguments are parsed as `python -m nbx` parses them: each all-digit argument
 becomes an int, and they go positionally to the benchmark's main. The
@@ -19,7 +19,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="nbx_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
     b = sub.add_parser("bench", help="benchmarks")
-    b.add_argument("which", choices=["throughput", "drift", "latency", "granular", "collsplit"])
+    b.add_argument("which", choices=["throughput", "drift", "latency", "granular", "collsplit", "spatial"])
     b.add_argument("args", nargs="*")
     a = p.parse_args(argv)
     importlib.import_module(f"nbx_torch.bench.{a.which}").main(

@@ -1,11 +1,14 @@
 """Where the time of one at-scale granular step goes, on the card.
 
     python -m nbx_torch.bench.profile_step [N] [steps]
+    python -m nbx_torch.bench.profile_step spatial [N] [steps] [force]
 
 Runs the at-scale live server's configuration (`granular_cloud(N)`, box
 100 (N / 131072)^(1/3), g = 40, B = 12, PM gravity on a 64^3 mesh, one
-`granular_full_kdk_scan(n_steps=1, log_events=True)` per step) and prints
-one JSON line:
+`granular_full_kdk_scan(n_steps=1, log_events=True)` per step), or with
+`spatial` the spatial halo-exchange step of `bench spatial` at world size 1
+(the 131,072-body cloud, 32,8,96,104, force pm (default) or p3m, PM 128^3),
+and prints one JSON line:
 
   * ms_per_step: host clock over 10 steps ending in a synchronize, unprofiled;
   * device_ms_per_step, kernels_per_step, busy_share: torch.profiler over
@@ -16,7 +19,11 @@ one JSON line:
     (FFTs) and gather, the cell sort, the window layout, the collision kernel,
     the epilogue, the contact timers, the fragments; `events, other` is the
     rest of the collision substep, `step, other` the rest of the step
-    (kicks, drift, thermal decay, counters).
+    (kicks, drift, thermal decay, counters). The spatial step's parts: the
+    local pass (its slab sort, window layout and kernel, K2 or K7), the PM
+    deposit, solve and gather, the exchanges, the fragments; `step, other`
+    the rest (kicks, migration and halo selection, gates, merges, slot
+    bookkeeping, the reductions).
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -35,6 +42,7 @@ from nbx_torch import collisions_scaled
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.config import SimConfig
 from nbx_torch.ops import collide, pm
+from nbx_torch.parallel import spatial
 
 
 def _ranged(module, name: str, label: str) -> None:
@@ -64,38 +72,24 @@ PARTS = (
 )
 
 
-def main(argv) -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
-    n = int(argv[0]) if argv else 131072
-    steps = int(argv[1]) if len(argv) > 1 else 5
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
-    dev = torch.device("cuda", 0)
-    box = BOX * (n / 131072.0) ** (1.0 / 3.0)
-    pos, vel, mass = granular_cloud(n, seed=0, box=box)
-    st = collisions_scaled.make_granular_state(pos, vel, mass, seed=0, device=dev)
-    cfg = SimConfig(G=0.5, dt=0.016, sub_steps=1, merge_time=0.25, fracture_threshold=8.0).to(dev)
-    kw = dict(n_cells=40, band_cells=12, buckets=collide.bucketed_layout_for(pos, box, 40, 12),
-              force_impl="pm", pm_grid=64, log_events=True,
-              green_hat=pm.isolated_green_hat(box, 64, device=dev))
+SPATIAL_PARTS = (
+    (spatial, "packed_collision_blocks_local", "local pass, all"),
+    (collide, "cell_sort_slabgrid", "slab sort"),
+    (collide, "_bucket_windows", "window layout"),
+    (pm, "cic_deposit", "pm deposit"),
+    (pm, "_isolated_solve_r", "pm solve (FFTs)"),
+    (pm, "cic_gather", "pm gather"),
+    (spatial, "_exchange", "exchanges"),
+    (spatial, "_make_fragments", "fragments"),
+)
 
-    def step(s):
-        return collisions_scaled.granular_full_kdk_scan(s, cfg, box, 1, **kw)[0]
 
-    for _ in range(3):
-        st = step(st)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        st = step(st)
-    torch.cuda.synchronize()
-    ms_per_step = (time.perf_counter() - t0) / 10 * 1e3
-    # the cloud collapses: re-size the buckets before the profiled window
-    kw["buckets"] = collide.bucketed_layout_for(st.pos.cpu().numpy(), box, 40, 12)
-
-    for module, name, label in PARTS:
-        _ranged(module, name, label)
+def profile(step, st, steps: int, parts, kernel_parts) -> dict:
+    """Profile `steps` calls of st = step(st) with ranges around `parts`
+    (already wrapped) and return the per-step numbers: device ms, kernels,
+    busy share, device ms of each part, the top kernels. The collision
+    kernel launches through ctypes, so no CPU op owns it: its time is
+    charged by name to the labels of kernel_parts."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -103,9 +97,9 @@ def main(argv) -> None:
             st = step(st)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    labels = {label for _, _, label in PARTS}
+    labels = {label for _, _, label in parts}
     cpu = torch.autograd.DeviceType.CPU
-    parts = dict.fromkeys(labels, 0.0)
+    part_us = dict.fromkeys(labels | set(kernel_parts), 0.0)
     device_us, n_kernels = 0.0, 0
     for e in prof.events():  # each kernel once, through the CPU op that launched it
         if e.device_type != cpu or e.name in labels:
@@ -118,40 +112,115 @@ def main(argv) -> None:
         a = e.cpu_parent
         while a is not None:  # charge every enclosing range
             if a.name in labels:
-                parts[a.name] += dur
+                part_us[a.name] += dur
             a = a.cpu_parent
-    # The collision kernel is launched through ctypes, not by a PyTorch op,
-    # so the profiler links it to no CPU op: charge it by name.
-    k2 = [e for e in prof.events() if e.device_type != cpu and "collide_fused_kernel" in e.name]
-    k2_us = sum(e.time_range.elapsed_us() for e in k2)
-    n_kernels += len(k2)
-    for label in ("K2 collide_fused", "collision pass, all", "events, all"):
-        parts[label] += k2_us
-    device_us += k2_us
-    device_ms = device_us / 1e3
+    kern = [e for e in prof.events() if e.device_type != cpu and "collide_fused_kernel" in e.name]
+    kern_us = sum(e.time_range.elapsed_us() for e in kern)
+    n_kernels += len(kern)
+    for label in kernel_parts:
+        part_us[label] += kern_us
+    device_us += kern_us
     # cross-check: the device-side events themselves, user ranges left out
     device_side_ms = sum(
         e.time_range.elapsed_us() for e in prof.events()
         if e.device_type != cpu and e.name not in labels) / 1e3
-    parts = {k: parts[k] / 1e3 / steps for _, _, k in PARTS}
+    top = sorted((e for e in prof.key_averages() if e.key not in labels),
+                 key=lambda e: -e.self_device_time_total)[:12]
+    return dict(
+        profiled_ms_per_step=wall_ms / steps, device_ms_per_step=device_us / 1e3 / steps,
+        kernels_per_step=n_kernels / steps, device_side_events_ms_per_step=device_side_ms / steps,
+        busy_share=device_us / 1e3 / wall_ms,
+        parts_device_ms_per_step={k: v / 1e3 / steps for k, v in part_us.items()},
+        top_kernels_device_ms_per_step={e.key[:80]: e.self_device_time_total / 1e3 / steps for e in top},
+    ), st
+
+
+def _host_ms(step, st, reps: int = 10):
+    for _ in range(3):
+        st = step(st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        st = step(st)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3, st
+
+
+def main_spatial(argv, dev) -> dict:
+    """The spatial step at world size 1 (module docstring)."""
+    from nbx_torch.bench import spatial as spatial_bench
+    from nbx_torch.parallel import shard
+
+    n = int(argv[0]) if argv else 131072
+    steps = int(argv[1]) if len(argv) > 1 else 5
+    force = argv[2] if len(argv) > 2 else "pm"
+    for module, name, label in SPATIAL_PARTS:  # before the step is built: it binds the PM functions then
+        _ranged(module, name, label)
+    g, b, caps = spatial_bench.parse_config("32,8,96,104")
+    box = BOX * (n / 131072.0) ** (1.0 / 3.0)
+    pos, vel, mass = granular_cloud(n, seed=0, box=box)
+    cfg = SimConfig(G=0.5, dt=0.016, sub_steps=1, merge_time=0.25, fracture_threshold=8.0).to(dev)
+    with shard.local_world("nccl"):
+        mesh = shard.make_mesh()
+        halo_cap, mig_cap = spatial_bench.spatial_caps(n, g)
+        sstep = spatial.make_spatial_granular_step(mesh, cfg, box, g, b, caps, halo_cap=halo_cap, mig_cap=mig_cap,
+                                                   force_impl=force, pm_grid=spatial_bench.PM_GRID)
+        st = spatial.spatial_state_for(mesh, pos, vel, mass, box, g)
+
+        def step(s):
+            return sstep(s, cfg.dt)[0]
+
+        ms_per_step, st = _host_ms(step, st)
+        out, _ = profile(step, st, steps, SPATIAL_PARTS, ("kernel (K2 or K7)", "local pass, all"))
+    parts = out["parts_device_ms_per_step"]
+    parts["local pass, other"] = parts["local pass, all"] - sum(
+        parts[k] for k in ("slab sort", "window layout", "kernel (K2 or K7)"))
+    parts["step, other"] = out["device_ms_per_step"] - sum(
+        parts[k] for k in ("local pass, all", "pm deposit", "pm solve (FFTs)", "pm gather", "exchanges",
+                           "fragments"))
+    return dict(device=torch.cuda.get_device_name(0), path="spatial_halo_step", n=n, force=force,
+                ms_per_step=ms_per_step, **out)
+
+
+def main(argv) -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    dev = torch.device("cuda", 0)
+    if argv and argv[0] == "spatial":
+        print(json.dumps(main_spatial(argv[1:], dev)), flush=True)
+        return
+    n = int(argv[0]) if argv else 131072
+    steps = int(argv[1]) if len(argv) > 1 else 5
+    box = BOX * (n / 131072.0) ** (1.0 / 3.0)
+    pos, vel, mass = granular_cloud(n, seed=0, box=box)
+    st = collisions_scaled.make_granular_state(pos, vel, mass, seed=0, device=dev)
+    cfg = SimConfig(G=0.5, dt=0.016, sub_steps=1, merge_time=0.25, fracture_threshold=8.0).to(dev)
+    kw = dict(n_cells=40, band_cells=12, buckets=collide.bucketed_layout_for(pos, box, 40, 12),
+              force_impl="pm", pm_grid=64, log_events=True,
+              green_hat=pm.isolated_green_hat(box, 64, device=dev))
+
+    def step(s):
+        return collisions_scaled.granular_full_kdk_scan(s, cfg, box, 1, **kw)[0]
+
+    ms_per_step, st = _host_ms(step, st)
+    # the cloud collapses: re-size the buckets before the profiled window
+    kw["buckets"] = collide.bucketed_layout_for(st.pos.cpu().numpy(), box, 40, 12)
+
+    for module, name, label in PARTS:
+        _ranged(module, name, label)
+    out, _ = profile(step, st, steps, PARTS, ("K2 collide_fused", "collision pass, all", "events, all"))
+    parts = out["parts_device_ms_per_step"]
     parts["events, other"] = parts["events, all"] - sum(
         parts[k] for k in ("collision pass, all", "contact timers", "fragments"))
     parts["collision pass, other"] = parts["collision pass, all"] - sum(
         parts[k] for k in ("cell sort", "window layout", "K2 collide_fused", "epilogue"))
     parts["pm, other"] = parts["pm, all"] - sum(
         parts[k] for k in ("pm deposit", "pm solve (FFTs)", "pm gather"))
-    parts["step, other"] = device_ms / steps - parts["pm, all"] - parts["events, all"]
-    top = sorted((e for e in prof.key_averages() if e.key not in labels),
-                 key=lambda e: -e.self_device_time_total)[:12]
-    print(json.dumps(dict(
-        device=torch.cuda.get_device_name(0), n=n, buckets=kw["buckets"],
-        ms_per_step=ms_per_step, profiled_ms_per_step=wall_ms / steps,
-        device_ms_per_step=device_ms / steps, kernels_per_step=n_kernels / steps,
-        device_side_events_ms_per_step=device_side_ms / steps,
-        busy_share=device_ms / wall_ms, parts_device_ms_per_step=parts,
-        top_kernels_device_ms_per_step={e.key[:80]: e.self_device_time_total / 1e3 / steps
-                                        for e in top},
-    )), flush=True)
+    parts["step, other"] = out["device_ms_per_step"] - parts["pm, all"] - parts["events, all"]
+    print(json.dumps(dict(device=torch.cuda.get_device_name(0), n=n, buckets=kw["buckets"],
+                          ms_per_step=ms_per_step, **out)), flush=True)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ import torch
 from nbx_torch.collisions_scaled import GranularState
 from nbx_torch.config import CUDA, SimConfig
 from nbx_torch.integrators import HermiteState, PhaseState
+from nbx_torch.parallel.spatial import SpatialState
 from nbx_torch.state import SimState, make_generator
 
 # The SimState leaves that carry over, with their dtypes.
@@ -125,3 +126,44 @@ def hermite_state_from_arrays(arrays: dict, device=CUDA) -> HermiteState:
 
 
 hermite_state_to_arrays = phase_state_to_arrays
+
+
+# The SpatialState leaves that carry over, with their dtypes (uid_next aside).
+SPATIAL_FIELDS = {
+    "pos": torch.float32,
+    "vel": torch.float32,
+    "acc": torch.float32,
+    "mass": torch.float32,
+    "mat": torch.int32,
+    "temp": torch.float32,
+    "uid": torch.int32,
+    "partner_uid": torch.int32,
+    "contact_t": torch.float32,
+}
+
+
+def spatial_state_from_arrays(arrays: dict, rank: int, n_ranks: int, device=CUDA, seed: int = 0) -> SpatialState:
+    """Rank `rank`'s SpatialState from the JAX SpatialState's global leaves
+    ([D nl] slot arrays, chip d's slots at [d nl, (d + 1) nl), and uid_next)
+    as numpy arrays, D = n_ranks. The JAX key does not carry over: the
+    rank's generator is seeded from (seed, rank), as spatial_state_for
+    seeds it, and the JAX package's fracture draws go in through the step's
+    `draws=`."""
+    nl = np.asarray(arrays["mass"]).shape[0] // n_ranks
+    rows = slice(rank * nl, (rank + 1) * nl)
+    kw = {
+        name: torch.as_tensor(np.array(arrays[name][rows]), dtype=dtype).to(device)
+        for name, dtype in SPATIAL_FIELDS.items()
+    }
+    uid_next = torch.tensor(int(np.asarray(arrays["uid_next"])), dtype=torch.int32, device=device)
+    rank_seed = int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+    return SpatialState(**kw, uid_next=uid_next, generator=make_generator(device, rank_seed))
+
+
+def spatial_state_to_arrays(*states: SpatialState) -> dict:
+    """The leaves of the ranks' states, given in rank order, as numpy arrays
+    in the JAX package's global layout ([D nl] slots, uid_next); one state
+    gives its own rank's rows."""
+    out = {name: np.concatenate([getattr(s, name).cpu().numpy() for s in states]) for name in SPATIAL_FIELDS}
+    out["uid_next"] = np.asarray(int(states[0].uid_next), np.int32)
+    return out

@@ -1,13 +1,15 @@
 // Fused collision pass over window descriptors, float32, for NVIDIA Hopper
 // (sm_90a).
 //
-// Replaces three TPU kernels of nbx/ops/collide.py, as the layouts of
-// `binned_collision_pass` launch them: `_collide_kernel_fused` (:236, body
-// `_collide_fused_body` :280; the bucketed, banded, band-packed and compacted
-// layouts), `_collide_kernel` (:112, the full-column layout: a column against
-// its 9 neighbour columns in 9 scalar-prefetch-driven revisits that merge
-// into one output block) and `_collide_kernel_fused_multi` (:242, several
-// windows per program). It keeps those kernels' contract, not their blocks:
+// Replaces four TPU kernels of nbx/ops/collide.py, as the layouts of
+// `binned_collision_pass` and the spatial step's local entries launch them:
+// `_collide_kernel_fused` (:236, body `_collide_fused_body` :280; the
+// bucketed, banded, band-packed and compacted layouts), `_collide_kernel`
+// (:112, the full-column layout: a column against its 9 neighbour columns in
+// 9 scalar-prefetch-driven revisits that merge into one output block),
+// `_collide_kernel_fused_multi` (:242, several windows per program) and
+// `_collide_kernel_fused_grav` (:261, the P3M short-range gravity summed over
+// the same lanes, below). It keeps those kernels' contract, not their blocks:
 // for every target body of a window, against the window's fused source lanes
 // (9 neighbour-column strips, each cut to its kept length, then masked by the
 // symmetric-drop mask), it sums
@@ -52,9 +54,25 @@
 // PyTorch version computes them, so partners and counters agree exactly.
 // Speed work (cp.async staging, several targets per thread, splitting a
 // window's sources over warps) is for later changes.
+//
+// With gravity (kGrav, the TPU kernel K7): every lane of the window, not only
+// the overlapping pairs, also adds the P3M short-range pull of
+// csrc/pp_law.cuh (K4's law and Horner order) to the target,
+//
+//   grav_i = G sum_j w_ij d_ij,  w_ij = m_j [erfc(x)/s + c_a e^(-x^2)] / s^2,
+//
+// masked to 0 unless both masses are > 0, the ids differ and r^2 > 0 (a
+// masked source lane carries mass 0), in per-chunk partial sums like K4's.
+// That term comes before the overlap test, so every lane pays an rsqrt, an
+// exp and a reciprocal: K7 is bound by the SFU rate on the window's lanes,
+// not by FP32 issue as K2 is. The gravity sum needs no rule on FMA
+// contraction; the collision decisions keep theirs, so K7's delta rows and
+// partners are K2's. K2's instantiation has no gravity code.
 
 #include <climits>
 #include <cuda_runtime.h>
+
+#include "pp_law.cuh"
 
 namespace {
 
@@ -69,7 +87,9 @@ constexpr float kSentinel = -1e30f;
 // kMulti = true: block b walks windows [b W, (b + 1) W) in turn (K2m). One
 // body of code, so both compute each window bit for bit alike; the
 // single-window instantiation keeps neither the loop nor its barrier.
-template <bool kMulti>
+// kGrav = true adds the short-range gravity sum into out_g (K7); out_g and
+// law come last, so K2's instantiation keeps its parameters where they were.
+template <bool kMulti, bool kGrav>
 __global__ void __launch_bounds__(kMaxThreads)
 collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted: (x y z vx), (vy vz m r)
                      const int* __restrict__ order,             // [n] sorted position -> body id
@@ -77,7 +97,9 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
                      const int* __restrict__ win,               // [n_win, 20]
                      float* __restrict__ out_d,                 // [n, 8] body order
                      int* __restrict__ out_j,                   // [n] body order
-                     int n_win, int windows_per_block, float e, float fric) {
+                     int n_win, int windows_per_block, float e, float fric,
+                     float* __restrict__ out_g,                 // [n, 3] body order (kGrav)
+                     nbx_pp::Law law) {
   __shared__ float sx[kChunk], sy[kChunk], sz[kChunk];
   __shared__ float svx[kChunk], svy[kChunk], svz[kChunk];
   __shared__ float sm[kChunk], sr[kChunk];
@@ -119,6 +141,7 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
       float a0 = 0.f, a1 = 0.f, a2s = 0.f, a3 = 0.f, a4 = 0.f, a5 = 0.f, a6 = 0.f, a7 = 0.f;
       float dmax = kSentinel;
       int jsel = INT_MAX;
+      float gx = 0.f, gy = 0.f, gz = 0.f;
 
       for (int c0 = 0; c0 < total; c0 += kChunk) {
         const int nc = min(kChunk, total - c0);
@@ -142,6 +165,7 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
         }
         __syncthreads();
         if (!active || !(mi > 0.f)) continue;
+        float px = 0.f, py = 0.f, pz = 0.f;  // this chunk's gravity (kGrav)
         for (int k = 0; k < nc; ++k) {
           const float dx = __fsub_rn(sx[k], xi);
           const float dy = __fsub_rn(sy[k], yi);
@@ -150,6 +174,12 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
           const float mj = sm[k];
           const float min_d = __fadd_rn(ri, sr[k]);
           const int gj = sg[k];
+          if (kGrav) {
+            const float wg = gj != gi ? nbx_pp::pair_weight(r2, mj, law) : 0.f;
+            px += wg * dx;
+            py += wg * dy;
+            pz += wg * dz;
+          }
           if (!(mj > 0.f) || gj == gi || !(r2 < __fmul_rn(min_d, min_d))) continue;
 
           const float inv_dist = rsqrtf(r2 > 0.f ? r2 : 1.f);
@@ -183,6 +213,11 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
           a6 += 0.5f * vn * tvn;
           a7 += 1.f;
         }
+        if (kGrav) {
+          gx += px;
+          gy += py;
+          gz += pz;
+        }
       }
       if (active) {
         const float sc = mi > 0.f ? 1.f / mi : 0.f;
@@ -196,6 +231,12 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
         o[6] = a6 * sc * kHeat;
         o[7] = a7;
         out_j[gi] = dmax > 0.f ? jsel : -1;
+        if (kGrav) {
+          float* og = out_g + static_cast<size_t>(gi) * 3;
+          og[0] = law.g * gx;
+          og[1] = law.g * gy;
+          og[2] = law.g * gz;
+        }
       }
     }
   }
@@ -203,10 +244,10 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. One block of `threads` threads
-// (a multiple of 32, at most 256) per `windows_per_block` windows. Launches on
-// `stream` and returns the launch's cudaError_t (0 on success); it does not
-// synchronise.
+// Plain C entry points, loaded with ctypes. One block of `threads` threads
+// (a multiple of 32, at most 256) per `windows_per_block` windows (per window
+// with gravity). Each launches on `stream` and returns the launch's
+// cudaError_t (0 on success); neither synchronises.
 extern "C" int nbx_collide_fused(const void* feats, const void* order, const void* src_ok,
                                  const void* win, void* out_d, void* out_j, int n_win,
                                  int windows_per_block, int threads, float e, float fric,
@@ -221,12 +262,33 @@ extern "C" int nbx_collide_fused(const void* feats, const void* order, const voi
   const int* w = static_cast<const int*>(win);
   float* d = static_cast<float*>(out_d);
   int* j = static_cast<int*>(out_j);
+  const nbx_pp::Law none{0.f, 0.f, 0.f, 0.f};
   if (windows_per_block == 1) {
-    collide_fused_kernel<false><<<n_win, threads, 0, s>>>(f, o, ok, w, d, j, n_win, 1, e, fric);
+    collide_fused_kernel<false, false><<<n_win, threads, 0, s>>>(f, o, ok, w, d, j, n_win, 1, e, fric, nullptr,
+                                                                 none);
   } else {
     const int wpb = windows_per_block < n_win ? windows_per_block : n_win;
-    collide_fused_kernel<true><<<(n_win + wpb - 1) / wpb, threads, 0, s>>>(f, o, ok, w, d, j, n_win, wpb, e,
-                                                                           fric);
+    collide_fused_kernel<true, false><<<(n_win + wpb - 1) / wpb, threads, 0, s>>>(f, o, ok, w, d, j, n_win, wpb,
+                                                                                  e, fric, nullptr, none);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: nbx_collide_fused, one window a block, plus the short-range gravity
+// G sum_j w_ij d_ij of every target into out_g [n, 3] (body order); the law's
+// constants as the JAX package's parameter row holds them: 1/a, 2/(a sqrt(pi)),
+// eps^2.
+extern "C" int nbx_collide_fused_grav(const void* feats, const void* order, const void* src_ok,
+                                      const void* win, void* out_d, void* out_j, void* out_g, int n_win,
+                                      int threads, float e, float fric, float g, float inv_a, float c_a,
+                                      float eps2, void* stream) {
+  if (n_win <= 0) return static_cast<int>(cudaSuccess);
+  if (threads <= 0 || threads > kMaxThreads || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const nbx_pp::Law law{eps2, inv_a, c_a, g};
+  collide_fused_kernel<false, true><<<n_win, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(feats), static_cast<const int*>(order),
+      static_cast<const unsigned char*>(src_ok), static_cast<const int*>(win), static_cast<float*>(out_d),
+      static_cast<int*>(out_j), n_win, 1, e, fric, static_cast<float*>(out_g), law);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,6 +39,15 @@ n_overflow; each keeps the JAX package's kept set and counters:
     source overflow is counted once per (column, band)'s own guarded strip,
     not once per use.
 
+The spatial halo-exchange step's local entries (`packed_collision_blocks_local`,
+`bucketed_collision_blocks_local`) run the band-packed and bucketed layouts on
+a rank's local slab grid (`cell_sort_slabgrid`): target windows over its owned
+columns, source strips over every local column, halo rows sources only. With
+short gravity they launch the kernel's gravity-fused instantiation (the TPU
+kernel K7), which also sums the P3M erfc short range over every lane of each
+window. They return body-order rows like the pass here, so the JAX package's
+slot arrays and its `epilogue_rows` gather have no counterpart.
+
 What does not carry over from the TPU: the materialised [blocks, 16, S]
 source blocks, K8's 9 scalar-prefetch-driven revisits of each column, the
 whole-grid strips table, the "grid"/"slice" strip constructions (the
@@ -46,11 +55,12 @@ argument is accepted and changes nothing, as it changes no result in the
 JAX package), the 128-lane padding and the dead padding row.
 
 `collide_fused` (windowed layouts), `collide_full_column` (the full-column
-layout) and `collide_fused_multi` (windows_per_block > 1, the TPU kernel
-K2m) launch the kernel of `nbx_torch/csrc/collide_fused.cu` on CUDA tensors
-and run `collide_fused_reference`, its plain PyTorch version, on CPU
-tensors; a CUDA call launches the kernel or raises. Each counts its launches
-in `.launches`.
+layout), `collide_fused_multi` (windows_per_block > 1, the TPU kernel
+K2m) and `collide_fused_grav` (the spatial step's local entries with short
+gravity, the TPU kernel K7) launch the kernel of
+`nbx_torch/csrc/collide_fused.cu` on CUDA tensors and run
+`collide_fused_reference`, its plain PyTorch version, on CPU tensors; a CUDA
+call launches the kernel or raises. Each counts its launches in `.launches`.
 
 Host-side sizing (`bucketed_layout_for`, `packed_caps_for`,
 `packed_layout_for`, ...) is numpy and gives the same integers as the JAX
@@ -62,13 +72,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from nbx_torch.config import f32
 from nbx_torch.ops import _build
-from nbx_torch.ops.p3m import cell_size, cell_sort, take_rows
+from nbx_torch.ops.p3m import cell_size, cell_sort, pp_law, take_rows
+from nbx_torch.ops.ppkernel import _law_base
 
 LANE = 128  # the JAX package's lane width; only its sizing guards use it
 CORRECTION = 0.8  # Baumgarte factor
@@ -318,25 +330,72 @@ def _bucket_block_geom(t_cap: int, s_cap: int) -> tuple[int, int]:
     return _round_up(max(t_cap, 8), 8), max(s_cap, 8)
 
 
-def _window_tables(starts: torch.Tensor, g: int, b: int):
-    """Every (column, band) window of a cell-sorted order with cell runs
-    starts [g^3 + 1]: (ts [n_cols, n_bands] target start, cnt [n_cols,
-    n_bands] target count, ss9 [n_cols, n_bands, 9] and run9 [n_cols,
-    n_bands, 9] the start and length of each neighbour column's guarded
-    strip), int64. Off-grid neighbours have empty strips."""
+class _Grid(NamedTuple):
+    """The column grid of a cell sort and the columns that hold target
+    windows: the whole g x g grid, or the spatial step's local slab grid,
+    whose owned columns are targets and whose halo columns are sources only."""
+
+    n_cols: int  # columns of the grid
+    cols: torch.Tensor  # [n_tc] int64 target columns
+    neigh: torch.Tensor  # [n_tc, 9] int64 their 9 neighbour columns, n_cols = off the grid
+    rank: torch.Tensor  # [n_cols + 1] int64 a column's rank in `cols`, -1 if it holds no targets
+
+
+def _whole_grid(g: int, dev) -> _Grid:
+    cols = torch.arange(g * g, device=dev)
+    return _Grid(g * g, cols, _column_neighbors_of(cols, g), torch.cat([cols, cols.new_full((1,), -1)]))
+
+
+def _column_neighbors_rect(gx: int, gy: int, device="cpu") -> torch.Tensor:
+    """9-neighbourhood column ids [gx * gy, 9] (int64) on a rectangular
+    (x, y) column grid, in the JAX package's (di, dj) order (the tie-break's
+    layout invariance); offsets off the grid -> gx * gy."""
+    cc = torch.arange(gx * gy, device=device)
+    ci, cj = cc // gy, cc % gy
+    neigh = []
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            ni, nj = ci + di, cj + dj
+            ok = (ni >= 0) & (ni < gx) & (nj >= 0) & (nj < gy)
+            neigh.append(torch.where(ok, ni * gy + nj, gx * gy))
+    return torch.stack(neigh, dim=1)
+
+
+def _slab_grid(w_x: int, w_y: int, gy: int, two_d: bool, dev) -> _Grid:
+    """The local slab grid of `cell_sort_slabgrid`: [w_x + 2, gy] columns
+    whose owned columns are x layers [1, w_x + 1), and with two_d y layers
+    [1, w_y + 1) too (gy = w_y + 2), in the JAX package's order (x major)."""
+    gx = w_x + 2
+    if two_d:
+        ox = 1 + torch.arange(w_x, device=dev)
+        oy = 1 + torch.arange(w_y, device=dev)
+        cols = (ox[:, None] * gy + oy[None, :]).reshape(-1)
+    else:
+        cols = gy + torch.arange(w_x * gy, device=dev)
+    rank = torch.full((gx * gy + 1,), -1, dtype=torch.int64, device=dev)
+    rank[cols] = torch.arange(cols.shape[0], device=dev)
+    return _Grid(gx * gy, cols, _column_neighbors_rect(gx, gy, dev)[cols], rank)
+
+
+def _window_tables(starts: torch.Tensor, g: int, b: int, grid: _Grid):
+    """Every (column, band) window of the grid's target columns, for a
+    cell-sorted order with cell runs starts [n_cols g + 1]: (ts [n_tc,
+    n_bands] target start, cnt [n_tc, n_bands] target count, ss9 [n_tc,
+    n_bands, 9] and run9 [n_tc, n_bands, 9] the start and length of each
+    neighbour column's guarded strip), int64. Off-grid neighbours have empty
+    strips."""
     dev = starts.device
-    n_cols = g * g
-    g3 = n_cols * g
+    g3 = grid.n_cols * g
     n_bands = -(-g // b)
     st = starts.long()
-    cols = torch.arange(n_cols, device=dev)
+    cols = grid.cols
     w_r = torch.arange(n_bands, device=dev)
     ts_tab = st[cols[:, None] * g + w_r[None, :] * b]
     cnt_t = st[cols[:, None] * g + torch.clamp(w_r[None, :] * b + b, max=g)] - ts_tab
     lo = torch.clamp(w_r * b - 1, min=0)  # guarded strip cells [lo, hi)
     hi = torch.clamp(w_r * b + b + 1, max=g)
-    neigh = _column_neighbors_of(cols, g)[:, None, :]  # [n_cols, 1, 9]
-    okn = neigh < n_cols
+    neigh = grid.neigh[:, None, :]  # [n_tc, 1, 9]
+    okn = neigh < grid.n_cols
     ss9 = st[torch.where(okn, neigh * g + lo[None, :, None], g3)]
     run9 = st[torch.where(okn, neigh * g + hi[None, :, None], g3)] - ss9
     return ts_tab, cnt_t, ss9, run9
@@ -349,17 +408,27 @@ def _descriptors(ts, tn, ss9, run9) -> torch.Tensor:
     return torch.cat([ts.reshape(-1, 1), tn.reshape(-1, 1), strips], dim=1).to(torch.int32).contiguous()
 
 
-def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets, own_strips: bool = False):
-    """Window descriptors of every bucket, the symmetric-drop mask and the
-    overflow count. own_strips=True counts the source overflow once per
-    (column, band)'s own guarded strip (the band-packed layout) instead of
-    once per use in each selected window's 9 strips.
+def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets, src_over: str = "uses",
+                    grid: _Grid | None = None):
+    """Window descriptors of every bucket over the target columns of `grid`
+    (default: the whole g x g grid), the symmetric-drop mask and the
+    overflow count. src_over says how source lanes past s_capw are counted:
+    "uses", in each selected window's 9 strips (bucketed, compacted); "own",
+    once per selected window's own strip (the spatial step's bucketed local
+    layout); "own_all", once per (column, band)'s own strip, whether its
+    window holds targets or not (band-packed, global and local). A row in a
+    column without targets (the local grid's halo) is a source if its rank
+    in its own (column, band) window is below the last bucket's t_rows, as
+    the JAX package's local entry decides it; rows parked past the grid are
+    neither.
 
     Returns ([(win [bmax, 20] i32, t_rows, s_capw) per bucket],
     t_ok [n] bool over sorted positions, n_overflow [] i32)."""
     dev = starts.device
+    if grid is None:
+        grid = _whole_grid(g, dev)
     n_bands = -(-g // b)
-    ts_tab, cnt_t, ss9, run9 = _window_tables(starts, g, b)
+    ts_tab, cnt_t, ss9, run9 = _window_tables(starts, g, b, grid)
     maxrun = run9.amax(2)
 
     # bucket assignment: first covering bucket; over-budget windows spill to
@@ -378,17 +447,26 @@ def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets, own_str
         sels.append(sel)
         flags.append(flf)
 
-    # global symmetric-drop mask over sorted positions: a body is a source
+    # symmetric-drop mask over sorted positions: a target row is a source
     # only if it holds a target slot in some bucket
     cs = cid_sorted.long()
-    col_s = cs // g
-    w_own = (cs - col_s * g) // b
-    f_own = col_s * n_bands + w_own
-    rank_t = torch.arange(n, device=dev) - ts_tab[col_s, w_own]
+    col_s = cs // g  # n_cols for parked rows
+    w_own = torch.clamp(cs - col_s * g, max=g - 1) // b
+    rel = grid.rank[col_s]
+    owned = rel >= 0
+    col_rel = rel.clamp(min=0)
+    f_own = col_rel * n_bands + w_own
+    p_r = torch.arange(n, device=dev)
+    rank_t = p_r - ts_tab[col_rel, w_own]
     t_ok = torch.zeros(n, dtype=torch.bool, device=dev)
     for sel, (t_cap, s_cap, _) in zip(sels, buckets):
         t_rows, _ = _bucket_block_geom(t_cap, s_cap)
-        t_ok = t_ok | (sel[f_own] & (rank_t < t_rows))
+        t_ok = t_ok | (owned & sel[f_own] & (rank_t < t_rows))
+    if grid.cols.shape[0] < grid.n_cols:  # source-only (halo) columns
+        g3 = grid.n_cols * g
+        rank_w = p_r - starts.long()[torch.clamp(col_s * g + w_own * b, max=g3)]
+        t_last, _ = _bucket_block_geom(*buckets[-1][:2])
+        t_ok = t_ok | (~owned & (col_s < grid.n_cols) & (rank_w < t_last))
 
     n_overflow = torch.zeros((), dtype=torch.int64, device=dev)
     cnt_flat = cnt_t.reshape(-1)
@@ -404,8 +482,10 @@ def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets, own_str
         cnt_sel = torch.where(wvalid, cnt_t[col_sel, w_sel], 0)
         n_overflow = n_overflow + torch.clamp(cnt_sel - t_rows, min=0).sum()
         run_sel = torch.where(wvalid[:, None], run9[col_sel, w_sel], 0)
-        if own_strips:  # the centre of the 9 neighbours is the window's own column
+        if src_over == "own_all":  # the centre of the 9 neighbours is the window's own column
             n_overflow = n_overflow + torch.clamp(run9[..., 4] - s_capw, min=0).sum()
+        elif src_over == "own":
+            n_overflow = n_overflow + torch.clamp(run_sel[:, 4] - s_capw, min=0).sum()
         else:
             n_overflow = n_overflow + torch.clamp(run_sel - s_capw, min=0).sum()
         win = _descriptors(ts_tab[col_sel, w_sel], torch.clamp(cnt_sel, max=t_rows), ss9[col_sel, w_sel],
@@ -433,7 +513,7 @@ def _kept_windows(pos, box_size: float, g: int, b: int, k: int):
     dest = torch.where(keep, kstarts[cid] + rank, n)
     order_k = order.new_zeros(n + 1)
     order_k[dest] = order  # dropped bodies all land on the spare row n
-    ts_tab, cnt_t, ss9, run9 = _window_tables(kstarts, g, b)
+    ts_tab, cnt_t, ss9, run9 = _window_tables(kstarts, g, b, _whole_grid(g, pos.device))
     win = _descriptors(ts_tab, cnt_t, ss9, run9)
     return order_k[:n], win, b * k, min(b + 2, g) * k, n - keep.sum(dtype=torch.int32)
 
@@ -451,6 +531,8 @@ def collide_fused_reference(
     friction: float,
     t_rows: int,
     s_capw: int,
+    short_gravity: tuple[float, float, float] | None = None,  # (G, a, eps): K7's gravity sum
+    out_g: torch.Tensor | None = None,  # [n, 3] f32 body order, written for each target
 ) -> None:
     """Plain PyTorch version of the kernel: the same windows, kept set and
     pair math, over [windows, T, 9 S] pair tensors in chunks of windows of at
@@ -458,7 +540,10 @@ def collide_fused_reference(
     length these windows hold (at most t_rows and s_capw; read on the host).
     Windows without targets are skipped. Writes each target's delta row (dvx
     dvy dvz dpx dpy dpz heat n_bounce) and partner (-1 = none) to body order;
-    other rows are left as they are."""
+    other rows are left as they are. With short_gravity = (G, a, eps), also
+    writes each target's P3M short-range gravity G sum_j w_ij d_ij (K7) to
+    out_g, summed over every lane where both masses are > 0, the ids differ
+    and r^2 > 0."""
     n = feats.shape[0]
     win = win[win[:, 1] > 0]
     n_win = win.shape[0]
@@ -475,6 +560,10 @@ def collide_fused_reference(
     ar_s = torch.arange(s_capw, device=dev)
     d_pad = torch.cat([out_d, out_d.new_zeros((1, 8))])
     j_pad = torch.cat([out_j, out_j.new_full((1,), -1)])
+    if short_gravity is not None:
+        G, a, eps = short_gravity
+        law = pp_law(eps, a, G)  # (eps^2, 1/a, 2 / (a sqrt(pi)), G) in float32, as `_collide_par` forms them
+        g_pad = torch.cat([out_g, out_g.new_zeros((1, 3))])
     chunk = max(1, _PAIR_BUDGET // (t_rows * s_all))
     for w0 in range(0, n_win, chunk):
         wd = win[w0:w0 + chunk].long()
@@ -516,6 +605,9 @@ def collide_fused_reference(
             (c2 * dx).sum(-1), (c2 * dy).sum(-1), (c2 * dz).sum(-1),
             (0.5 * vn * tvn).sum(-1), appr.sum(-1).to(torch.float32),
         ]
+        if short_gravity is not None:
+            wg = torch.where((mi > 0.0) & (mj > 0.0) & (gi != gj), mj * _law_base(r2, law), 0.0)
+            grav = torch.stack([(wg * dx).sum(-1), (wg * dy).sum(-1), (wg * dz).sum(-1)], dim=-1) * law[3]
         depth = torch.where(overlap, min_d - dist, DEPTH_SENTINEL)
         dm = depth.amax(-1)
         big = torch.iinfo(torch.int64).max
@@ -530,8 +622,13 @@ def collide_fused_reference(
         body = torch.where(vt, ids[pt], n).reshape(-1)
         d_pad[body] = delta.reshape(-1, 8)
         j_pad[body] = jsel.reshape(-1).to(torch.int32)
+        if short_gravity is not None:
+            g_pad[body] = grav.reshape(-1, 3)
     out_d.copy_(d_pad[:n])
     out_j.copy_(j_pad[:n])
+    if short_gravity is not None:
+        out_g.copy_(g_pad[:n])
+
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape: tuple, device) -> None:
@@ -545,26 +642,28 @@ def _check(name: str, t: torch.Tensor, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _entry():
-    fn = _build.load(_KERNEL).nbx_collide_fused
+def _entry(symbol: str, argtypes: list):
+    """The C entry `symbol` of the kernel's library, with its C signature."""
+    fn = getattr(_build.load(_KERNEL), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_void_p,
-        ]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FUSED_ARGS = [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P]  # nbx_collide_fused
+_GRAV_ARGS = [_P] * 7 + [_I] * 2 + [_F] * 6 + [_P]  # nbx_collide_fused_grav
+
+
 def _run(name, feats, order, src_ok, win, out_d, out_j, restitution, friction, t_rows, s_capw,
-         windows_per_block: int) -> bool:
+         windows_per_block: int, short_gravity=None, out_g=None) -> bool:
     """The plain version on CPU tensors, the kernel on CUDA tensors (one
-    thread block per windows_per_block windows); True if it launched."""
+    thread block per windows_per_block windows; K7's instantiation with
+    short_gravity); True if it launched."""
     if feats.device.type == "cpu":
-        collide_fused_reference(feats, order, src_ok, win, out_d, out_j,
-                                restitution, friction, t_rows, s_capw)
+        collide_fused_reference(feats, order, src_ok, win, out_d, out_j, restitution, friction, t_rows,
+                                s_capw, short_gravity, out_g)
         return False
     if feats.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {feats.device}")
@@ -576,6 +675,8 @@ def _run(name, feats, order, src_ok, win, out_d, out_j, restitution, friction, t
     _check("win", win, torch.int32, (n_win, WIN_INTS), dev)
     _check("out_d", out_d, torch.float32, (n, 8), dev)
     _check("out_j", out_j, torch.int32, (n,), dev)
+    if short_gravity is not None:
+        _check("out_g", out_g, torch.float32, (n, 3), dev)
     if feats.data_ptr() % 16:
         raise ValueError("feats must be 16-byte aligned (rows are read as float4)")
     if windows_per_block < 1:
@@ -583,12 +684,19 @@ def _run(name, feats, order, src_ok, win, out_d, out_j, restitution, friction, t
     if n_win == 0 or n == 0:
         return False
     threads = min(256, _round_up(max(t_rows, 1), 32))
+    ptrs = (feats.data_ptr(), order.data_ptr(), src_ok.data_ptr(), win.data_ptr(), out_d.data_ptr(),
+            out_j.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _entry()(
-            feats.data_ptr(), order.data_ptr(), src_ok.data_ptr(), win.data_ptr(),
-            out_d.data_ptr(), out_j.data_ptr(), n_win, windows_per_block, threads,
-            f32(restitution), f32(friction), torch.cuda.current_stream().cuda_stream,
-        )
+        if short_gravity is None:
+            err = _entry("nbx_collide_fused", _FUSED_ARGS)(*ptrs, n_win, windows_per_block, threads,
+                                                           f32(restitution), f32(friction), stream)
+        else:
+            G, a, eps = short_gravity
+            eps2, inv_a, c_a, g = pp_law(eps, a, G)
+            err = _entry("nbx_collide_fused_grav", _GRAV_ARGS)(*ptrs, out_g.data_ptr(), n_win, threads,
+                                                               f32(restitution), f32(friction), g, inv_a, c_a,
+                                                               eps2, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     return True
@@ -628,9 +736,23 @@ def collide_fused_multi(feats, order, src_ok, win, out_d, out_j, restitution: fl
         collide_fused_multi.launches += 1
 
 
+def collide_fused_grav(feats, order, src_ok, win, out_d, out_j, restitution: float, friction: float,
+                       t_rows: int, s_capw: int, short_gravity: tuple[float, float, float],
+                       out_g: torch.Tensor) -> None:
+    """collide_fused plus the P3M short-range gravity of every target, summed
+    over every lane of its window, into out_g [n, 3] (body order):
+    short_gravity = (G, a, eps), the TPU kernel K7 that the spatial step's
+    local entries launch with force_impl="p3m". The collision outputs are
+    collide_fused's."""
+    if _run("collide_fused_grav", feats, order, src_ok, win, out_d, out_j, restitution, friction, t_rows,
+            s_capw, 1, short_gravity, out_g):
+        collide_fused_grav.launches += 1
+
+
 collide_fused.launches = 0
 collide_full_column.launches = 0
 collide_fused_multi.launches = 0
+collide_fused_grav.launches = 0
 
 
 # ---- the pass ---------------------------------------------------------------
@@ -705,7 +827,7 @@ def _layout_call(g, max_per_cell, band_cells, packed_caps, max_blocks, buckets, 
             raise ValueError("packed_caps requires band_cells")
         # every window in one bucket; the source overflow per own strip
         n_windows = g * g * -(-g // band_cells)
-        return (functools.partial(_bucketed_pass, own_strips=True),
+        return (functools.partial(_bucketed_pass, src_over="own_all"),
                 (band_cells, ((*packed_caps, n_windows),)), collide_fused)
     if band_cells is None:
         return _per_cell_pass, (g, max_per_cell), collide_full_column
@@ -725,7 +847,7 @@ def _outputs(n: int, dev):
 
 
 def _bucketed_pass(pos, vel, mass, radius, box_size, g, b, buckets, restitution, friction,
-                   fused, own_strips: bool = False):
+                   fused, src_over: str = "uses"):
     """binned_collision_pass's bucketed layout (and the compacted and
     band-packed layouts through it), with `fused` (a kernel wrapper, or
     collide_fused_reference to hold the kernel against it) run once per
@@ -734,7 +856,7 @@ def _bucketed_pass(pos, vel, mass, radius, box_size, g, b, buckets, restitution,
     cell_too_small = 2.0 * radius.max() > cell_size(box_size, g)
     order, starts, cid_sorted = cell_sort(pos, box_size, g)
     feats = _sorted_feats(pos, vel, mass, radius, order)
-    windows, t_ok, n_overflow = _bucket_windows(starts, cid_sorted, n, g, b, buckets, own_strips)
+    windows, t_ok, n_overflow = _bucket_windows(starts, cid_sorted, n, g, b, buckets, src_over)
     out_d, out_j = _outputs(n, pos.device)
     for win, t_rows, s_capw in windows:
         fused(feats, order, t_ok, win, out_d, out_j, restitution, friction, t_rows, s_capw)
@@ -784,3 +906,140 @@ def _epilogue_finish(out_d, out_j, pos, vel, mass, n_overflow, cell_too_small):
         approaching=has & (vnb < 0.0),
     )
     return dvel, dpos, dtemp, best, n_bounces, n_overflow, cell_too_small
+
+
+# ---- the spatial step's local entries ------------------------------------------
+
+def cell_sort_slabgrid(pos: torch.Tensor, alive: torch.Tensor, box_size: float, n_cells: int, x0_cell: int,
+                       gx: int, y0_cell: int = 0, gy: int | None = None):
+    """cell_sort over a LOCAL slab grid [gx, gy, g] whose x origin is the
+    global cell layer x0_cell: local lx = clip-to-box(global cx) - x0_cell,
+    y and z as in cell_sort. With gy (default: the whole g), the y axis is
+    likewise a local window at origin y0_cell (the 2-D slab decomposition).
+    Rows with lx or ly outside the local grid, or alive False, go to the
+    overflow cell gx gy g, parked at the end of the sort: never targets,
+    never sources. The sort is stable, as jnp.argsort is.
+
+    Returns (order [N] i32, starts [gx gy g + 1] i32, cid_sorted [N] i32)."""
+    g = n_cells
+    if gy is None:
+        gy = g
+    # box / g as the JAX package forms it (a Python float rounded to
+    # float32), divided as a 0-dim tensor (see cell_sort)
+    h = torch.full((), f32(box_size / g), dtype=torch.float32, device=pos.device)
+    ijk = (pos / h).to(torch.int32).clamp(0, g - 1)
+    lx = ijk[:, 0] - x0_cell
+    ly = ijk[:, 1] - y0_cell
+    n_loc = gx * gy * g
+    inside = alive & (lx >= 0) & (lx < gx) & (ly >= 0) & (ly < gy)
+    cid = torch.where(inside, (lx * gy + ly) * g + ijk[:, 2], n_loc).to(torch.int32)
+    order = torch.argsort(cid, stable=True).to(torch.int32)
+    cid_sorted = cid[order.long()]
+    cells = torch.arange(n_loc + 1, dtype=torch.int32, device=pos.device)
+    starts = torch.searchsorted(cid_sorted, cells).to(torch.int32)
+    return order, starts, cid_sorted
+
+
+def _local_pass(pos, vel, mass, radius, box_size: float, g: int, b: int, buckets, src_over: str,
+                restitution: float, friction: float, x0_cell: int, slab_x: int, y0_cell: int,
+                slab_y: int | None, short_gravity, fused=None):
+    """The local entries' pass (their docstrings), with `fused` run once per
+    bucket: collide_fused, or collide_fused_grav with short_gravity, by
+    default; collide_fused_reference to hold the kernels against it."""
+    n = pos.shape[0]
+    dev = pos.device
+    two_d = slab_y is not None
+    w_y = slab_y if two_d else g
+    gy = w_y + 2 if two_d else g
+    order, starts, cid_sorted = cell_sort_slabgrid(pos, mass > 0.0, box_size, g, x0_cell, slab_x + 2,
+                                                   y0_cell if two_d else 0, gy)
+    grid = _slab_grid(slab_x, w_y, gy, two_d, dev)
+    windows, t_ok, n_overflow = _bucket_windows(starts, cid_sorted, n, g, b, buckets, src_over, grid)
+    feats = _sorted_feats(pos, vel, mass, radius, order)
+    out_d, out_j = _outputs(n, dev)
+    if short_gravity is None:
+        fused = fused or collide_fused
+        for win, t_rows, s_capw in windows:
+            fused(feats, order, t_ok, win, out_d, out_j, restitution, friction, t_rows, s_capw)
+        return out_d, out_j, n_overflow
+    fused = fused or collide_fused_grav
+    out_g = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    for win, t_rows, s_capw in windows:
+        fused(feats, order, t_ok, win, out_d, out_j, restitution, friction, t_rows, s_capw, short_gravity, out_g)
+    return out_d, out_j, out_g, n_overflow
+
+
+def packed_collision_blocks_local(
+    pos: torch.Tensor,  # [n] local rows: this rank's slots, then its halo rows
+    vel: torch.Tensor,
+    mass: torch.Tensor,
+    radius: torch.Tensor,
+    box_size: float,
+    n_cells: int,
+    band_cells: int,
+    packed_caps: tuple[int, int],
+    restitution: float,
+    friction: float,
+    x0_cell: int,  # global x cell layer of local layer 0 (= slab start - 1)
+    slab_x: int,  # owned x layers; the local grid is [slab_x + 2, g, g]
+    y0_cell: int = 0,  # with slab_y: global y layer of local y 0
+    slab_y: int | None = None,  # owned y layers: a 2-D slab grid [slab_x + 2, slab_y + 2, g]
+    short_gravity: tuple[float, float, float] | None = None,  # (G, a, eps): K7's gravity sum
+):
+    """The band-packed layout over a LOCAL slab grid: the pass of one rank of
+    the spatial halo-exchange step (`nbx_torch.parallel.spatial`). The rows
+    are this rank's slots plus the halo rows its neighbours sent, in any
+    order; global x layer x0_cell is local layer 0 (the left halo layer),
+    owned layers are [1, slab_x + 1) and layer slab_x + 1 is the right halo
+    (with slab_y, the y axis likewise). Target windows are the owned
+    columns' (column, band) windows at caps (t_cap, s_cap); source strips run
+    over every local column, so owned targets see their +-1 neighbours
+    through the halo rows. Halo rows are never targets. Dead rows and rows
+    outside the local grid are parked (`cell_sort_slabgrid`).
+
+    Counters as in the JAX package: n_overflow counts target rows past
+    t_rows in the owned windows and source lanes past s_capw in each owned
+    (column, band)'s own strip, so a sum over ranks counts each window
+    once. A halo row is a source if its rank in its own window is below
+    t_rows (the owner's cut, as far as this rank can see it).
+
+    Returns (out_d [n, 8], out_j [n] i32, n_overflow [] i32), with
+    short_gravity (out_d, out_j, out_g [n, 3], n_overflow): the deltas
+    (dvx dvy dvz dpx dpy dpz heat n_bounce), the deepest partner as a LOCAL
+    row (-1 = none; ties to the smallest local row) and the P3M short-range
+    gravity (K7), in body order, zero for rows that hold no target slot.
+    The kernel writes body order itself, so the JAX package's slot arrays
+    and `epilogue_rows` have no counterpart here."""
+    n_windows = slab_x * (slab_y if slab_y is not None else n_cells) * -(-n_cells // band_cells)
+    return _local_pass(pos, vel, mass, radius, box_size, n_cells, band_cells, ((*packed_caps, n_windows),),
+                       "own_all", restitution, friction, x0_cell, slab_x, y0_cell, slab_y, short_gravity)
+
+
+def bucketed_collision_blocks_local(
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    mass: torch.Tensor,
+    radius: torch.Tensor,
+    box_size: float,
+    n_cells: int,
+    band_cells: int,
+    buckets: tuple[tuple[int, int, int], ...],
+    restitution: float,
+    friction: float,
+    x0_cell: int,
+    slab_x: int,
+    y0_cell: int = 0,
+    slab_y: int | None = None,
+    short_gravity: tuple[float, float, float] | None = None,
+):
+    """The occupancy-bucketed variant of packed_collision_blocks_local: each
+    owned window runs in the first bucket whose caps cover it (per-rank
+    budgets: `parallel.spatial.spatial_buckets_for`). n_overflow counts the
+    last bucket's dropped windows, target rows past t_rows and, once per
+    selected window, its own strip's lanes past s_capw. A halo row's
+    symmetric-drop rank is held to the LAST bucket's t_rows (its owner's
+    bucket depends on occupancy this rank cannot see): with zero overflow
+    the masks agree exactly, as in the JAX package. Returns as
+    packed_collision_blocks_local."""
+    return _local_pass(pos, vel, mass, radius, box_size, n_cells, band_cells, buckets, "own", restitution,
+                       friction, x0_cell, slab_x, y0_cell, slab_y, short_gravity)

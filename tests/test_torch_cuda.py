@@ -1,15 +1,25 @@
 """The port's CUDA kernels on the card: each held against its plain PyTorch
-version (the collision kernel in every layout, and at several windows a
-block bitwise against one), the frame step and the at-scale granular step
-(bucketed, and with the default full columns) on the card against the same
-steps on the CPU, and the steps free of host syncs (P3M's and the drift
-gate's too).
+version (the collision kernel in every layout, at several windows a block
+bitwise against one, and with the fused gravity K7 bitwise K2's collision
+outputs), the frame step, the at-scale granular step (bucketed, and with the
+default full columns) and the spatial step at world size 1 on the card
+against the same steps on the CPU, the steps free of host syncs (P3M's,
+the drift gate's and the spatial step's too), and the spatial step with
+one rank a card (NCCL) against the same ranks on gloo.
 
-Marked `cuda`: every test skips where torch sees no CUDA device. On a
-machine with a card (nvcc on PATH or under CUDA_HOME; no JAX needed):
+Marked `cuda`: every test skips where torch sees no CUDA device, and the
+NCCL ranks' cases where it sees fewer cards than their mesh holds (2 or
+4). On a machine with cards (nvcc on PATH or under CUDA_HOME; no JAX
+needed):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+
+import os
+import socket
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -22,8 +32,9 @@ from nbx_torch.bench.granular import granular_cloud
 from nbx_torch.bench.pp_scenes import MAIN_CASES, RESIDUAL_CASES, main_case, residual_case
 from nbx_torch.collisions import draw_fracture_uniforms
 from nbx_torch.config import SimConfig, body_radius
-from nbx_torch.ops import collide, p3m, pairwise, ppkernel
+from nbx_torch.ops import _build, collide, p3m, pairwise, ppkernel
 from nbx_torch.ops.pm import isolated_green_hat
+from torch_spatial_ranks import NCCL_KINDS
 
 pytestmark = pytest.mark.cuda
 
@@ -461,3 +472,164 @@ def test_drift_and_hermite_chunks_make_no_host_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(e).all() and torch.isfinite(s.pos).all()
+
+
+# ---- the spatial step: K7 and the step on the card ---------------------------------
+
+SPATIAL_SLABS = {  # (d_x, d_y, me_x, me_y, layout, caps): 1-D and 2-D slabs, caps that cover and overflow
+    "1d_inner_covers": (4, 1, 1, 0, "packed", (96, 128)),
+    "1d_inner_overflows": (4, 1, 1, 0, "packed", (8, 10)),
+    "2d_bucketed": (2, 4, 0, 1, "bucketed", ((8, 8, 64), (96, 128, 64))),
+    "whole_grid_dead": (1, 1, 0, 0, "packed", (96, 128)),
+}
+
+
+@pytest.mark.parametrize("case", list(SPATIAL_SLABS))
+def test_grav_kernel_matches_plain_and_k2(dev, case):
+    """K7 (the local entries with short gravity) against its plain version:
+    deltas and gravity to TOL, partners, bounces and n_overflow exactly; its
+    collision outputs bitwise K2's on the same windows."""
+    from chip_smoke import slab_rows
+
+    d_x, d_y, me_x, me_y, layout, caps = SPATIAL_SLABS[case]
+    pos, vel, mass = _clustered(7, dead=case.endswith("dead"))
+    inputs = _collide_inputs(pos, vel, mass, 2.0, dev)
+    rows, _, (x0, w_x, y0, w_y) = slab_rows(inputs[0], BOX, 8, d_x, d_y, me_x, me_y, junk=8)
+    p, v, m, r = (x[rows] for x in inputs)
+    if layout == "packed":
+        buckets, src_over = ((*caps, w_x * (w_y or 8) * 4),), "own_all"
+    else:
+        buckets, src_over = caps, "own"
+    sg = (0.5, BOX / 8 / 3.0, 0.5)
+    args = (p, v, m, r, BOX, 8, 2, buckets, src_over, 0.2, 0.5, x0, w_x, y0, w_y)
+    before = collide.collide_fused_grav.launches
+    got = collide._local_pass(*args, sg)
+    assert collide.collide_fused_grav.launches == before + len(buckets)
+    want = collide._local_pass(*args, sg, fused=collide.collide_fused_reference)
+    k2 = collide._local_pass(*args, None)
+    assert _rel_err(got[0][:, :7], want[0][:, :7]) < TOL and _rel_err(got[2], want[2]) < TOL
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0][:, 7], want[0][:, 7])
+    assert int(got[3]) == int(want[3]) and (int(got[3]) > 0) == case.endswith("overflows")
+    assert torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1]) and int(got[3]) == int(k2[2])
+
+
+def _spatial_pair(dev, force, n=4096):
+    """The same spatial step on a CUDA mesh and a CPU mesh of one process."""
+    from chip_smoke import spatial_setup
+    from nbx_torch.parallel import shard
+
+    a = spatial_setup(dev, n=n, token="16,4,96,104", force=force, mesh=shard.make_mesh(device_type="cuda"))
+    b = spatial_setup("cpu", n=n, token="16,4,96,104", force=force, mesh=shard.make_mesh(device_type="cpu"))
+    return a, b
+
+
+@pytest.mark.parametrize("force", ["pm", "p3m"])
+def test_spatial_steps_on_card_match_cpu(dev, force):
+    """The spatial step at world size 1 on the card and on the CPU with the
+    same draws: counters, ids and partners exactly; floats to 1e-4 (PM's
+    atomic deposit sums in another order; another FFT library)."""
+    from nbx_torch.parallel import shard
+
+    with shard.local_world("cpu:gloo,cuda:nccl"):
+        (step_a, a, _, h, _), (step_b, b, cfg_b, _, _) = _spatial_pair(dev, force)
+        gen = torch.Generator().manual_seed(0)
+        kernel = collide.collide_fused_grav if force == "p3m" else collide.collide_fused
+        before = kernel.launches
+        for _ in range(3):
+            draws = draw_fracture_uniforms(cfg_b, gen, "cpu")
+            a, ca = step_a(a, h, draws.to(dev))
+            b, cb = step_b(b, h, draws)
+            for k in ca:
+                assert torch.equal(ca[k].cpu(), cb[k]), k
+        assert kernel.launches == before + 3
+    for f in ("uid", "partner_uid", "mat", "uid_next"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    for f in ("pos", "vel", "acc", "mass", "temp", "contact_t"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()), f
+
+
+def test_spatial_step_makes_no_host_sync(dev):
+    from chip_smoke import spatial_setup
+    from nbx_torch.parallel import shard
+
+    with shard.local_world("nccl"):
+        step, st, _, h, _ = spatial_setup(dev, n=4096, token="16,4,96,104", force="p3m")
+        st, _ = step(st, h)  # warm-up: kernel load, NCCL's communicator
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, c = step(st, h)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(st.pos).all() and torch.isfinite(st.acc).all()
+
+
+# ---- the spatial step across cards: NCCL ranks against the same ranks on gloo -------
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+NCCL_EXACT = ("mat", "uid", "partner_uid", "uid_next", "buckets")
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def compare_nccl_run(out: str, kind: str, world: int) -> int:
+    """Every rank's scenes on the CUDA mesh against the CPU mesh:
+    ids, partners, counters and buckets exactly; floats to 1e-4 of each
+    field's largest magnitude. Returns the number of files compared."""
+    n = 0
+    for name in sorted(os.listdir(os.path.join(out, kind))):
+        if not name.endswith("_cuda.npz"):
+            continue
+        a = np.load(os.path.join(out, kind, name))
+        b = np.load(os.path.join(out, kind, name.replace("_cuda.npz", "_cpu.npz")))
+        assert set(a.files) == set(b.files), name
+        for key in a.files:
+            x, y = a[key], b[key]
+            if "/c/" in key or key.split("/")[-1] in NCCL_EXACT:
+                np.testing.assert_array_equal(x, y, err_msg=f"{name} {key}")
+            else:
+                scale = max(float(np.abs(y).max(initial=0.0)), 1e-30)
+                np.testing.assert_allclose(x, y, rtol=0, atol=1e-4 * scale, err_msg=f"{name} {key}")
+        n += 1
+    assert n > 0 and n % world == 0, (kind, n)
+    return n
+
+
+@pytest.mark.parametrize("kind", list(NCCL_KINDS))
+def test_spatial_ranks_on_cards_match_gloo(dev, kind, tmp_path):
+    """The spatial step with one rank a card (NCCL) against the same ranks on
+    the CPU (gloo) in one process group, on the scenes of tests/test_spatial.py
+    (tests/torch_spatial_ranks.py), with the same fracture uniforms. On
+    nccl_1d2 both neighbours are one peer, so each exchange's two messages
+    go to one rank and are told apart by the order they are posted in, NCCL
+    ignoring tags. The gloo ranks are held against the JAX package in
+    tests/test_torch_spatial.py."""
+    world = NCCL_KINDS[kind][0]
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    _build.build_all()  # once here, not in every rank
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(TESTS), PYTHONUNBUFFERED="1", OMP_NUM_THREADS="1")
+    port, out = _free_port(), str(tmp_path)
+    procs = [subprocess.Popen([sys.executable, os.path.join(TESTS, "torch_spatial_ranks.py"), kind, str(r),
+                               str(world), str(port), out], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    failed, deadline = [], time.time() + 300
+    try:
+        for r, p in enumerate(procs):
+            log, _ = p.communicate(timeout=max(5.0, deadline - time.time()))
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert not failed, "\n".join(failed)
+    compare_nccl_run(out, kind, world)
