@@ -13,7 +13,8 @@ the gravity-only integration path (`bench.drift.drift_run`,
 `bench throughput` mains), every layout of the collision pass (the
 `bench granular` and `bench collsplit` mains, the granular demo's
 configuration, the scan with its default full-column layout) and the
-spatial halo-exchange step (`parallel.spatial`, the `bench spatial` main):
+spatial halo-exchange step (`parallel.spatial`, the `bench spatial` main)
+and the all-gather multi-device paths (`parallel.shard`):
 
   0. device: name and power limit; TF32 off
   1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
@@ -102,6 +103,35 @@ spatial halo-exchange step (`parallel.spatial`, the `bench spatial` main):
      nothing is dropped); one p3m step under set_sync_debug_mode("error");
      3 steps at N = 4,096 with pm and with p3m on the card and on the CPU
  20. `bench spatial` through its main at its defaults
+ 21. K2 through the column-slab entry (`packed_collision_blocks_slab`,
+     `collide_fused_slab`) against its plain version on the card: the
+     clustered 192-body scenes (g = 8, B = 4; caps that cover and that
+     overflow, in target rows and in source lanes; dead bodies) as 2, 4 and
+     8 slabs, every split's rows reduced (deltas summed, partners by their
+     largest) bitwise the whole-grid band-packed pass and its n_overflow
+     the whole grid's; the 131,072-body cloud at 32,8,96,104 as 1 slab and
+     as 4 slabs, the slabs' n_overflow summing to the whole grid's, and at
+     packed_caps_for caps the 4 slabs bitwise the whole grid; the slab
+     launches timed against the whole-grid launch
+ 22. the all-gather paths at world size 1 (NCCL for the card, gloo for the
+     CPU): make_sharded_step on BASELINE config 5's 1,048,576-body galaxy
+     merger (examples/merger_demo.py's scene, G, eps, h), 1 warm-up and 3
+     timed steps (ms/step, pairs/s), momentum conserved, one step under
+     set_sync_debug_mode("error"); K1 against its plain version on the
+     first 4,096 targets; run_sharded with diag_every (K3's energies, equal
+     to the single-device sums); the ring and the 2-D step at N = 262,144
+     against the 1-D step (bitwise at D = 1)
+ 23. the dense full-physics step (make_sharded_physics_step) on phase 4's
+     scene padded to 4,096, 20 steps with their counters; 3 steps at
+     N = 512 on the card and on the CPU
+ 24. the sharded granular step (make_sharded_granular_step) on `bench
+     spatial`'s scene (131,072-body cloud, 32,8,96,104, PM 128^3) with pm,
+     auto (K1) and zero, 20 steps each, beside the spatial step's and the
+     scan's ms/step from phase 20; each held at D = 1 against the
+     single-device scan (granular_full_kdk_scan, the same layout and
+     uniforms) in every counter and partner, under deterministic
+     algorithms; one pm step under set_sync_debug_mode("error"); 3 steps at
+     N = 4,096 with pm and auto on the card and on the CPU
 
 Every phase raises on failure, so the script exits non-zero; it needs a CUDA
 device and has no CPU fallback. The line before the last is the kernels'
@@ -118,8 +148,11 @@ collide_full_column (K8's function; launches on the layout bench's path,
 phase 17, timed on the disk's full-column configuration, phase 15) and
 collide_fused_multi (K2m; launches on the bench's u0.8x4 path, timed at
 W = 4, phase 16). K7 (collide_fused_grav) launches on the spatial step's p3m
-path (phase 19) and is timed on D = 1's windows (phase 18). It prints its
-total and the time of phases 11-14, 15-17 and 18-20 before the kernels line.
+path (phase 19) and is timed on D = 1's windows (phase 18). K2 through the
+slab entry (collide_fused_slab) launches on the sharded granular step's pm
+path (phase 24) and is timed as 1 slab of the cloud (phase 21, the shape
+that path gives it at D = 1). It prints its total and the time of phases
+11-14, 15-17, 18-20 and 21-24 before the kernels line.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -135,13 +168,15 @@ import torch
 
 from nbx_torch import collisions_scaled, diagnostics, integrators, scene, sim
 from nbx_torch.bench import collsplit, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
+from nbx_torch.bench import sharded
 from nbx_torch.bench import spatial as spatial_bench
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
 from nbx_torch.config import SimConfig, body_radius, f32
 from nbx_torch.ops import _build, collide, p3m, ppkernel
 from nbx_torch.ops.pairwise import (pairwise_acc, pairwise_acc_jerk, pairwise_acc_jerk_reference,
-                                   pairwise_acc_reference, potential_per_body, potential_per_body_reference)
+                                   pairwise_acc_reference, potential_energy, potential_per_body,
+                                   potential_per_body_reference)
 from nbx_torch.ops.pm import isolated_green_hat, out_of_box_count, pm_acceleration
 from nbx_torch.parallel import shard, spatial
 
@@ -1432,21 +1467,30 @@ def local_both(inputs, rows, box: float, g: int, b: int, caps, slab, sg, layout:
 DELTA_FIELDS = ("dvx", "dvy", "dvz", "dpx", "dpy", "dpz", "heat")  # out_d's columns before the bounces
 
 
-def check_local(name: str, got, want, k2, phase: int = 18) -> float:
-    """K7 against its plain version (deltas and gravity to KERNEL_TOL of each
-    field's largest magnitude; partners, bounces and n_overflow exactly), and
-    its collision outputs bitwise K2's on the same windows."""
-    err, worst = 0.0, (0.0, "")
+def check_rows(name: str, got, want) -> tuple[float, float]:
+    """A body-order pass (out_d, out_j, [out_g,] n_overflow) against its
+    plain version: deltas to KERNEL_TOL of each column's largest magnitude;
+    bounces, partners and n_overflow exactly. Returns (max |kernel - plain|,
+    the worst relative error) of the deltas."""
+    err, worst = 0.0, 0.0
     for i, field in enumerate(DELTA_FIELDS):
         abs_err = float((got[0][:, i] - want[0][:, i]).abs().max())
         rel = abs_err / max(float(want[0][:, i].abs().max()), 1e-30)
         check(rel < KERNEL_TOL, f"{name} {field}: relative error {rel} >= {KERNEL_TOL}")
-        err, worst = max(err, abs_err), max(worst, (rel, field))
-    log(phase, f"{name} deltas, each column to its own max|plain|: max|kernel-plain|={err:.3e}, worst rel "
-               f"{worst[0]:.3e} ({worst[1] or '-'}) (tol {KERNEL_TOL:g})")
+        err, worst = max(err, abs_err), max(worst, rel)
     check(torch.equal(got[0][:, 7], want[0][:, 7]), f"{name}: bounces equal")
     check(torch.equal(got[1], want[1]), f"{name}: partners equal")
     check(int(got[-1]) == int(want[-1]), f"{name}: n_overflow equal ({int(got[-1])} vs {int(want[-1])})")
+    return err, worst
+
+
+def check_local(name: str, got, want, k2, phase: int = 18) -> float:
+    """K7 against its plain version (check_rows, and the gravity to
+    KERNEL_TOL), and its collision outputs bitwise K2's on the same
+    windows."""
+    err, worst = check_rows(name, got, want)
+    log(phase, f"{name} deltas, each column to its own max|plain|: max|kernel-plain|={err:.3e}, worst rel "
+               f"{worst:.3e} (tol {KERNEL_TOL:g})")
     if len(got) == 4:
         err = max(err, compare(f"{name} grav", got[2], want[2], phase=phase))
         check(float(want[2].abs().max()) > 0, f"{name}: gravity found")
@@ -1666,14 +1710,416 @@ def phase_spatial(dev, steps: int = 20, n: int = SCALED_N, n_cpu: int = 4096, cp
     return k7
 
 
-def phase_spatial_bench(dev) -> None:
+def phase_spatial_bench(dev) -> list:
     """`bench spatial` through its main at its defaults (131,072-body cloud,
-    32,8,96,104, pm, PM 128^3)."""
+    32,8,96,104, pm, PM 128^3); returns its two records."""
     ref, rec = spatial_bench.main(device=dev)
     check(0 < ref["ms_per_step"] < float("inf") and 0 < rec["ms_per_step"] < float("inf"), "both paths timed")
     log(20, f"bench spatial {rec['n']} {rec['g']},{rec['band']},{rec['caps']} {rec['force']} d={rec['d']}: "
             f"single scan {ref['ms_per_step']:.4f} ms/step, spatial step {rec['ms_per_step']:.4f} ms/step, "
             f"overhead_vs_single {rec['overhead_vs_single']:.4f}; last step's counters {rec['counters']}")
+    return [ref, rec]
+
+
+# ---- the all-gather paths (parallel.shard): K2 through the column-slab entry --------
+
+def slab_both(inputs, box: float, g: int, b: int, caps, col_lo: int, n_cols: int):
+    """One column slab's pass through its kernel and through its plain
+    version: (kernel outputs, plain outputs, the kernel's calls)."""
+    rec, calls = record_launches(collide.collide_fused_slab)
+    args = (*inputs, box, g, b, caps, 0.2, 0.5, col_lo, n_cols)
+    got = collide.packed_collision_blocks_slab(*args, fused=rec)
+    want = collide.packed_collision_blocks_slab(*args, fused=collide.collide_fused_reference)
+    return got, want, calls
+
+
+def slab_union(parts):
+    """The rows of a split's slabs reduced as the all-gather paths reduce
+    them: deltas summed, partners by their largest; n_overflow summed."""
+    u_d = torch.stack([p[0] for p in parts]).sum(0)
+    u_j = torch.stack([p[1] for p in parts]).amax(0)
+    return u_d, u_j, sum(int(p[2]) for p in parts)
+
+
+def union_is_whole(u_d, u_j, whole) -> bool:
+    """A split's reduced rows bitwise the whole-grid pass's outputs."""
+    return (torch.equal(u_d[:, 0:3], whole[0]) and torch.equal(u_d[:, 3:6], whole[1])
+            and torch.equal(u_d[:, 6], whole[2]) and torch.equal(u_j, whole[3]["j"])
+            and int(u_d[:, 7].sum()) // 2 == int(whole[4]))
+
+
+# (label, scene seed, dead bodies, radius scale, caps: "sized" = packed_caps_for, or given)
+SMALL_SLABS = [
+    ("sized caps (covers)", 7, False, 2.0, "sized"),
+    ("(8, 10) (overflows)", 7, False, 2.0, (8, 10)),
+    ("(68, 24) (overflows: source lanes)", 7, False, 2.0, (68, 24)),
+    ("dead bodies, sized caps (covers)", 9, True, 2.0, "sized"),
+]
+
+
+def phase_slab_kernel(dev, n_big: int = SCALED_N, n_slabs: int = 4) -> dict:
+    """K2 through the column-slab entry against its plain version on the
+    card: the clustered 192-body scenes (g = 8, B = 4) as 2, 4 and 8 slabs
+    (caps that cover and overflow, dead bodies), each split's reduced rows
+    bitwise the whole-grid band-packed pass (K2 through binned_collision_pass)
+    and its n_overflow the whole grid's; then bench spatial's 131,072-body
+    cloud at 32,8,96,104 as 1 slab (D = 1, the shape phase 24's pm path gives
+    the kernel) and as n_slabs slabs on this one card, their n_overflow summing
+    to the whole grid's, and at packed_caps_for caps their reduced rows
+    bitwise the whole grid's. Times the 1 slab's launch, the n_slabs slabs'
+    and the whole-grid pass's. Returns collide_fused_slab's kernels-line
+    entry (without its launches)."""
+    g8, b8 = 8, 4
+    err = 0.0
+    for label, seed, dead, scale, caps in SMALL_SLABS:
+        pos, vel, mass = clustered_scene(seed=seed)
+        if dead:
+            mass[::5] = 0.0
+        if caps == "sized":
+            caps = collide.packed_caps_for(pos, BOX, g8, b8)
+        inputs = collide_inputs(pos, vel, mass, scale, dev)
+        whole = collide.binned_collision_pass(*inputs, BOX, g8, band_cells=b8, packed_caps=caps)
+        for d in (2, 4, 8):
+            k = g8 * g8 // d
+            parts, worst = [], 0.0
+            for s_ in range(d):
+                got, want, _ = slab_both(inputs, BOX, g8, b8, caps, s_ * k, k)
+                e, rel = check_rows(f"clustered n=192 {label} caps {caps}, slab {s_} of {d}", got, want)
+                err, worst = max(err, e), max(worst, rel)
+                parts.append(got)
+            u_d, u_j, ovf = slab_union(parts)
+            check(ovf == int(whole[5]), f"{label}, {d} slabs: n_overflow {ovf} sums to the whole grid's {int(whole[5])}")
+            check((ovf > 0) == ("overflows" in label), f"{label}: n_overflow {ovf} > 0 is {'overflows' in label}")
+            check(union_is_whole(u_d, u_j, whole), f"{label}, {d} slabs: the reduced rows bitwise the whole grid's")
+            log(21, f"clustered n=192 g=8 B=4 {label} caps {caps}, {d} slabs: kernel vs plain worst rel {worst:.3e} "
+                    f"(tol {KERNEL_TOL:g}), partners and counters equal; reduced rows bitwise the whole-grid pass "
+                    f"({int((u_j >= 0).sum())} partners, {int(whole[4])} bounces), n_overflow {ovf}")
+
+    g, b, tc, sc_ = (int(x) for x in SPATIAL_CFG.split(","))
+    pos, vel, mass = granular_cloud(n_big, seed=0, box=BOX)
+    inputs = collide_inputs(pos, vel, mass, 1.0, dev)
+    n_cols, k = g * g, g * g // n_slabs
+    whole = collide.binned_collision_pass(*inputs, BOX, g, band_cells=b, packed_caps=(tc, sc_))
+    got, want, calls1 = slab_both(inputs, BOX, g, b, (tc, sc_), 0, n_cols)
+    e, rel = check_rows(f"cloud n={n_big} 1 slab ({tc}, {sc_})", got, want)
+    err = max(err, e)
+    check(union_is_whole(got[0], got[1], whole) and int(got[2]) == int(whole[5]),
+          "1 slab: bitwise the whole-grid pass, n_overflow equal")
+    log(21, f"cloud n={n_big} {SPATIAL_CFG}, 1 slab (D = 1): kernel vs plain worst rel {rel:.3e}, bitwise the "
+            f"whole-grid pass; n_overflow {int(got[2])}")
+    parts, calls4 = [], []
+    for s_ in range(n_slabs):
+        got, want, calls = slab_both(inputs, BOX, g, b, (tc, sc_), s_ * k, k)
+        e, rel = check_rows(f"cloud n={n_big} slab {s_} of {n_slabs}", got, want)
+        err = max(err, e)
+        parts.append(got)
+        calls4 += calls
+        log(21, f"cloud n={n_big} slab {s_} of {n_slabs}: kernel vs plain worst rel {rel:.3e}, n_overflow "
+                f"{int(got[2])}")
+    _, _, ovf = slab_union(parts)
+    check(ovf == int(whole[5]), f"{n_slabs} slabs' n_overflow {ovf} sums to the whole grid's {int(whole[5])}")
+    caps = collide.packed_caps_for(pos, BOX, g, b)  # zero overflow
+    whole_c = collide.binned_collision_pass(*inputs, BOX, g, band_cells=b, packed_caps=caps)
+    u_d, u_j, ovf_c = slab_union([collide.packed_collision_blocks_slab(*inputs, BOX, g, b, caps, 0.2, 0.5, s_ * k, k)
+                                  for s_ in range(n_slabs)])
+    check(ovf_c == 0 and union_is_whole(u_d, u_j, whole_c), f"{n_slabs} slabs at {caps}: bitwise the whole grid's")
+    log(21, f"cloud n={n_big}: {n_slabs} slabs' n_overflow at ({tc}, {sc_}) {ovf} = the whole grid's; at "
+            f"packed_caps_for {caps} their reduced rows bitwise the whole-grid pass ({int((u_j >= 0).sum())} "
+            f"partners, {int(whole_c[4])} bounces)")
+
+    t1 = time_launches(21, f"cloud n={n_big} 1 slab (D = 1) {SPATIAL_CFG}", collide.collide_fused_slab, calls1)
+    t4 = time_launches(21, f"cloud n={n_big} {n_slabs} slabs {SPATIAL_CFG}", collide.collide_fused_slab, calls4)
+    _, _, fused, calls_w = layout_both(inputs, BOX, g, dict(band_cells=b, packed_caps=(tc, sc_)))
+    tw = time_launches(21, f"cloud n={n_big} whole-grid pass {SPATIAL_CFG} (K2)", fused, calls_w)
+    log(21, f"1 slab / whole-grid launch {t1['ms'] / tw['ms']:.3f}; {n_slabs} slabs / whole grid "
+            f"{t4['ms'] / tw['ms']:.3f}")
+    return dict(max_abs_err=err, ms=t1["ms"], plain_ms=t1["plain_ms"], bound_ms=t1["bound_ms"],
+                bound_by=t1["bound_by"], library_ms=None)
+
+
+def momentum(mass: torch.Tensor, vel: torch.Tensor) -> torch.Tensor:
+    return (mass.double()[:, None] * vel.double()).sum(0)
+
+
+def phase_sharded_gravity(dev, n: int = MERGER_N, n_ring: int = HEADLINE_N, ring_steps: int = 2) -> float:
+    """The all-gather gravity step at world size 1 on BASELINE config 5's
+    1,048,576-body galaxy merger (examples/merger_demo.py's scene, G, eps,
+    h): 1 warm-up and 3 timed steps (ms/step, pairs/s), momentum conserved,
+    one step under set_sync_debug_mode("error"); run_sharded with
+    diag_every (K3's energies, equal to the single-device energy at D = 1);
+    the ring and the 2-D step at N = n_ring against the 1-D step; K1 against
+    its plain version on the first 4,096 targets. Returns ms/step."""
+    mesh = shard.make_mesh(device_type=dev.type)
+    sc = scene.galaxy_merger(n, **sharded.MERGER)
+    G, eps, h = sharded.G, sharded.EPS, sharded.H
+    before = pairwise_acc.launches
+    rec, st = sharded.time_gravity(mesh, dev, sc)
+    check(pairwise_acc.launches - before == 4, "K1 launched once a step")
+    mass0, vel0 = (torch.tensor(sc[f], device=dev) for f in ("mass", "vel"))
+    p0 = momentum(mass0, vel0)
+    drift = float((momentum(st.mass, st.vel) - p0).norm()) / float((st.mass.double() * st.vel.double().norm(dim=1)).sum())
+    check(all_finite(st.pos, st.vel, st.acc), "state finite")
+    check(drift < 1e-5, f"momentum conserved ({drift:.3e})")
+    log(22, f"make_sharded_step N={n} D={rec['d']}: {rec['ms_per_step']:.3f} ms/step over {rec['steps']} steps "
+            f"({rec['pairs_per_s']:.4e} pairs/s); |dP| / sum m|v| = {drift:.3e} (tol 1e-5)")
+    step = shard.make_sharded_step(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = step(st, G, eps, h)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(22, "one make_sharded_step ran under set_sync_debug_mode('error'): no host sync")
+
+    tgt = st.pos[:4096]
+    compare(f"K1 at N={n}, first 4096 targets", pairwise_acc(st.pos, st.mass, G, eps, target_pos=tgt),
+            pairwise_acc_reference(st.pos, st.mass, G, eps, tgt, block=256), phase=22)
+
+    st0 = shard.shard_state(mesh, sc["pos"], sc["vel"], sc["mass"])
+    ke0, pe0 = shard.sharded_energy(mesh, st0, G, eps)
+    st2, none = shard.run_sharded(st0, step, G, eps, h, n_steps=2)
+    st3, energies = shard.run_sharded(st0, step, G, eps, h, n_steps=3, diag_every=2, mesh=mesh)
+    check(none is None and tuple(energies.shape) == (1, 2) and all_finite(energies, st3.pos),
+          "one (KE, PE) sample, finite")
+    check(not torch.equal(st3.pos, st2.pos), "the remainder step ran after the sample")
+    # the sample against the single-device energy of the state after 2 steps
+    ke2 = 0.5 * (st2.mass * (st2.vel * st2.vel).sum(-1)).sum()
+    pe2 = potential_energy(st2.pos, st2.mass, G, eps)
+    for name, got, want in (("KE", energies[0, 0], ke2), ("PE", energies[0, 1], pe2)):
+        rel = abs(float(got) - float(want)) / abs(float(want))
+        check(rel < 1e-6, f"run_sharded's {name} sample equals the single-device K3 sum ({rel:.3e})")
+    e0, e2 = float(ke0 + pe0), float(energies[0].sum())
+    log(22, f"run_sharded 3 steps, diag_every 2: the sample (KE {float(energies[0, 0]):.6e}, PE "
+            f"{float(energies[0, 1]):.6e}) equals the single-device sums after 2 steps; E0 {e0:.6e}, "
+            f"|E2 - E0| / |E0| = {abs(e2 - e0) / abs(e0):.3e}; the remainder step after it")
+
+    sc2 = scene.galaxy_merger(n_ring, **sharded.MERGER)
+    mesh2 = shard.make_mesh(axes=("b", "j"), device_type=dev.type)
+    out = {}
+    for path, m, place, make in (("1-D", mesh, shard.shard_state, shard.make_sharded_step),
+                                 ("ring", mesh, shard.shard_state, shard.make_sharded_step_ring),
+                                 ("2-D", mesh2, shard.shard_state2d, shard.make_sharded_step_2d)):
+        s2 = place(m, sc2["pos"], sc2["vel"], sc2["mass"])
+        stp = make(m)
+        s2 = stp(s2, G, eps, h)  # warm-up step, then ring_steps timed
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(ring_steps):
+            s2 = stp(s2, G, eps, h)
+        t1.record()
+        t1.synchronize()
+        out[path] = s2
+        log(22, f"{path} step N={n_ring} D=1: {t0.elapsed_time(t1) / ring_steps:.3f} ms/step")
+    for path in ("ring", "2-D"):
+        same = torch.equal(out[path].pos, out["1-D"].pos) and torch.equal(out[path].vel, out["1-D"].vel)
+        rel = max(float((getattr(out[path], f) - getattr(out["1-D"], f)).abs().max())
+                  / float(getattr(out["1-D"], f).abs().max()) for f in ("pos", "vel"))
+        log(22, f"{path} against the 1-D step after {ring_steps + 1} steps at D = 1: bitwise {same} "
+                f"(expected: the same K1 launch on the same rows); max rel {rel:.3e}")
+        check(rel < 1e-6, f"{path} equals the 1-D step at D = 1")
+    return rec["ms_per_step"]
+
+
+def padded_scene(n: int, n_disk: int):
+    """The full-physics scene of phase 4 (reference_galaxy with n_disk disk
+    bodies), padded with mass-0 bodies to n: (pos, vel, mass, mat, temp)."""
+    sc = scene.reference_galaxy(n_disk=n_disk, seed=0)
+    k = len(sc["mass"])
+    out = []
+    for f in ("pos", "vel", "mass", "mat", "temp"):
+        x = np.zeros((n, *sc[f].shape[1:]), sc[f].dtype)
+        x[:k] = sc[f]
+        out.append(x)
+    return out
+
+
+PHYSICS_COUNTERS = ("n_merges", "n_bounces", "n_fractures", "n_dropped")
+
+
+def phase_sharded_physics(dev, n: int = 4096, n_disk: int = 3000, steps: int = 20, n_cpu: int = 512,
+                          cpu_steps: int = 3) -> float:
+    """The dense full-physics step (make_sharded_physics_step) at world size
+    1 on phase 4's scene padded to 4,096: 2 warm-up and `steps` timed steps,
+    the counters summed, mass conserved where nothing was dropped; then
+    cpu_steps steps at N = n_cpu on the card and on the CPU with the same
+    fracture uniforms: counters, partners and materials exactly, floats to
+    SCALED_CPU_TOL. Returns ms/step."""
+    cfg = SimConfig()
+    h = sim.substep_size(cfg)
+    mesh = shard.make_mesh(device_type=dev.type)
+    pos, vel, mass, mat, temp = padded_scene(n, n_disk)
+    st = shard.shard_body_state(mesh, pos, vel, mass, mat, temp)
+    step = shard.make_sharded_physics_step(mesh, cfg)
+    m0 = float(st.mass.double().sum())
+    for _ in range(2):
+        st, _ = step(st, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs = []
+    for _ in range(steps):
+        st, c = step(st, h)
+        cs.append(c)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    tot = {k: int(torch.stack([c[k] for c in cs]).sum()) for k in PHYSICS_COUNTERS}
+    check(all_finite(st.pos, st.vel, st.acc, st.mass, st.temp, st.contact_t), "state finite")
+    m1 = float(st.mass.double().sum())
+    if tot["n_dropped"] == 0:
+        check(abs(m1 - m0) <= 1e-5 * m0, f"mass conserved ({m0} -> {m1})")
+    log(23, f"make_sharded_physics_step N={n} ({n_disk + 1} live) D=1: {ms:.3f} ms/step over {steps} steps; "
+            f"counters summed {tot}; mass {m0:.4f} -> {m1:.4f}; alive {int((st.mass > 0).sum())}")
+
+    cuda_mesh, cpu_mesh = mesh, shard.make_mesh(device_type="cpu")
+    pos, vel, mass, mat, temp = padded_scene(n_cpu, n_cpu - 12)
+    a = shard.shard_body_state(cuda_mesh, pos, vel, mass, mat, temp)
+    b = shard.shard_body_state(cpu_mesh, pos, vel, mass, mat, temp)
+    step_a, step_b = step, shard.make_sharded_physics_step(cpu_mesh, cfg)
+    gen = torch.Generator().manual_seed(13)
+    for i in range(cpu_steps):
+        d = draw_fracture_uniforms(cfg, gen, "cpu")
+        a, ca = step_a(a, h, d.to(dev))
+        b, cb = step_b(b, h, d)
+        for k in PHYSICS_COUNTERS:
+            check(int(ca[k]) == int(cb[k]), f"step {i}: {k} equal on card and CPU ({int(ca[k])} vs {int(cb[k])})")
+    for f in ("partner", "mat"):
+        check(torch.equal(getattr(a, f).cpu(), getattr(b, f)), f"{f} equal on card and CPU")
+    for f in ("pos", "vel", "acc", "mass", "temp", "contact_t"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        err = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+        check(err < SCALED_CPU_TOL, f"{f} card vs CPU after {cpu_steps} steps ({err:.3e})")
+    log(23, f"N={n_cpu}, {cpu_steps} steps: counters, partners and materials equal on card and CPU, floats within "
+            f"{SCALED_CPU_TOL:g}; last counters {{{', '.join(f'{k}: {int(v)}' for k, v in cb.items())}}}")
+    return ms
+
+
+GRANULAR_COUNTERS = ("n_merges", "n_fractures", "n_bounces", "n_overflow", "n_dropped")
+
+
+def granular_against_scan(dev, mesh, force: str, steps: int = 20, n: int = SCALED_N) -> None:
+    """The sharded granular step at D = 1 against the single-device sequence
+    (granular_full_kdk_scan with the same packed layout, force and fracture
+    uniforms; tests/test_shard.py's chain) on bench spatial's scene, under
+    torch.use_deterministic_algorithms (the PM deposit's atomics otherwise
+    change its last bits from run to run): every step's counters, and the
+    partners, materials and contact timers at the end, exactly; the floats
+    bitwise or within 1e-5 of each field's largest magnitude (logged)."""
+    g, b, caps, pm_grid = (sharded.GRANULAR[k] for k in ("n_cells", "band_cells", "packed_caps", "pm_grid"))
+    pos, vel, mass = granular_cloud(n)
+    cfg = granular.bench_config().to(dev)
+    gen = torch.Generator().manual_seed(17)
+    draws = [draw_fracture_uniforms(cfg, gen, "cpu").to(dev) for _ in range(steps)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        green = isolated_green_hat(BOX, pm_grid, device=dev) if force == "pm" else None
+        st0 = collisions_scaled.make_granular_state(pos, vel, mass, seed=0, device=dev)
+        scan_force = "pairwise" if force == "auto" else force
+        ref, _, evs = collisions_scaled.granular_full_kdk_scan(
+            st0, cfg, BOX, steps, n_cells=g, band_cells=b, packed_caps=caps, force_impl=scan_force, pm_grid=pm_grid,
+            log_events=True, green_hat=green, draws=draws)
+        st = shard.shard_body_state(mesh, pos, vel, mass)
+        if force == "pm":
+            st = st._replace(acc=pm_acceleration(st.pos, st.mass, cfg.G, BOX, g=pm_grid, isolated=True,
+                                                 green_hat=green))
+        elif force == "auto":
+            st = st._replace(acc=pairwise_acc(st.pos, st.mass, cfg.G, cfg.softening))
+        step = shard.make_sharded_granular_step(mesh, cfg, BOX, g, b, caps, force_impl=force, pm_grid=pm_grid)
+        for i in range(steps):
+            st, c = step(st, cfg.dt, draws[i])
+            for k in GRANULAR_COUNTERS:
+                check(int(c[k]) == int(getattr(evs, k)[i]), f"{force} step {i}: {k} {int(c[k])} equals the scan's "
+                                                           f"{int(getattr(evs, k)[i])}")
+            check(bool(c["cell_too_small"]) == bool(evs.cell_too_small[i]), f"{force} step {i}: cell_too_small")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for f in ("partner", "mat", "contact_t"):
+        check(torch.equal(getattr(st, f), getattr(ref, f)), f"{force}: {f} equal to the scan's")
+    bitwise, worst = True, 0.0
+    for f in ("pos", "vel", "mass", "temp"):
+        x, y = getattr(st, f), getattr(ref, f)
+        bitwise = bitwise and torch.equal(x, y)
+        worst = max(worst, float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30))
+    check(worst < 1e-5, f"{force}: floats within 1e-5 of the scan's ({worst:.3e})")
+    tot = {k: int(getattr(evs, k).sum()) for k in GRANULAR_COUNTERS}
+    log(24, f"{force} D=1 against the single-device scan, {steps} steps: every counter and partner equal "
+            f"(totals {tot}); floats bitwise {bitwise}, max rel {worst:.3e}")
+
+
+def phase_sharded_granular(dev, spatial_rows, steps: int = 20, n: int = SCALED_N, n_cpu: int = 4096,
+                           cpu_steps: int = 3) -> int:
+    """The sharded granular step at world size 1 on bench spatial's scene
+    (131,072-body cloud, 32,8,96,104, PM 128^3): pm (the slab kernel's path:
+    its launches counted from 0 there), auto (K1) and zero, 2 warm-up and
+    `steps` timed steps each, beside the spatial step's and the scan's
+    ms/step on the same scene (phase 20, `spatial_rows`); each force held
+    against the single-device scan (granular_against_scan); one pm step
+    under set_sync_debug_mode("error"); cpu_steps steps at N = n_cpu on the
+    card and on the CPU with pm and auto. Returns the slab kernel's launches
+    on the pm path."""
+    mesh = shard.make_mesh(device_type=dev.type)
+    launches = 0
+    for force in ("pm", "auto", "zero"):
+        if force == "pm":
+            collide.collide_fused_slab.launches = 0  # the slab kernel's path: the granular step with pm
+        rec = sharded.time_granular(mesh, dev, n, force, steps=steps, warmup=2)
+        if force == "pm":
+            launches = collide.collide_fused_slab.launches
+            check(launches == steps + 2, f"pm: the slab kernel launched {launches} times in {steps + 2} steps")
+        log(24, f"make_sharded_granular_step N={n} {force} D={rec['d']}: {rec['ms_per_step']:.3f} ms/step over "
+                f"{steps} steps; last step's counters {rec['counters']}")
+    ref, rec = spatial_rows
+    log(24, f"beside it, on the same scene with pm (phase 20): the single-device scan {ref['ms_per_step']:.4f} "
+            f"ms/step, the spatial halo-exchange step {rec['ms_per_step']:.4f} ms/step")
+    for force in ("pm", "auto", "zero"):
+        granular_against_scan(dev, mesh, force, steps=steps, n=n)
+
+    g, b, caps, pm_grid = (sharded.GRANULAR[k] for k in ("n_cells", "band_cells", "packed_caps", "pm_grid"))
+    cfg = granular.bench_config()
+    step = shard.make_sharded_granular_step(mesh, cfg, BOX, g, b, caps, force_impl="pm", pm_grid=pm_grid)
+    st = shard.shard_body_state(mesh, *granular_cloud(n))
+    st, _ = step(st, cfg.dt)
+    torch.cuda.synchronize()
+    before = collide.collide_fused_slab.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, c = step(st, cfg.dt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(collide.collide_fused_slab.launches - before == 1, "the slab kernel ran in the sync-checked step")
+    log(24, "one pm granular step ran under set_sync_debug_mode('error'): no host sync")
+    collide.collide_fused_slab.launches = launches
+
+    # the card against the CPU, one process: a CUDA mesh and a CPU mesh
+    cpu_mesh = shard.make_mesh(device_type="cpu")
+    box = BOX * (n_cpu / SCALED_N) ** (1.0 / 3.0)
+    pos, vel, mass = granular_cloud(n_cpu, seed=0, box=box)
+    cfg = granular.bench_config()
+    for force in ("pm", "auto"):
+        steps_ab = [shard.make_sharded_granular_step(m, cfg, box, 16, 4, (96, 104), force_impl=force, pm_grid=64)
+                    for m in (mesh, cpu_mesh)]
+        a, b_ = (shard.shard_body_state(m, pos, vel, mass) for m in (mesh, cpu_mesh))
+        gen = torch.Generator().manual_seed(11)
+        for i in range(cpu_steps):
+            d = draw_fracture_uniforms(cfg, gen, "cpu")
+            a, ca = steps_ab[0](a, cfg.dt, d.to(dev))
+            b_, cb = steps_ab[1](b_, cfg.dt, d)
+            for k in ca:
+                check(int(ca[k]) == int(cb[k]), f"{force} step {i}: {k} equal on card and CPU ({int(ca[k])} vs "
+                                                f"{int(cb[k])})")
+        for f in ("partner", "mat"):
+            check(torch.equal(getattr(a, f).cpu(), getattr(b_, f)), f"{force}: {f} equal on card and CPU")
+        worst = 0.0
+        for f in ("pos", "vel", "acc", "mass", "temp", "contact_t"):
+            x, y = getattr(a, f).cpu(), getattr(b_, f)
+            err = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+            check(err < SCALED_CPU_TOL, f"{force}: {f} card vs CPU after {cpu_steps} steps ({err:.3e})")
+            worst = max(worst, err)
+        log(24, f"N={n_cpu} {force}, {cpu_steps} granular steps: counters, partners and materials equal on card "
+                f"and CPU, floats max rel {worst:.3e} (tol {SCALED_CPU_TOL:g}); last counters "
+                f"{{{', '.join(f'{k}: {int(v)}' for k, v in cb.items())}}}")
+    return launches
 
 
 def main() -> None:
@@ -1712,10 +2158,16 @@ def main() -> None:
     k7 = phase_grav_kernel(dev)
     with shard.local_world("cpu:gloo,cuda:nccl"):
         k7_launches = phase_spatial(dev)  # resets K7's count: the spatial step's p3m path
-        phase_spatial_bench(dev)
-    t20 = time.perf_counter()
-    print(f"[done] every phase passed: {t20 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
-          f"phases 15-17 {t17 - t14:.1f} s, phases 18-20 {t20 - t17:.1f} s", flush=True)
+        spatial_rows = phase_spatial_bench(dev)
+        t20 = time.perf_counter()
+        k2s = phase_slab_kernel(dev)
+        phase_sharded_gravity(dev)
+        phase_sharded_physics(dev)
+        k2s_launches = phase_sharded_granular(dev, spatial_rows)  # resets the slab kernel's count: its pm path
+    t24 = time.perf_counter()
+    print(f"[done] every phase passed: {t24 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
+          f"phases 15-17 {t17 - t14:.1f} s, phases 18-20 {t20 - t17:.1f} s, phases 21-24 {t24 - t20:.1f} s",
+          flush=True)
     records = [
         dict(name="pairwise_f32r", route="cuda", source="nbx_torch/csrc/pairwise_f32r.cu",
              replaces="nbx/ops/pairwise.py:168", launches=k1_launches, **k1),
@@ -1735,6 +2187,8 @@ def main() -> None:
              replaces="nbx/ops/pairwise.py:682", launches=k3_launches, **k3),
         dict(name="collide_fused_grav", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
              replaces="nbx/ops/collide.py:261", launches=k7_launches, **k7),
+        dict(name="collide_fused_slab", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
+             replaces="nbx/ops/collide.py:1913", launches=k2s_launches, **k2s),
     ]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,16 @@
 
     python -m nbx_torch.bench.profile_step [N] [steps]
     python -m nbx_torch.bench.profile_step spatial [N] [steps] [force]
+    python -m nbx_torch.bench.profile_step sharded [N] [steps] [force]
 
 Runs the at-scale live server's configuration (`granular_cloud(N)`, box
 100 (N / 131072)^(1/3), g = 40, B = 12, PM gravity on a 64^3 mesh, one
 `granular_full_kdk_scan(n_steps=1, log_events=True)` per step), or with
 `spatial` the spatial halo-exchange step of `bench spatial` at world size 1
 (the 131,072-body cloud, 32,8,96,104, force pm (default) or p3m, PM 128^3),
-and prints one JSON line:
+or with `sharded` the all-gather granular step (`parallel.shard`) at world
+size 1 on the same scene (force pm (default), auto or zero), and prints one
+JSON line:
 
   * ms_per_step: host clock over 10 steps ending in a synchronize, unprofiled;
   * device_ms_per_step, kernels_per_step, busy_share: torch.profiler over
@@ -23,7 +26,10 @@ and prints one JSON line:
     local pass (its slab sort, window layout and kernel, K2 or K7), the PM
     deposit, solve and gather, the exchanges, the fragments; `step, other`
     the rest (kicks, migration and halo selection, gates, merges, slot
-    bookkeeping, the reductions).
+    bookkeeping, the reductions). The all-gather step's parts: the slab
+    pass (its cell sort, window layout and kernel), the reduce-scatters of
+    its rows, the gathers, the partner record, the PM deposit, solve and
+    gather, the fragments; `step, other` the rest.
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -42,7 +48,7 @@ from nbx_torch import collisions_scaled
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.config import SimConfig
 from nbx_torch.ops import collide, pm
-from nbx_torch.parallel import spatial
+from nbx_torch.parallel import shard, spatial
 
 
 def _ranged(module, name: str, label: str) -> None:
@@ -81,6 +87,20 @@ SPATIAL_PARTS = (
     (pm, "cic_gather", "pm gather"),
     (spatial, "_exchange", "exchanges"),
     (spatial, "_make_fragments", "fragments"),
+)
+
+
+SHARDED_PARTS = (
+    (shard, "_slab_pass", "slab pass, all"),
+    (collide, "cell_sort", "cell sort"),
+    (collide, "_bucket_windows", "window layout"),
+    (shard, "_reduce_scatter", "reduce-scatters"),
+    (shard, "_gather", "gathers"),
+    (shard, "partner_record", "partner record"),
+    (pm, "cic_deposit", "pm deposit"),
+    (pm, "pm_solve_grid", "pm solve (FFTs)"),
+    (pm, "cic_gather", "pm gather"),
+    (shard, "_make_fragments", "fragments"),
 )
 
 
@@ -182,14 +202,49 @@ def main_spatial(argv, dev) -> dict:
                 ms_per_step=ms_per_step, **out)
 
 
+def main_sharded(argv, dev) -> dict:
+    """The all-gather granular step at world size 1 (module docstring)."""
+    from nbx_torch.bench import sharded
+
+    n = int(argv[0]) if argv else 131072
+    steps = int(argv[1]) if len(argv) > 1 else 5
+    force = argv[2] if len(argv) > 2 else "pm"
+    for module, name, label in SHARDED_PARTS:  # before the step is built: it binds the PM functions then
+        _ranged(module, name, label)
+    kw = sharded.GRANULAR
+    box = BOX * (n / 131072.0) ** (1.0 / 3.0)
+    pos, vel, mass = granular_cloud(n, seed=0, box=box)
+    cfg = SimConfig(G=0.5, dt=0.016, sub_steps=1, merge_time=0.25, fracture_threshold=8.0).to(dev)
+    with shard.local_world("nccl"):
+        mesh = shard.make_mesh()
+        sstep = shard.make_sharded_granular_step(mesh, cfg, box, kw["n_cells"], kw["band_cells"], kw["packed_caps"],
+                                                 force_impl=force, pm_grid=kw["pm_grid"])
+        st = shard.shard_body_state(mesh, pos, vel, mass)
+
+        def step(s):
+            return sstep(s, cfg.dt)[0]
+
+        ms_per_step, st = _host_ms(step, st)
+        out, _ = profile(step, st, steps, SHARDED_PARTS, ("kernel (K2, slab entry)", "slab pass, all"))
+    parts = out["parts_device_ms_per_step"]
+    parts["slab pass, other"] = parts["slab pass, all"] - sum(
+        parts[k] for k in ("cell sort", "window layout", "kernel (K2, slab entry)", "reduce-scatters"))
+    parts["step, other"] = out["device_ms_per_step"] - sum(
+        parts[k] for k in ("slab pass, all", "gathers", "partner record", "pm deposit", "pm solve (FFTs)",
+                           "pm gather", "fragments"))
+    return dict(device=torch.cuda.get_device_name(0), path="sharded_granular_step", n=n, force=force,
+                ms_per_step=ms_per_step, **out)
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
-    if argv and argv[0] == "spatial":
-        print(json.dumps(main_spatial(argv[1:], dev)), flush=True)
+    if argv and argv[0] in ("spatial", "sharded"):
+        run = main_spatial if argv[0] == "spatial" else main_sharded
+        print(json.dumps(run(argv[1:], dev)), flush=True)
         return
     n = int(argv[0]) if argv else 131072
     steps = int(argv[1]) if len(argv) > 1 else 5

@@ -13,6 +13,7 @@ import torch
 from nbx_torch.collisions_scaled import GranularState
 from nbx_torch.config import CUDA, SimConfig
 from nbx_torch.integrators import HermiteState, PhaseState
+from nbx_torch.parallel.shard import ShardedBodyState, ShardedState
 from nbx_torch.parallel.spatial import SpatialState
 from nbx_torch.state import SimState, make_generator
 
@@ -167,3 +168,49 @@ def spatial_state_to_arrays(*states: SpatialState) -> dict:
     out = {name: np.concatenate([getattr(s, name).cpu().numpy() for s in states]) for name in SPATIAL_FIELDS}
     out["uid_next"] = np.asarray(int(states[0].uid_next), np.int32)
     return out
+
+
+# The leaves of the all-gather paths' states (`parallel.shard`), with their dtypes.
+SHARDED_FIELDS = {"pos": torch.float32, "vel": torch.float32, "acc": torch.float32, "mass": torch.float32}
+SHARDED_BODY_FIELDS = dict(SHARDED_FIELDS, mat=torch.int32, temp=torch.float32, partner=torch.int32,
+                           contact_t=torch.float32)
+
+
+def _shard_rows(arrays: dict, fields: dict, shard: int, n_shards: int, device) -> dict:
+    n = np.asarray(arrays["mass"]).shape[0]
+    if n % n_shards:
+        raise ValueError(f"N={n} not divisible by {n_shards} shards")
+    nl = n // n_shards
+    rows = slice(shard * nl, (shard + 1) * nl)
+    return {name: torch.as_tensor(np.array(arrays[name][rows]), dtype=dtype).to(device)
+            for name, dtype in fields.items()}
+
+
+def sharded_state_from_arrays(arrays: dict, shard: int, n_shards: int, device=CUDA) -> ShardedState:
+    """Shard `shard` of D = n_shards of the JAX ShardedState's global leaves
+    (pos, vel, acc, mass as numpy arrays): rows [shard N/D, (shard + 1) N/D).
+    On a 1-D mesh the shard is the rank's coordinate; on the 2-D mesh
+    ("b", "j") it is b |j| + j."""
+    return ShardedState(**_shard_rows(arrays, SHARDED_FIELDS, shard, n_shards, device))
+
+
+def sharded_state_to_arrays(*states: ShardedState) -> dict:
+    """The leaves of the shards' states, given in shard order, as numpy
+    arrays in the JAX package's global layout; one state gives its own
+    rows."""
+    return {name: np.concatenate([getattr(s, name).cpu().numpy() for s in states]) for name in SHARDED_FIELDS}
+
+
+def sharded_body_state_from_arrays(arrays: dict, shard: int, n_shards: int, device=CUDA) -> ShardedBodyState:
+    """Shard `shard` of D = n_shards of the JAX ShardedBodyState's global
+    leaves (pos, vel, acc, mass, mat, temp, partner, contact_t as numpy
+    arrays). partner holds global ids in both packages, so it carries over
+    as it is."""
+    return ShardedBodyState(**_shard_rows(arrays, SHARDED_BODY_FIELDS, shard, n_shards, device))
+
+
+def sharded_body_state_to_arrays(*states: ShardedBodyState) -> dict:
+    """The leaves of the shards' ShardedBodyStates, given in shard order, as
+    numpy arrays in the JAX package's global layout."""
+    return {name: np.concatenate([getattr(s, name).cpu().numpy() for s in states])
+            for name in SHARDED_BODY_FIELDS}

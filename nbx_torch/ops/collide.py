@@ -46,7 +46,11 @@ columns, source strips over every local column, halo rows sources only. With
 short gravity they launch the kernel's gravity-fused instantiation (the TPU
 kernel K7), which also sums the P3M erfc short range over every lane of each
 window. They return body-order rows like the pass here, so the JAX package's
-slot arrays and its `epilogue_rows` gather have no counterpart.
+slot arrays and its `epilogue_rows` gather have no counterpart. The
+all-gather paths' column-slab entry (`packed_collision_blocks_slab`) runs
+the band-packed layout over a slab of the whole grid's columns, every body
+a source, with rows outside the slab left as the identity of the
+reduction over the slabs.
 
 What does not carry over from the TPU: the materialised [blocks, 16, S]
 source blocks, K8's 9 scalar-prefetch-driven revisits of each column, the
@@ -56,8 +60,9 @@ JAX package), the 128-lane padding and the dead padding row.
 
 `collide_fused` (windowed layouts), `collide_full_column` (the full-column
 layout), `collide_fused_multi` (windows_per_block > 1, the TPU kernel
-K2m) and `collide_fused_grav` (the spatial step's local entries with short
-gravity, the TPU kernel K7) launch the kernel of
+K2m), `collide_fused_grav` (the spatial step's local entries with short
+gravity, the TPU kernel K7) and `collide_fused_slab` (the column-slab
+entry) launch the kernel of
 `nbx_torch/csrc/collide_fused.cu` on CUDA tensors and run
 `collide_fused_reference`, its plain PyTorch version, on CPU tensors; a CUDA
 call launches the kernel or raises. Each counts its launches in `.launches`.
@@ -346,6 +351,16 @@ def _whole_grid(g: int, dev) -> _Grid:
     return _Grid(g * g, cols, _column_neighbors_of(cols, g), torch.cat([cols, cols.new_full((1,), -1)]))
 
 
+def _column_slab_grid(g: int, col_lo: int, n_slab_cols: int, dev) -> _Grid:
+    """Target columns [col_lo, col_lo + n_slab_cols) of the whole g x g grid
+    (column id i g + j), with their whole-grid neighbours: the other columns
+    are sources only."""
+    cols = col_lo + torch.arange(n_slab_cols, device=dev)
+    rank = torch.full((g * g + 1,), -1, dtype=torch.int64, device=dev)
+    rank[cols] = torch.arange(n_slab_cols, device=dev)
+    return _Grid(g * g, cols, _column_neighbors_of(cols, g), rank)
+
+
 def _column_neighbors_rect(gx: int, gy: int, device="cpu") -> torch.Tensor:
     """9-neighbourhood column ids [gx * gy, 9] (int64) on a rectangular
     (x, y) column grid, in the JAX package's (di, dj) order (the tie-break's
@@ -419,8 +434,9 @@ def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets, src_ove
     window holds targets or not (band-packed, global and local). A row in a
     column without targets (the local grid's halo) is a source if its rank
     in its own (column, band) window is below the last bucket's t_rows, as
-    the JAX package's local entry decides it; rows parked past the grid are
-    neither.
+    the JAX package's local and slab entries decide it (for a column slab of
+    the whole grid, that is its whole-grid window rank); rows parked past
+    the grid are neither.
 
     Returns ([(win [bmax, 20] i32, t_rows, s_capw) per bucket],
     t_ok [n] bool over sorted positions, n_overflow [] i32)."""
@@ -462,7 +478,7 @@ def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets, src_ove
     for sel, (t_cap, s_cap, _) in zip(sels, buckets):
         t_rows, _ = _bucket_block_geom(t_cap, s_cap)
         t_ok = t_ok | (owned & sel[f_own] & (rank_t < t_rows))
-    if grid.cols.shape[0] < grid.n_cols:  # source-only (halo) columns
+    if grid.cols.shape[0] < grid.n_cols:  # source-only (halo, or other slabs') columns
         g3 = grid.n_cols * g
         rank_w = p_r - starts.long()[torch.clamp(col_s * g + w_own * b, max=g3)]
         t_last, _ = _bucket_block_geom(*buckets[-1][:2])
@@ -749,10 +765,21 @@ def collide_fused_grav(feats, order, src_ok, win, out_d, out_j, restitution: flo
         collide_fused_grav.launches += 1
 
 
+def collide_fused_slab(feats, order, src_ok, win, out_d, out_j, restitution: float, friction: float,
+                       t_rows: int, s_capw: int) -> None:
+    """collide_fused over one column slab's windows (packed_collision_blocks_slab,
+    the slab site of the TPU kernel K2 that the all-gather paths of
+    `parallel.shard` launch). Counted apart from collide_fused."""
+    if _run("collide_fused_slab", feats, order, src_ok, win, out_d, out_j, restitution, friction, t_rows,
+            s_capw, 1):
+        collide_fused_slab.launches += 1
+
+
 collide_fused.launches = 0
 collide_full_column.launches = 0
 collide_fused_multi.launches = 0
 collide_fused_grav.launches = 0
+collide_fused_slab.launches = 0
 
 
 # ---- the pass ---------------------------------------------------------------
@@ -852,15 +879,24 @@ def _bucketed_pass(pos, vel, mass, radius, box_size, g, b, buckets, restitution,
     band-packed layouts through it), with `fused` (a kernel wrapper, or
     collide_fused_reference to hold the kernel against it) run once per
     bucket."""
-    n = pos.shape[0]
     cell_too_small = 2.0 * radius.max() > cell_size(box_size, g)
+    out_d, out_j, n_overflow = _sorted_pass(pos, vel, mass, radius, box_size, g, b, buckets, src_over, None,
+                                            restitution, friction, fused)
+    return _epilogue_finish(out_d, out_j, pos, vel, mass, n_overflow, cell_too_small)
+
+
+def _sorted_pass(pos, vel, mass, radius, box_size, g, b, buckets, src_over, grid, restitution, friction, fused):
+    """The windows of `grid`'s target columns (None: the whole grid) over
+    the whole-grid cell sort, run through `fused` once per bucket: (out_d,
+    out_j, n_overflow) in body order."""
+    n = pos.shape[0]
     order, starts, cid_sorted = cell_sort(pos, box_size, g)
     feats = _sorted_feats(pos, vel, mass, radius, order)
-    windows, t_ok, n_overflow = _bucket_windows(starts, cid_sorted, n, g, b, buckets, src_over)
+    windows, t_ok, n_overflow = _bucket_windows(starts, cid_sorted, n, g, b, buckets, src_over, grid)
     out_d, out_j = _outputs(n, pos.device)
     for win, t_rows, s_capw in windows:
         fused(feats, order, t_ok, win, out_d, out_j, restitution, friction, t_rows, s_capw)
-    return _epilogue_finish(out_d, out_j, pos, vel, mass, n_overflow, cell_too_small)
+    return out_d, out_j, n_overflow
 
 
 def _per_cell_pass(pos, vel, mass, radius, box_size, g, b, k, restitution, friction, fused):
@@ -878,26 +914,35 @@ def _per_cell_pass(pos, vel, mass, radius, box_size, g, b, k, restitution, frict
 
 
 def _epilogue_finish(out_d, out_j, pos, vel, mass, n_overflow, cell_too_small):
-    """Split the per-body delta rows and rebuild the deepest-partner record:
-    vn, Q, E, m_j and approaching follow from the pre-pass state and the
-    partner id, O(N)."""
-    n = pos.shape[0]
+    """Split the per-body delta rows and rebuild the deepest-partner record
+    (partner_record), O(N)."""
     dvel = out_d[:, 0:3]
     dpos = out_d[:, 3:6]
     dtemp = out_d[:, 6]
     n_bounces = (out_d[:, 7].sum() / 2.0).to(torch.int32)
+    best = partner_record(out_j, pos, vel, mass)
+    return dvel, dpos, dtemp, best, n_bounces, n_overflow, cell_too_small
 
+
+def partner_record(out_j, pos, vel, mass, src=None) -> dict:
+    """Each body's deepest-overlap partner record from the pass's partner
+    ids out_j [n] (-1 = none) and the pre-pass state of the bodies: dict(j,
+    vn, q, energy, m_j [n] f32, approaching [n] bool). The partners are rows
+    of src = (pos, vel, mass) of every body when given (the all-gather paths
+    of `parallel.shard`, whose rows are a rank's shard and whose partners
+    are global ids), else of the bodies' own arrays."""
+    pos_s, vel_s, mass_s = (pos, vel, mass) if src is None else src
     has = out_j >= 0
-    jc = out_j.long().clamp(0, n - 1)
-    d = pos[jc] - pos
+    jc = out_j.long().clamp(0, pos_s.shape[0] - 1)
+    d = pos_s[jc] - pos
     r2b = (d * d).sum(-1)
     invb = torch.rsqrt(torch.where(r2b > 0.0, r2b, 1.0))
-    vnb = ((vel[jc] - vel) * d).sum(-1) * invb
-    m_j = mass[jc]
+    vnb = ((vel_s[jc] - vel) * d).sum(-1) * invb
+    m_j = mass_s[jc]
     m_sum = mass + m_j
     r_msb = 1.0 / torch.where(m_sum > 0.0, m_sum, 1.0)
     e_b = 0.5 * (mass * m_j * r_msb) * vnb * vnb
-    best = dict(
+    return dict(
         j=out_j,
         vn=torch.where(has, vnb, 0.0),
         q=torch.where(has, e_b * r_msb, 0.0),
@@ -905,7 +950,60 @@ def _epilogue_finish(out_d, out_j, pos, vel, mass, n_overflow, cell_too_small):
         m_j=torch.where(has, m_j, 0.0),
         approaching=has & (vnb < 0.0),
     )
-    return dvel, dpos, dtemp, best, n_bounces, n_overflow, cell_too_small
+
+
+# ---- the all-gather paths' column-slab entry -----------------------------------
+
+def packed_collision_blocks_slab(
+    pos: torch.Tensor,  # [N] every body (the all-gathered state)
+    vel: torch.Tensor,
+    mass: torch.Tensor,
+    radius: torch.Tensor,
+    box_size: float,
+    n_cells: int,
+    band_cells: int,
+    packed_caps: tuple[int, int],
+    restitution: float,
+    friction: float,
+    col_lo: int,  # first (i, j) column of the slab, column id i g + j
+    n_slab_cols: int,  # columns in the slab
+    fused=None,
+):
+    """The band-packed layout over the column slab [col_lo, col_lo +
+    n_slab_cols) of the whole g x g grid: the pass of one rank of the
+    all-gather paths (`parallel.shard.make_sharded_binned_collision_pass`,
+    `make_sharded_granular_step`), over every body. Target windows are the
+    slab's (column, band) windows at caps (t_cap, s_cap); their source
+    strips run over the whole grid's neighbour columns, so each window is
+    the same window of the whole-grid band-packed pass, with the same
+    kept set.
+
+    The contract, as in the JAX package: target rows past t_rows are
+    dropped; the source role masks out every body that is target-dropped
+    in its own whole-grid window, whichever slab holds it; n_overflow counts
+    target rows past t_rows in the slab's windows and source lanes past
+    s_capw in each slab (column, band)'s own strip, so the sum over the
+    slabs of a split is the whole grid's count.
+
+    Returns (out_d [N, 8], out_j [N] i32, n_overflow [] i32) in body order:
+    each slab target's deltas (dvx dvy dvz dpx dpy dpz heat n_bounce) and
+    deepest partner (-1 = none; ties to the smallest body id); every other
+    row is the identity of the reduction that follows, zero deltas and
+    partner -1, so summing the deltas and taking the largest partner over
+    the slabs of a split rebuilds the whole-grid pass exactly (one nonzero
+    term a body). The kernel writes body order itself, so the JAX package's
+    `body_slot` and `epilogue_rows` have no counterpart here. col_lo is a
+    Python int: the slab's tables are built at its offset, with none of the
+    cost the JAX package pays for a traced offset. `fused` runs the windows
+    (default collide_fused_slab; collide_fused_reference to hold the kernel
+    against its plain version)."""
+    g, b = n_cells, band_cells
+    if not 0 <= col_lo <= col_lo + n_slab_cols <= g * g or n_slab_cols < 1:
+        raise ValueError(f"column slab [{col_lo}, {col_lo + n_slab_cols}) outside the {g * g} columns")
+    grid = _column_slab_grid(g, col_lo, n_slab_cols, pos.device)
+    buckets = ((*packed_caps, n_slab_cols * -(-g // b)),)  # every window of the slab
+    return _sorted_pass(pos, vel, mass, radius, box_size, g, b, buckets, "own_all", grid, restitution, friction,
+                        fused or collide_fused_slab)
 
 
 # ---- the spatial step's local entries ------------------------------------------

@@ -66,6 +66,7 @@ from nbx_torch.collisions_scaled import _set_at
 from nbx_torch.config import SimConfig, body_radius, f32
 from nbx_torch.ops.collide import bucketed_collision_blocks_local, packed_collision_blocks_local
 from nbx_torch.ops.p3m import take_rows
+from nbx_torch.parallel.shard import _mark, mesh_device
 from nbx_torch.state import make_generator
 
 FORCE_IMPLS = ("pm", "p3m", "zero")
@@ -131,12 +132,6 @@ def _mesh_split(mesh: DeviceMesh, n_cells: int) -> _Split:
     return _Split(True, d_x, d_y, g // d_x, g // d_y, mesh.get_local_rank(0), mesh.get_local_rank(1))
 
 
-def _mesh_device(mesh: DeviceMesh) -> torch.device:
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
-
-
 def _destinations(pos: np.ndarray, box_size: float, g: int, sp: _Split) -> np.ndarray:
     """Each body's owning rank (linear mesh index), host-side."""
     cell = box_size / g
@@ -188,7 +183,7 @@ def spatial_state_for(
         raise ValueError(f"slab {counts.argmax()} holds {counts.max()} bodies > nl={nl}")
     rows = np.nonzero(dest == sp.me_lin)[0]
     k = rows.size
-    dev = _mesh_device(mesh)
+    dev = mesh_device(mesh)
 
     def slots(x, fill, dtype):
         out = np.full((nl, *x.shape[1:]), fill, dtype)
@@ -309,13 +304,6 @@ def _exchange(ax: _Axis, rows_f, rows_i, sel_r, sel_l):
     return _split(a, nf), _split(b, nf)
 
 
-def _mark(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x.at[idx].set(1 / True, mode="drop") for idx in [0, n]: index n drops.
-    The ones are a device tensor: a Python scalar would make the scatter wait
-    on the host."""
-    return _set_at(x, idx, torch.ones(idx.shape, dtype=x.dtype, device=x.device))
-
-
 def _count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dtype=torch.int64)
 
@@ -364,7 +352,7 @@ def make_spatial_granular_step(
     if n_dev != dist.get_world_size():
         raise ValueError(f"the mesh holds {n_dev} ranks, the world {dist.get_world_size()}: "
                          "the spatial step reduces over the whole world")
-    dev = _mesh_device(mesh)
+    dev = mesh_device(mesh)
     cfg = cfg.to(dev)
     green_hat = None
     if force_impl in ("pm", "p3m"):

@@ -34,6 +34,7 @@ from nbx_torch.collisions import draw_fracture_uniforms
 from nbx_torch.config import SimConfig, body_radius
 from nbx_torch.ops import _build, collide, p3m, pairwise, ppkernel
 from nbx_torch.ops.pm import isolated_green_hat
+from torch_shard_ranks import NCCL_KINDS as SHARD_NCCL_KINDS
 from torch_spatial_ranks import NCCL_KINDS
 
 pytestmark = pytest.mark.cuda
@@ -56,7 +57,9 @@ def _rand(n, seed, dev):
 
 
 def _rel_err(got, want):
-    return float((got - want).abs().max() / want.abs().max())
+    """max|got - want| / max|want|; 0 when both are all zero (a field or a
+    slab with nothing in it), not 0/0."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
 @pytest.mark.parametrize("nt,ns", [(4096, 4096), (1000, 4096), (777, 3001), (1, 300), (257, 255)])
@@ -579,10 +582,11 @@ def _free_port() -> int:
     return port
 
 
-def compare_nccl_run(out: str, kind: str, world: int) -> int:
-    """Every rank's scenes on the CUDA mesh against the CPU mesh:
-    ids, partners, counters and buckets exactly; floats to 1e-4 of each
-    field's largest magnitude. Returns the number of files compared."""
+def compare_nccl_run(out: str, kind: str, world: int, exact=NCCL_EXACT) -> int:
+    """Every rank's scenes on the CUDA mesh against the CPU mesh: counters
+    ("/c/" keys), the `exact` fields, and integer, bool and string arrays
+    exactly; floats to 1e-4 of each field's largest magnitude. Returns the
+    number of files compared."""
     n = 0
     for name in sorted(os.listdir(os.path.join(out, kind))):
         if not name.endswith("_cuda.npz"):
@@ -592,7 +596,7 @@ def compare_nccl_run(out: str, kind: str, world: int) -> int:
         assert set(a.files) == set(b.files), name
         for key in a.files:
             x, y = a[key], b[key]
-            if "/c/" in key or key.split("/")[-1] in NCCL_EXACT:
+            if "/c/" in key or key.split("/")[-1] in exact or y.dtype.kind not in "fc":
                 np.testing.assert_array_equal(x, y, err_msg=f"{name} {key}")
             else:
                 scale = max(float(np.abs(y).max(initial=0.0)), 1e-30)
@@ -600,6 +604,28 @@ def compare_nccl_run(out: str, kind: str, world: int) -> int:
         n += 1
     assert n > 0 and n % world == 0, (kind, n)
     return n
+
+
+def _run_ranks(script: str, kind: str, world: int, out: str) -> None:
+    """Start `world` ranks of tests/<script> (one a card) and wait for them."""
+    _build.build_all()  # once here, not in every rank
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(TESTS), PYTHONUNBUFFERED="1", OMP_NUM_THREADS="1")
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.join(TESTS, script), kind, str(r), str(world), str(port),
+                               out], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    failed, deadline = [], time.time() + 300
+    try:
+        for r, p in enumerate(procs):
+            log, _ = p.communicate(timeout=max(5.0, deadline - time.time()))
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert not failed, "\n".join(failed)
 
 
 @pytest.mark.parametrize("kind", list(NCCL_KINDS))
@@ -614,22 +640,90 @@ def test_spatial_ranks_on_cards_match_gloo(dev, kind, tmp_path):
     world = NCCL_KINDS[kind][0]
     if torch.cuda.device_count() < world:
         pytest.skip(f"needs {world} CUDA devices")
-    _build.build_all()  # once here, not in every rank
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(TESTS), PYTHONUNBUFFERED="1", OMP_NUM_THREADS="1")
-    port, out = _free_port(), str(tmp_path)
-    procs = [subprocess.Popen([sys.executable, os.path.join(TESTS, "torch_spatial_ranks.py"), kind, str(r),
-                               str(world), str(port), out], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    failed, deadline = [], time.time() + 300
-    try:
-        for r, p in enumerate(procs):
-            log, _ = p.communicate(timeout=max(5.0, deadline - time.time()))
-            if p.returncode != 0:
-                failed.append(f"rank {r} exited {p.returncode}:\n{log[-3000:]}")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert not failed, "\n".join(failed)
-    compare_nccl_run(out, kind, world)
+    _run_ranks("torch_spatial_ranks.py", kind, world, str(tmp_path))
+    compare_nccl_run(str(tmp_path), kind, world)
+
+
+SHARD_EXACT = ("mat", "partner", "j", "approaching", "steps")
+
+
+@pytest.mark.parametrize("kind", list(SHARD_NCCL_KINDS))
+def test_shard_ranks_on_cards_match_gloo(dev, kind, tmp_path):
+    """The all-gather paths with one rank a card (NCCL) against the same
+    ranks on the CPU (gloo) in one process group, on the scenes of
+    tests/test_shard.py (tests/torch_shard_ranks.py) with the same fracture
+    uniforms: nccl_d2 is a 1-D mesh of 2, where the ring's two neighbours
+    are one peer (one send and one receive a hop), and a 1x2 mesh; nccl_d4
+    a 1-D mesh of 4 and the 2x2 mesh. The gloo ranks are held against the
+    JAX package in tests/test_torch_shard.py."""
+    world = SHARD_NCCL_KINDS[kind]
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    _run_ranks("torch_shard_ranks.py", kind, world, str(tmp_path))
+    compare_nccl_run(str(tmp_path), kind, world, SHARD_EXACT)
+
+
+# ---- the all-gather paths at world size 1: the slab entry (K2) and the granular step ---
+
+@pytest.mark.parametrize("n_slabs", [1, 2, 4, 8])
+def test_slab_entry_kernel_matches_plain(dev, n_slabs):
+    """K2 through packed_collision_blocks_slab against its plain version on
+    each slab of a split of the clustered scene; the reduced rows bitwise the
+    whole-grid band-packed pass."""
+    from chip_smoke import clustered_scene, collide_inputs
+
+    pos, vel, mass = clustered_scene(seed=9)
+    mass[::5] = 0.0
+    inputs = collide_inputs(pos, vel, mass, 2.0, dev)
+    caps = collide.packed_caps_for(pos, 100.0, 8, 4)
+    k = 64 // n_slabs
+    u_d = torch.zeros((192, 8), device=dev)
+    u_j = torch.full((192,), -1, dtype=torch.int32, device=dev)
+    for s_ in range(n_slabs):
+        args = (*inputs, 100.0, 8, 4, caps, 0.2, 0.5, s_ * k, k)
+        before = collide.collide_fused_slab.launches
+        got = collide.packed_collision_blocks_slab(*args)
+        assert collide.collide_fused_slab.launches == before + 1
+        want = collide.packed_collision_blocks_slab(*args, fused=collide.collide_fused_reference)
+        assert _rel_err(got[0][:, :7], want[0][:, :7]) < TOL
+        assert torch.equal(got[0][:, 7], want[0][:, 7]) and torch.equal(got[1], want[1])
+        assert int(got[2]) == int(want[2])
+        u_d, u_j = u_d + got[0], torch.maximum(u_j, got[1])
+    whole = collide.binned_collision_pass(*inputs, 100.0, 8, band_cells=4, packed_caps=caps)
+    assert torch.equal(u_d[:, :3], whole[0]) and torch.equal(u_d[:, 3:6], whole[1])
+    assert torch.equal(u_d[:, 6], whole[2]) and torch.equal(u_j, whole[3]["j"])
+
+
+@pytest.mark.parametrize("force", ["pm", "auto"])
+def test_sharded_granular_steps_on_card_match_cpu(dev, force):
+    """The sharded granular step at world size 1 on a CUDA mesh and a CPU
+    mesh of one process, with the same fracture uniforms: counters,
+    partners and materials exactly, floats to 1e-4; one step free of host
+    syncs."""
+    from nbx_torch.bench.granular import bench_config
+    from nbx_torch.parallel import shard
+
+    n, box = 4096, 100.0 * (4096 / 131072) ** (1.0 / 3.0)
+    pos, vel, mass = granular_cloud(n, seed=0, box=box)
+    cfg = bench_config()
+    with shard.local_world("cpu:gloo,cuda:nccl"):
+        meshes = [shard.make_mesh(device_type=t) for t in ("cuda", "cpu")]
+        steps = [shard.make_sharded_granular_step(m, cfg, box, 16, 4, (96, 104), force_impl=force, pm_grid=64)
+                 for m in meshes]
+        a, b = (shard.shard_body_state(m, pos, vel, mass) for m in meshes)
+        gen = torch.Generator().manual_seed(3)
+        for _ in range(3):
+            d = draw_fracture_uniforms(cfg, gen, "cpu")
+            a, ca = steps[0](a, cfg.dt, d.to(dev))
+            b, cb = steps[1](b, cfg.dt, d)
+            assert {k: int(v) for k, v in ca.items()} == {k: int(v) for k, v in cb.items()}
+        assert torch.equal(a.partner.cpu(), b.partner) and torch.equal(a.mat.cpu(), b.mat)
+        for f in ("pos", "vel", "acc", "mass", "temp", "contact_t"):
+            assert _rel_err(getattr(a, f).cpu(), getattr(b, f)) < 1e-4, f
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a, _ = steps[0](a, cfg.dt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(a.pos).all()

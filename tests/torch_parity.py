@@ -44,6 +44,12 @@ def jax_draws(key, cfg) -> Draws:
     """The fracture uniforms `nbx.collisions.resolve_collisions` draws from
     a state whose key is `key`: the same split chain, rebuilt here."""
     _, sub = jax.random.split(key)
+    return fragment_draws(sub, cfg)
+
+
+def fragment_draws(sub, cfg) -> Draws:
+    """The uniforms `nbx.collisions._make_fragments` draws from the key it is
+    given (`sub`): split into k_count, k_scan, then fold_in(k_scan, 0..3)."""
     k_count, k_scan = jax.random.split(sub)
     f, k = cfg.max_fractures, cfg.max_fragments
     fold = jax.random.fold_in
