@@ -12,9 +12,11 @@ the gravity-only integration path (`bench.drift.drift_run`,
 `integrators.init_hermite` / `run_hermite`, the `bench latency` and
 `bench throughput` mains), every layout of the collision pass (the
 `bench granular` and `bench collsplit` mains, the granular demo's
-configuration, the scan with its default full-column layout) and the
-spatial halo-exchange step (`parallel.spatial`, the `bench spatial` main)
-and the all-gather multi-device paths (`parallel.shard`):
+configuration, the scan with its default full-column layout), the spatial
+halo-exchange step (`parallel.spatial`, the `bench spatial` main),
+the all-gather multi-device paths (`parallel.shard`) and the gravity-only
+path at each precision of `pairwise_acc` (the `bench throughput`, `drift`
+and `latency` entries with `precision`):
 
   0. device: name and power limit; TF32 off
   1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
@@ -132,6 +134,17 @@ and the all-gather multi-device paths (`parallel.shard`):
      uniforms) in every counter and partner, under deterministic
      algorithms; one pm step under set_sync_debug_mode("error"); 3 steps at
      N = 4,096 with pm and auto on the card and on the CPU
+ 25. the precision variants of the direct sum, K1a "f32", K1b "fast", K1d
+     "hyb" and K1e "bf16" (csrc/pairwise_precision.cu): each kernel against
+     its plain version (N = 4,096 random, 1,000 x 4,096, 777 x 3,001 ragged,
+     mass-0 padding, the cold-collapse disk's first 4,096 targets at
+     262,144) and against its ladder bar over a float64 sum; each timed at
+     262,144 in turns with K1, with its plain version; `bench throughput`
+     with f32r and the four in one process; `bench drift` at each
+     precision (BASELINE config 4's drift at the gate's step, a measurement:
+     phase 12 keeps the gate), the variant's launches on that path, one
+     100-step chunk under set_sync_debug_mode("error"); the latency of one
+     KDK step at 16,384 and 262,144; 10 steps at N = 1,024 card against CPU
 
 Every phase raises on failure, so the script exits non-zero; it needs a CUDA
 device and has no CPU fallback. The line before the last is the kernels'
@@ -151,15 +164,21 @@ W = 4, phase 16). K7 (collide_fused_grav) launches on the spatial step's p3m
 path (phase 19) and is timed on D = 1's windows (phase 18). K2 through the
 slab entry (collide_fused_slab) launches on the sharded granular step's pm
 path (phase 24) and is timed as 1 slab of the cloud (phase 21, the shape
-that path gives it at D = 1). It prints its total and the time of phases
-11-14, 15-17, 18-20 and 21-24 before the kernels line.
+that path gives it at D = 1). The precision variants (pairwise_f32,
+pairwise_fast, pairwise_hyb, pairwise_bf16) launch on `bench drift`'s path
+at their precision (phase 25: main's warm-up force and the run's 10,001) and
+are timed at 262,144; their bounds add the float32-to-bf16 conversions over
+16 a clock an SM. It prints its total and the time of phases 11-14, 15-17,
+18-20, 21-24 and 25 before the kernels line.
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import time
 
@@ -173,7 +192,7 @@ from nbx_torch.bench import spatial as spatial_bench
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
 from nbx_torch.config import SimConfig, body_radius, f32
-from nbx_torch.ops import _build, collide, p3m, ppkernel
+from nbx_torch.ops import _build, collide, p3m, pairwise, ppkernel
 from nbx_torch.ops.pairwise import (pairwise_acc, pairwise_acc_jerk, pairwise_acc_jerk_reference,
                                    pairwise_acc_reference, potential_energy, potential_per_body,
                                    potential_per_body_reference)
@@ -211,14 +230,40 @@ PP_REACT_PAIR_OPS = PP_PAIR_OPS + 7
 # K7 on every source lane: K2's overlap test and the P3M law, whose
 # differences and r^2 (8) the two share; the law's three special functions.
 K7_LANE_OPS, K7_LANE_SFU = K2_LANE_OPS + PP_PAIR_OPS - 8, PP_PAIR_SFU
+# Type conversions per second: the CUDA C Programming Guide's throughput table
+# gives compute capability 9.0 16 results a clock an SM for "all other type
+# conversions" (float32 to bf16 among them), the SFU's rate, not the FP32 one.
+CVT_PEAK = 132 * 16 * 1.98e9
+# The precision variants of K1 (csrc/pairwise_precision.cu), per pair, counted
+# from the source: FP32 operations and float32-to-bf16 conversions; one rsqrt
+# each. f32: 3 differences, r^2 + eps^2 (6), f^3 (2), f S (8). fast: the same
+# to f, its bf16 split (a difference), the three passes (12 FMAs, 24). hyb:
+# the cross term (5), r^2 from it (3), the floor, w (3), the four sums (7).
+# bf16: 3 differences, the float32 sums of r^2 (3), f^3 (2), 7 bf16 products,
+# the row sums (3); d's three components and f^3 converted to bf16. The bf16
+# values go back to float32 by a shift on the integer pipe (SASS: PERF.md).
+VARIANTS = ("f32", "fast", "hyb", "bf16")
+VARIANT_PAIR_OPS = {"f32": 19, "fast": 36, "hyb": 19, "bf16": 18}
+VARIANT_PAIR_CVT = {"f32": 0, "fast": 2, "hyb": 0, "bf16": 4}
+# max|kernel - plain| / max|plain| of each variant (tests/test_torch_cuda.py
+# states the reasons): the plain versions of f32, fast and hyb round where
+# the kernels round and sum in their order, and torch.rsqrt on the card is
+# rsqrtf: measured bitwise (0); bf16 sums its rows in torch's order:
+# measured at most 1.06e-6 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+VARIANT_TOL = {"f32": 1e-6, "fast": 1e-6, "hyb": 1e-6, "bf16": 1e-5}
+# The error ladder: max|kernel - float64 sum| / max|float64 sum| on
+# tests/test_tpu_only.py's _rand(2048, seed=1).
+LADDER = {"f32": 1e-3, "fast": 1e-2, "hyb": 0.02, "bf16": 5e-2}
 
 
-def bound(ops: float, sfu: float, nbytes: float) -> dict:
+def bound(ops: float, sfu: float, nbytes: float, cvt: float = 0.0) -> dict:
     """The least time the card could take: the largest of the FP32
-    operations over the FP32 peak, the special functions over the SFU rate
-    and the bytes over the memory rate. bound_by is "operations" for either
-    of the first two; `pipe` names the term (FP32, SFU or HBM)."""
-    times = {"FP32": ops / FP32_PEAK * 1e3, "SFU": sfu / SFU_PEAK * 1e3, "HBM": nbytes / HBM_PEAK * 1e3}
+    operations over the FP32 peak, the special functions over the SFU rate,
+    the type conversions over their rate and the bytes over the memory rate.
+    bound_by is "operations" for any but the last; `pipe` names the term
+    (FP32, SFU, CVT or HBM)."""
+    times = {"FP32": ops / FP32_PEAK * 1e3, "SFU": sfu / SFU_PEAK * 1e3, "CVT": cvt / CVT_PEAK * 1e3,
+             "HBM": nbytes / HBM_PEAK * 1e3}
     pipe = max(times, key=times.get)
     return dict(bound_ms=times[pipe], bound_by="bytes" if pipe == "HBM" else "operations", pipe=pipe)
 
@@ -264,11 +309,11 @@ def rand_bodies(n: int, seed: int, dev):
     return pos, mass
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor, phase: int = 2) -> float:
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, phase: int = 2, tol: float = KERNEL_TOL) -> float:
     abs_err = float((got - want).abs().max())
     rel = abs_err / max(float(want.abs().max()), 1e-30)
-    log(phase, f"{name}: max|kernel-plain|={abs_err:.3e} rel={rel:.3e} (tol {KERNEL_TOL:g})")
-    check(rel < KERNEL_TOL, f"{name}: relative error {rel} >= {KERNEL_TOL}")
+    log(phase, f"{name}: max|kernel-plain|={abs_err:.3e} rel={rel:.3e} (tol {tol:g})")
+    check(rel < tol, f"{name}: relative error {rel} >= {tol}")
     return abs_err
 
 
@@ -2122,6 +2167,175 @@ def phase_sharded_granular(dev, spatial_rows, steps: int = 20, n: int = SCALED_N
     return launches
 
 
+# ---- the precision variants of K1: K1a "f32", K1b "fast", K1d "hyb", K1e "bf16" ----
+
+def variant_wrapper(precision: str):
+    return getattr(pairwise, f"pairwise_acc_{precision}")
+
+
+def float64_acc(pos, mass, G: float, eps: float) -> torch.Tensor:
+    """The direct sum in float64 on the card, the ladder's reference."""
+    p, m = pos.double(), mass.double()
+    d = p[None] - p[:, None]
+    r2 = (d * d).sum(-1) + f32(eps) ** 2
+    return G * ((m[None] * r2**-1.5)[..., None] * d).sum(1)
+
+
+def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
+    """One variant's kernel against its plain version on the card (random,
+    rectangular, ragged, mass-0 sources, mass-0 padding inert, the
+    cold-collapse disk's first 4,096 targets), one launch a call, and its
+    ladder bar against float64. Returns the largest max|kernel - plain|."""
+    G, eps, tol = 0.5, 0.5, VARIANT_TOL[precision]
+    wrapper = variant_wrapper(precision)
+
+    def both(label, pos, mass, tgt=None):
+        before = wrapper.launches
+        got = pairwise_acc(pos, mass, G, eps, tgt, precision)
+        check(wrapper.launches == before + 1, f"{precision}: one launch a call")
+        return compare(f"{precision} {label}", got, pairwise_acc_reference(pos, mass, G, eps, tgt, precision=precision),
+                       25, tol)
+
+    pos, mass = rand_bodies(4096, 0, dev)
+    err = both("N=4096 random", pos, mass)
+    err = max(err, both("1000 targets x 4096 sources", pos, mass, pos[37:1037]))
+    src, m_src = rand_bodies(3001, 1, dev)
+    tgt, _ = rand_bodies(777, 2, dev)
+    err = max(err, both("777 targets x 3001 sources (ragged)", src, m_src, tgt))
+    m_pad = mass.clone()
+    m_pad[2048:] = 0.0
+    err = max(err, both("half the sources mass 0", pos, m_pad))
+    # mass-0 sources where nbx and the plain version pad (the origin) add
+    # nothing; elsewhere they move "fast"'s and "hyb"'s tile centroids and so
+    # their roundings, as on the TPU
+    p_pad = pos.clone()
+    p_pad[2048:] = 0.0
+    got = pairwise_acc(p_pad, m_pad, G, eps, pos[:2048], precision)
+    err = max(err, compare(f"{precision} mass-0 padding inert", got,
+                           pairwise_acc_reference(pos[:2048], mass[:2048], G, eps, precision=precision), 25, tol))
+    cfg = SimConfig()
+    sc = scene.cold_collapse_disk(n=n_big, seed=0)
+    pos, mass = torch.tensor(sc["pos"], device=dev), torch.tensor(sc["mass"], device=dev)
+    got = pairwise_acc(pos, mass, cfg.G, cfg.softening, precision=precision)
+    check(all_finite(got), f"{precision} output finite at N={n_big}")
+    err = max(err, compare(f"{precision} N={n_big} cold_collapse_disk, first 4096 targets", got[:4096],
+                           pairwise_acc_reference(pos, mass, cfg.G, cfg.softening, pos[:4096], precision=precision),
+                           25, tol))
+    pos, mass = rand_bodies(2048, 1, dev)
+    want = float64_acc(pos, mass, G, eps)
+    ladder = float((pairwise_acc(pos, mass, G, eps, precision=precision).double() - want).abs().max()
+                   / want.abs().max())
+    log(25, f"{precision} ladder: max|kernel - float64| / max|float64| = {ladder:.3e} on _rand(2048, 1) "
+            f"(bar {LADDER[precision]:g}{', and > 0' if precision == 'bf16' else ''})")
+    check(ladder < LADDER[precision] and (precision != "bf16" or ladder > 0), f"{precision} on its ladder bar")
+    return err
+
+
+def variant_bound(p: str, n: int) -> dict:
+    """Variant p's bound for N = n targets and sources."""
+    nbytes = n * (12 + 16 + 12) + (16 * n if p in ("f32", "fast") else 0)
+    return bound(n * n * VARIANT_PAIR_OPS[p], n * n, nbytes, n * n * VARIANT_PAIR_CVT[p])
+
+
+def variant_timings(dev, n: int = HEADLINE_N, n_small: int = DRIFT_N) -> dict:
+    """Each variant's kernel at N = n on the cold-collapse disk, timed in
+    turns with K1 (K1 first and last), its plain version once, its bound;
+    then each at the drift gate's N = n_small, the shape of the path whose
+    launches the kernels line counts."""
+    cfg = SimConfig()
+    sc = scene.cold_collapse_disk(n=n, seed=0)
+    pos, mass = torch.tensor(sc["pos"], device=dev), torch.tensor(sc["mass"], device=dev)
+    args = (pos, mass, cfg.G, cfg.softening)
+    k1 = [cuda_ms(lambda: pairwise_acc(*args), 3)]
+    out = {}
+    for p in VARIANTS:
+        pairwise_acc(*args, precision=p)  # warm-up
+        ms = cuda_ms(lambda: pairwise_acc(*args, precision=p), 3)
+        plain_ms = cuda_ms(lambda: pairwise_acc_reference(*args, precision=p), 1)
+        b = variant_bound(p, n)
+        out[p] = dict(ms=ms, plain_ms=plain_ms, **record(b), library_ms=None)
+        log(25, f"{p} N={n}: kernel {ms:.3f} ms ({n * n / (ms * 1e-3):.4e} pairs/s), plain {plain_ms:.3f} ms, "
+                f"plain/kernel {plain_ms / ms:.2f}x; {bound_text(b)}; kernel/bound {ms / b['bound_ms']:.2f}")
+    k1.append(cuda_ms(lambda: pairwise_acc(*args), 3))
+    log(25, f"K1 (f32r) in the same process: {k1[0]:.3f} ms before the variants, {k1[1]:.3f} after; variant/K1: "
+            + ", ".join(f"{p} {out[p]['ms'] / k1[0]:.2f}x" for p in VARIANTS))
+    pos, _, mass, G, eps, _ = drift.gate_scene(n_small, device=dev)
+    for p in ("f32r",) + VARIANTS:
+        ms = cuda_ms(lambda: pairwise_acc(pos, mass, G, eps, precision=p), 20)
+        b = bound(n_small**2 * K1_PAIR_OPS, n_small**2, n_small * 28) if p == "f32r" else variant_bound(p, n_small)
+        log(25, f"{p} N={n_small} (the drift gate's sphere): kernel {ms:.4f} ms; {bound_text(b)}")
+    return out
+
+
+def variant_throughput(dev, n: int = HEADLINE_N, reps: int = 10) -> None:
+    """`bench throughput` through its main with every precision in one
+    process; its JSON lines are read back from its output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        throughput.main(n, reps, ",".join(("f32r",) + VARIANTS), device=dev)
+    print(buf.getvalue(), end="", flush=True)
+    rows = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    check([r["precision"] for r in rows] == ["f32r", *VARIANTS], "one throughput line a precision")
+    check(all(r["value"] > 0 and r["device"] == timing.device_name(dev) for r in rows), "rates positive, device named")
+    log(25, f"bench throughput N={n}: " + ", ".join(f"{r['precision']} {r['ms_per_eval']:.3f} ms" for r in rows))
+
+
+def variant_drift(dev, precision: str, n: int = DRIFT_N, n_steps: int = 10_000, diag_every: int = 100) -> int:
+    """`bench drift` through its main at one precision: BASELINE config 4's
+    drift at the gate's fixed step, a measurement (phase 12 keeps the gate).
+    Returns the variant's launches on that path: the warm-up's force and the
+    run's n_steps + 1; K1 launches none."""
+    wrapper = variant_wrapper(precision)
+    wrapper.launches = pairwise_acc.launches = 0  # the variant's drift path starts here
+    r = drift.main(n, n_steps, precision, diag_every=diag_every, device=dev)
+    launches = wrapper.launches
+    check(launches == n_steps + 2 and pairwise_acc.launches == 0,
+          f"{precision}: {launches} launches of its kernel and {pairwise_acc.launches} of K1 in {n_steps} steps")
+    check(r["finite"] and r["n_energies"] == n_steps // diag_every + 1, f"{precision}: 101 finite energies")
+    log(25, f"{precision} drift over {r['steps']} steps at N={n}: {r['value']:.4e} (gate {r['gate']:g}, "
+            f"pass {r['pass']}, a measurement here); {r['ms_per_step']:.4f} ms/step; {launches} launches")
+    pos, vel, mass, G, eps, h = drift.gate_scene(n, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, e = drift.drift_run(pos, vel, mass, G, eps, h, diag_every, diag_every, precision)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(all_finite(e), f"{precision}: the sync-checked chunk's energies finite")
+    return launches
+
+
+def variant_steps_vs_cpu(dev, precision: str, n: int = 1024, steps: int = 10) -> None:
+    """10 compensated KDK steps at N = 1,024 (the gate's sphere) on the card
+    and on the CPU, at one precision."""
+    runs = [drift.drift_run(*drift.gate_scene(n, device=d), steps, steps, precision) for d in (dev, "cpu")]
+    for name, x, y in zip(("pos", "vel", "energies"), *runs):
+        err = float((x.cpu() - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+        log(25, f"{precision} N={n}, {steps} steps card vs CPU: {name} max rel err {err:.3e} (tol {SCALED_CPU_TOL:g})")
+        check(err < SCALED_CPU_TOL, f"{precision} {name} card vs CPU after {steps} steps")
+
+
+def phase_precisions(dev, latency_ns=(DRIFT_N, HEADLINE_N)) -> dict:
+    """Phase 25: the precision variants K1a, K1b, K1d, K1e. Each kernel
+    against its plain version and its ladder bar; each timed at 262,144
+    beside K1; `bench throughput` with every precision; `bench drift` at each
+    (launches on that path, one sync-checked chunk); `bench latency`'s step at
+    16,384 and 262,144; 10 steps at 1,024 card against CPU. Returns each
+    variant's entry of the kernels line."""
+    errs = {p: variant_checks(dev, p) for p in VARIANTS}
+    recs = variant_timings(dev)
+    variant_throughput(dev)
+    for p in VARIANTS:
+        recs[p].update(launches=variant_drift(dev, p), max_abs_err=errs[p])
+        lat = {n: latency.step_latency_ms(n, 100 if n <= DRIFT_N else 8, precision=p, device=dev)
+               for n in latency_ns}
+        check(all(0 < ms < float("inf") for ms in lat.values()), f"{p} latencies positive and finite")
+        log(25, f"{p} p50 ms per KDK step: " + ", ".join(f"N={n}: {ms:.4f}" for n, ms in lat.items()))
+        variant_steps_vs_cpu(dev, p)
+    return recs
+
+
 def main() -> None:
     t0 = time.perf_counter()
     name = phase_device()
@@ -2165,9 +2379,11 @@ def main() -> None:
         phase_sharded_physics(dev)
         k2s_launches = phase_sharded_granular(dev, spatial_rows)  # resets the slab kernel's count: its pm path
     t24 = time.perf_counter()
-    print(f"[done] every phase passed: {t24 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
-          f"phases 15-17 {t17 - t14:.1f} s, phases 18-20 {t20 - t17:.1f} s, phases 21-24 {t24 - t20:.1f} s",
-          flush=True)
+    variants = phase_precisions(dev)  # resets each variant's count: its drift path
+    t25 = time.perf_counter()
+    print(f"[done] every phase passed: {t25 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
+          f"phases 15-17 {t17 - t14:.1f} s, phases 18-20 {t20 - t17:.1f} s, phases 21-24 {t24 - t20:.1f} s, "
+          f"phase 25 {t25 - t24:.1f} s", flush=True)
     records = [
         dict(name="pairwise_f32r", route="cuda", source="nbx_torch/csrc/pairwise_f32r.cu",
              replaces="nbx/ops/pairwise.py:168", launches=k1_launches, **k1),
@@ -2189,7 +2405,9 @@ def main() -> None:
              replaces="nbx/ops/collide.py:261", launches=k7_launches, **k7),
         dict(name="collide_fused_slab", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
              replaces="nbx/ops/collide.py:1913", launches=k2s_launches, **k2s),
-    ]
+    ] + [dict(name=f"pairwise_{p}", route="cuda", source="nbx_torch/csrc/pairwise_precision.cu",
+              replaces=f"nbx/ops/pairwise.py:{line}", **variants[p])
+         for p, line in zip(VARIANTS, (51, 93, 302, 400))]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

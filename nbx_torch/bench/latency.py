@@ -21,35 +21,38 @@ import torch
 from nbx_torch import integrators, scene
 from nbx_torch.bench import timing
 from nbx_torch.config import CUDA
-from nbx_torch.ops.pairwise import pairwise_acc
+from nbx_torch.ops.pairwise import check_precision, pairwise_acc
 
 NS = (1024, 4096, 16384, 65536, 262144, 1048576)
 # rep counts of the JAX package's main
 DEFAULT_REPS = {1024: 800, 4096: 800, 16384: 400, 65536: 100, 262144: 16, 1048576: 4}
 
 
-def kdk_scan(pos, vel, mass, G: float, eps: float, h: float, reps: int, acc0=None):
-    """reps KDK steps with `pairwise_acc` forces (K1 on the card; on a CPU
-    tensor its plain version, the JAX package's precision "jnp"). Returns
-    (pos, vel, acc) so callers stepping frame by frame can carry the
-    acceleration; acc0 defaults to zeros, the reference's fresh-body
-    convention."""
+def kdk_scan(pos, vel, mass, G: float, eps: float, h: float, reps: int, precision: str = "f32r",
+             acc0=None):
+    """reps KDK steps with `pairwise_acc` forces at `precision` (its kernel
+    on the card; on a CPU tensor its plain version, for "f32r" the JAX
+    package's precision "jnp"). Returns (pos, vel, acc) so callers stepping
+    frame by frame can carry the acceleration; acc0 defaults to zeros, the
+    reference's fresh-body convention."""
     s = integrators.PhaseState(pos, vel, torch.zeros_like(pos) if acc0 is None else acc0)
-    s, _ = integrators.run(s, h, reps, lambda p: pairwise_acc(p, mass, G, eps))
+    s, _ = integrators.run(s, h, reps, lambda p: pairwise_acc(p, mass, G, eps, precision=precision))
     return s.pos, s.vel, s.acc
 
 
-def step_latency_ms(n: int, reps: int = 20, device=CUDA) -> float:
+def step_latency_ms(n: int, reps: int = 20, precision: str = "f32r", device=CUDA) -> float:
     """Median ms of one KDK step at N = n on the Plummer sphere of the JAX
-    package's benchmark, over `reps` steps after a 2-step warm-up."""
+    package's benchmark, the forces at `precision`, over `reps` steps after
+    a 2-step warm-up."""
+    check_precision(precision)
     device = timing.require(device)
     sc = scene.plummer(n=n, total_mass=float(n), scale_radius=10.0, seed=0)
     pos, vel, mass = (torch.from_numpy(sc[k]).to(device) for k in ("pos", "vel", "mass"))
     args = (mass, 1.0, 0.1, 1e-4)
-    p, v, a = kdk_scan(pos, vel, *args, 2)  # warm-up: kernel load, allocator
+    p, v, a = kdk_scan(pos, vel, *args, 2, precision)  # warm-up: kernel load, allocator
     stamps = [timing.stamp(device)]
     for _ in range(reps):
-        p, v, a = kdk_scan(p, v, *args, 1, acc0=a)
+        p, v, a = kdk_scan(p, v, *args, 1, precision, acc0=a)
         stamps.append(timing.stamp(device))
     steps = [timing.elapsed_ms(t0, t1) for t0, t1 in zip(stamps, stamps[1:])]
     return float(np.median(steps))
@@ -60,7 +63,7 @@ def main(reps: int | None = None, ns=NS, device=CUDA) -> dict:
     out = {}
     for n in ns:
         r = reps or DEFAULT_REPS.get(n, 16)
-        out[n] = step_latency_ms(n, r, device)
+        out[n] = step_latency_ms(n, r, device=device)
         print(f"N={n}: {out[n]:.4f} ms/step (median of {r})", file=sys.stderr, flush=True)
     print(json.dumps({"metric": "p50_step_latency_ms", "by_n": out,
                       "device": timing.device_name(device)}), flush=True)

@@ -1,0 +1,87 @@
+"""Instructions per pair of the direct-sum kernels, read from their SASS.
+
+Builds the kernels (`ops/_build.py`), disassembles each library with
+`cuobjdump -sass` and, for every kernel function, finds its innermost loop
+(the shortest span that ends in a backward branch). The loop body holds a
+whole number of pairs, one MUFU.RSQ (rsqrtf) each, so the opcode counts in
+the body over its MUFU.RSQ count are the instructions a pair. Prints one
+JSON line per kernel function: its name, the pairs in the loop body, and the
+instructions a pair by opcode (modifiers dropped after the first, as in
+F2FP.BF16).
+
+    python -m nbx_torch.bench.sass [kernel ...]    # default: the direct sums
+
+Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from nbx_torch.ops import _build
+
+DIRECT_SUMS = ("pairwise_f32r", "pairwise_precision", "pairwise_accjerk", "potential")
+_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def _tool(name: str) -> str:
+    return str(Path(_build.nvcc_path()).with_name(name))
+
+
+def functions(lib: Path) -> dict[str, list[tuple[int, str, str]]]:
+    """Each kernel function's instructions, (address, opcode, operands), by
+    demangled name; a branch target written as a label becomes the address
+    of the instruction after the label."""
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    out, labels = {}, {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            code, labels[code_id := len(out)], pending = [], {}, []
+            out[line.split("Function :", 1)[1].strip()] = code
+        elif out and (m := re.match(r"\s*(\.L\w+):", line)):
+            pending.append(m.group(1))
+        elif out and (m := _LINE.search(line)):
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+            labels[code_id].update((label, code[-1][0]) for label in pending)
+            pending = []
+    for code_id, code in enumerate(out.values()):
+        code[:] = [(a, op, re.sub(r"`\((\.L\w+)\)", lambda m: hex(labels[code_id].get(m.group(1), 0)), args))
+                   for a, op, args in code]
+    names = subprocess.run([_tool("cu++filt")], input="\n".join(out), capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    return dict(zip(names, out.values()))
+
+
+def per_pair(code: list[tuple[int, str, str]]) -> tuple[int, dict[str, float]]:
+    """(pairs in the innermost loop body, instructions a pair by opcode)."""
+    loops = []
+    for addr, op, args in code:
+        target = re.search(r"0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
+            loops.append((addr - int(target.group(1), 16), int(target.group(1), 16), addr))
+    if not loops:
+        return 0, {}
+    _, lo, hi = min(loops)
+    body = collections.Counter(".".join(op.split(".")[:2]) for addr, op, _ in code if lo <= addr <= hi)
+    pairs = body.get("MUFU.RSQ", 0)
+    return pairs, {op: n / max(pairs, 1) for op, n in sorted(body.items())}
+
+
+def main(kernels=DIRECT_SUMS) -> list[dict]:
+    rows = []
+    for lib, name in zip(_build.build_all(kernels), kernels):
+        for fn, code in functions(lib).items():
+            pairs, ops = per_pair(code)
+            rows.append({"source": f"csrc/{name}.cu", "function": fn, "pairs_in_loop": pairs,
+                         "instructions_a_pair": sum(ops.values()), "by_opcode": ops})
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main(tuple(sys.argv[1:]) or DIRECT_SUMS)

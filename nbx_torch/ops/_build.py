@@ -26,7 +26,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # Every kernel of the port, by source name (csrc/<name>.cu).
-KERNELS = ("pairwise_f32r", "collide_fused", "pp_short", "pp_react", "pairwise_accjerk", "potential")
+KERNELS = ("pairwise_f32r", "collide_fused", "pp_short", "pp_react", "pairwise_accjerk", "potential",
+           "pairwise_precision")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

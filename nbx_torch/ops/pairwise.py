@@ -1,11 +1,13 @@
-"""Softened direct sums over many bodies (port of `pairwise_acc` (precision
-"f32r"), `pairwise_acc_jerk`, `potential_per_body` and `potential_energy` of
+"""Softened direct sums over many bodies (port of `pairwise_acc`,
+`pairwise_acc_jerk`, `potential_per_body` and `potential_energy` of
 `nbx/ops/pairwise.py`).
 
 Each wrapper sends a CUDA tensor to its hand-written kernel and a CPU tensor
 to its plain PyTorch version (`*_reference`):
 
-- `pairwise_acc`: `nbx_torch/csrc/pairwise_f32r.cu` (K1);
+- `pairwise_acc`: precision "f32r" (the default) `nbx_torch/csrc/pairwise_f32r.cu`
+  (K1); "f32", "fast", "hyb" and "bf16" `nbx_torch/csrc/pairwise_precision.cu`
+  (K1a, K1b, K1d, K1e), through `pairwise_acc_f32`, `_fast`, `_hyb`, `_bf16`;
 - `pairwise_acc_jerk`: `nbx_torch/csrc/pairwise_accjerk.cu` (K6);
 - `potential_per_body`: `nbx_torch/csrc/potential.cu` (K3).
 
@@ -23,6 +25,167 @@ import torch
 from nbx_torch.forces import eps2_of
 from nbx_torch.ops import _build
 
+# The `precision` values of `pairwise_acc`, as in `nbx`. Each but "f32r"
+# computes the same sum with its own formulation and rounding (the precision
+# study of BASELINE config 4); "mxu" (K1c) is not ported yet.
+PRECISIONS = ("f32r", "f32", "fast", "hyb", "bf16")
+TILE = 256  # the card kernels' source tile, over which "fast" and "hyb" centre
+
+
+def check_precision(precision: str) -> str:
+    """`precision` if the port has it; raises NotImplementedError for "mxu"
+    and ValueError for an unknown value, whatever the device."""
+    if precision == "mxu":
+        raise NotImplementedError('precision "mxu" (K1c, nbx/ops/pairwise.py:200) is not ported yet '
+                                  "(ROADMAP.md item 13b)")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    return precision
+
+
+def _f32r_rows(pos, mass, eps2, tile):
+    """K1's sum: acc_i = sum_j m_j d (|d|^2 + eps^2)^-3/2, d = p_j - p_i."""
+    def rows(t):
+        d = pos[None, :, :] - t[:, None, :]  # [B, Ns, 3]
+        r2 = (d * d).sum(-1) + eps2
+        inv = torch.rsqrt(r2)
+        w = inv * inv * inv * mass[None, :]
+        return (w[:, :, None] * d).sum(1)
+    return rows
+
+
+def _inv3(pos, t, eps2):
+    """(|d|^2 + eps^2)^-3/2 for d = p_j - p_i, [B, Ns], r^2 summed as `nbx`
+    sums it."""
+    dx, dy, dz = (pos[None, :, :] - t[:, None, :]).unbind(-1)
+    inv = torch.rsqrt(dx * dx + dy * dy + dz * dz + eps2)
+    return inv * inv * inv
+
+
+def _mass_folded(pos, mass):
+    """S = [m x, m y, m z, m], [Ns, 4], as the wrapper hands it to K1a/K1b."""
+    return torch.cat([pos * mass[:, None], mass[:, None]], dim=1)
+
+
+def _tiles(x: torch.Tensor, tile: int) -> torch.Tensor:
+    """x [Ns, ...] zero-padded to a whole number of source tiles, [T, tile,
+    ...]: padding lanes sit at position 0 with mass 0, as `nbx` pads them."""
+    pad = x.new_zeros((-x.shape[0] % tile, *x.shape[1:]))
+    return torch.cat([x, pad]).view(-1, tile, *x.shape[1:])
+
+
+def _centroids(pos: torch.Tensor, tile: int) -> torch.Tensor:
+    """[T, 3]: each source tile's mean position over all its lanes, padding
+    included (`jnp.mean` over `nbx`'s padded tile), on which "fast" and
+    "hyb" centre. Summed as the kernels sum it, by a halving tree (lane l
+    plus lane l + h, h = tile / 2, ..., 1): elementwise additions, whose
+    order does not depend on the number of tiles, as a reduction's may."""
+    if tile & (tile - 1):
+        raise ValueError(f"the centring tile must be a power of two, got {tile}")
+    x = _tiles(pos, tile)
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0] / tile
+
+
+def _running_sum(zero: torch.Tensor, terms) -> torch.Tensor:
+    """zero + terms[0] + terms[1] + ..., one addition after another in
+    float32: the order of the kernels' loops over a tile's lanes and over
+    the tiles. A variant with a cancellation amplifies any other order's
+    roundings by |p| / |d|."""
+    total = zero
+    for x in terms:
+        total = total + x
+    return total
+
+
+def _f32_rows(pos, mass, eps2, tile):
+    """"f32" (K1a): o = sum_j f_ij S_j with f = (|d|^2 + eps^2)^-3/2 and S
+    mass-folded, then the cancellation o_xyz - p_i o_m over the whole source
+    range (`nbx/ops/pairwise.py:84-90`). Summed as the kernel sums: each
+    tile's lanes in turn, then the tiles in turn."""
+    p, s = _tiles(pos, tile), _tiles(_mass_folded(pos, mass), tile)  # [T, tile, 3], [T, tile, 4]
+
+    def rows(t):
+        f = _inv3(p.flatten(0, 1), t, eps2).unflatten(1, p.shape[:2])  # [B, T, tile]
+        zero = f.new_zeros((t.shape[0], p.shape[0], 4))
+        part = _running_sum(zero, (f[..., k, None] * s[:, k] for k in range(tile)))  # [B, T, 4]
+        o = _running_sum(zero[:, 0], part.unbind(1))
+        return o[:, :3] - t * o[:, 3:]
+    return rows
+
+
+def _bf16_split(v):
+    """(hi, lo) of v as float32 values: hi = bf16(v), lo = bf16(v - hi)."""
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float()
+
+
+def _fast_rows(pos, mass, eps2, tile):
+    """"fast" (K1b): K1a's sum per source tile, the tile centred on its
+    centroid c (s_c = S - [c m, 0]), the product in three bf16 passes with
+    float32 sums (f_hi s_hi + f_hi s_lo + f_lo s_hi, each product exact in
+    float32), c sum_j f m added back per tile, then K1a's cancellation
+    (`nbx/ops/pairwise.py:130-165`). Summed as the kernel sums."""
+    p, m, c = _tiles(pos, tile), _tiles(mass, tile), _centroids(pos, tile)
+    s = _tiles(_mass_folded(pos, mass), tile)
+    s_hi, s_lo = _bf16_split(torch.cat([s[..., :3] - c[:, None, :] * m[..., None], s[..., 3:]], dim=2))  # [T, tile, 4]
+
+    def rows(t):
+        f_hi, f_lo = _bf16_split(_inv3(p.flatten(0, 1), t, eps2).unflatten(1, p.shape[:2]))  # [B, T, tile]
+        zero = f_hi.new_zeros((t.shape[0], p.shape[0], 4))
+
+        def one_pass(f, s):
+            return _running_sum(zero, (f[..., k, None] * s[:, k] for k in range(tile)))
+        tmp = one_pass(f_hi, s_hi) + one_pass(f_hi, s_lo) + one_pass(f_lo, s_hi)  # [B, T, 4]
+        w = tmp[..., 3:]
+        o = _running_sum(zero[:, 0], torch.cat([tmp[..., :3] + c * w, w], dim=2).unbind(1))
+        return o[:, :3] - t * o[:, 3:]
+    return rows
+
+
+def _hyb_rows(pos, mass, eps2, tile):
+    """"hyb" (K1d): per source tile, r^2 by the centred identity
+    |p_i - c|^2 + |p_j - c|^2 - 2 (p_i - c).(p_j - c) in float32, floored at
+    eps^2; w = m / r^3; the centred sums s = sum_j w (p_j - c) and sum_j w,
+    un-centred per tile as s - (p_i - c) sum_j w
+    (`nbx/ops/pairwise.py:347-393`). Summed as the kernel sums."""
+    m, c = _tiles(mass, tile), _centroids(pos, tile)
+    xjc, yjc, zjc = (_tiles(pos, tile) - c[:, None, :]).unbind(-1)  # [T, tile]
+    tj2e = xjc * xjc + yjc * yjc + zjc * zjc + eps2
+
+    def rows(t):
+        pic = t[:, None, :] - c[None]  # [B, T, 3]
+        xic, yic, zic = (v[..., None] for v in pic.unbind(-1))  # [B, T, 1]
+        cross = xic * xjc + yic * yjc + zic * zjc  # [B, T, tile]
+        ti2 = xic * xic + yic * yic + zic * zic
+        inv = torch.rsqrt(torch.clamp_min((ti2 + tj2e) - 2.0 * cross, eps2))
+        w = inv * inv * inv * m
+        terms = torch.stack([w * xjc, w * yjc, w * zjc, w], dim=-1)  # [B, T, tile, 4]
+        s = _running_sum(terms.new_zeros(terms.shape[:2] + (4,)), terms.unbind(2))  # [B, T, 4]
+        return _running_sum(pic.new_zeros((t.shape[0], 3)), (s[..., :3] - pic * s[..., 3:]).unbind(1))
+    return rows
+
+
+def _bf16_rows(pos, mass, eps2, tile):
+    """"bf16" (K1e): d rounded to bf16; each d d, f^3 m and w d a bf16
+    product; r^2 and the row sums in float32 (`nbx/ops/pairwise.py:422-437`).
+    Nothing here cancels, so the sums may run in torch's order."""
+    m = mass.bfloat16()
+
+    def rows(t):
+        d = (pos[None, :, :] - t[:, None, :]).bfloat16()  # [B, Ns, 3]
+        dx, dy, dz = d.unbind(-1)
+        r2 = (dx * dx).float() + (dy * dy).float() + (dz * dz).float() + eps2
+        inv = torch.rsqrt(r2)
+        w = (inv * inv * inv).bfloat16() * m[None, :]
+        return (w[:, :, None] * d).float().sum(1)
+    return rows
+
+
+_ROWS = {"f32r": _f32r_rows, "f32": _f32_rows, "fast": _fast_rows, "hyb": _hyb_rows, "bf16": _bf16_rows}
+
 
 def pairwise_acc_reference(
     pos: torch.Tensor,
@@ -31,21 +194,21 @@ def pairwise_acc_reference(
     softening: float,
     target_pos: torch.Tensor | None = None,
     block: int = 1024,
+    precision: str = "f32r",
+    tile: int = TILE,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's sum, in blocks of `block`
-    targets: acc_i = G sum_j m_j d (|d|^2 + eps^2)^-3/2, d = p_j - p_i, no
-    diagonal mask (the self pair contributes 0 for eps > 0)."""
+    """Plain PyTorch version of the kernel of `precision`, in blocks of
+    `block` targets: acc_i = G sum_j m_j d (|d|^2 + eps^2)^-3/2, d = p_j - p_i,
+    no diagonal mask (the self pair contributes 0 for eps > 0), each
+    precision with its own formulation and rounding points (the `*_rows`
+    functions above). `tile` is the width of the source tile of "f32",
+    "fast" and "hyb": their sums run tile by tile, and "fast" and "hyb"
+    centre on each tile's centroid. Its default is the card kernels' 256;
+    `nbx`'s tile_j compares with `nbx`. "f32r" and "bf16" do not read it."""
+    rows = _ROWS[check_precision(precision)](pos, mass, eps2_of(softening), tile)
     if target_pos is None:
         target_pos = pos
-    eps2 = eps2_of(softening)
-    out = []
-    for i0 in range(0, target_pos.shape[0], block):
-        t = target_pos[i0 : i0 + block]
-        d = pos[None, :, :] - t[:, None, :]  # [B, Ns, 3]
-        r2 = (d * d).sum(-1) + eps2
-        inv = torch.rsqrt(r2)
-        w = inv * inv * inv * mass[None, :]
-        out.append((w[:, :, None] * d).sum(1))
+    out = [rows(target_pos[i0 : i0 + block]) for i0 in range(0, target_pos.shape[0], block)]
     if not out:
         return target_pos.new_zeros((0, 3))
     return torch.cat(out) * G
@@ -70,24 +233,49 @@ def _on_card(fn: str, pos: torch.Tensor, softening: float) -> bool:
     return pos.device.type == "cuda"
 
 
-def _entry(kernel: str, argtypes: list):
-    fn = getattr(_build.load(kernel), f"nbx_{kernel}")
+def _entry(kernel: str, name: str, argtypes: list):
+    fn = getattr(_build.load(kernel), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(kernel: str, argtypes: list, device: torch.device, *args) -> None:
-    """Launch csrc/<kernel>.cu's entry on the device's current stream; raise
-    on a refused launch."""
+def _launch(kernel: str, argtypes: list, device: torch.device, *args, entry: str | None = None) -> None:
+    """Launch csrc/<kernel>.cu's entry (nbx_<kernel> unless named) on the
+    device's current stream; raise on a refused launch."""
+    entry = entry or f"nbx_{kernel}"
     with torch.cuda.device(device):
-        err = _entry(kernel, argtypes)(*args, torch.cuda.current_stream().cuda_stream)
+        err = _entry(kernel, entry, argtypes)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _direct_sum(wrapper, entry: str, pos, mass, G: float, softening: float, target_pos, kernel: str,
+                extras=tuple) -> torch.Tensor:
+    """A direct-sum wrapper's launch on CUDA tensors: check the inputs, pack
+    the sources as float4 (x, y, z, m), launch csrc/<kernel>.cu's `entry` on
+    (targets, sources, *extras(), acc, Nt, Ns, G, eps^2) and count it on
+    `wrapper.launches`. `extras` builds the further inputs (contiguous
+    float32 tensors, or None for a null pointer) once the inputs passed."""
+    ns, nt = pos.shape[0], target_pos.shape[0]
+    _check("pos", pos, (ns, 3), pos.device)
+    _check("mass", mass, (ns,), pos.device)
+    _check("target_pos", target_pos, (nt, 3), pos.device)
+    src = torch.cat([pos, mass[:, None]], dim=1)  # [Ns, 4] float4 (x, y, z, m)
+    tgt = target_pos.contiguous()
+    more = extras()
+    acc = torch.empty((nt, 3), dtype=torch.float32, device=pos.device)
+    if nt == 0:
+        return acc
+    _launch(kernel, [_P] * (3 + len(more)) + [_I, _I, _F, _F, _P], pos.device, tgt.data_ptr(), src.data_ptr(),
+            *(None if x is None else x.data_ptr() for x in more), acc.data_ptr(), nt, ns, float(G),
+            eps2_of(softening), entry=entry)
+    wrapper.launches += 1
+    return acc
 
 
 def pairwise_acc(
@@ -96,33 +284,59 @@ def pairwise_acc(
     G: float,
     softening: float,
     target_pos: torch.Tensor | None = None,
+    precision: str = "f32r",
 ) -> torch.Tensor:
     """Softened gravitational acceleration of all sources on the targets.
 
     pos [Ns, 3], mass [Ns] -> acc at target_pos [Nt, 3] (targets default to
     the sources), float32. G and softening are Python floats; softening must
-    be > 0, since the self pair is defined only then."""
+    be > 0, since the self pair is defined only then. `precision` picks the
+    formulation, as in `nbx`: "f32r" (K1, direct float32 row sums, the most
+    accurate), or the study variants "f32", "fast", "hyb" and "bf16", each
+    its own kernel (`pairwise_acc_f32` ...). "mxu" raises
+    NotImplementedError, any other value ValueError."""
+    if check_precision(precision) != "f32r":
+        return _VARIANTS[precision](pos, mass, G, softening, target_pos)
     if target_pos is None:
         target_pos = pos
     if not _on_card("pairwise_acc", pos, softening):
         return pairwise_acc_reference(pos, mass, G, softening, target_pos)
-
-    ns, nt = pos.shape[0], target_pos.shape[0]
-    _check("pos", pos, (ns, 3), pos.device)
-    _check("mass", mass, (ns,), pos.device)
-    _check("target_pos", target_pos, (nt, 3), pos.device)
-    src = torch.cat([pos, mass[:, None]], dim=1)  # [Ns, 4] float4 (x, y, z, m)
-    tgt = target_pos.contiguous()
-    acc = torch.empty((nt, 3), dtype=torch.float32, device=pos.device)
-    if nt == 0:
-        return acc
-    _launch("pairwise_f32r", [_P, _P, _P, _I, _I, _F, _F, _P], pos.device,
-            tgt.data_ptr(), src.data_ptr(), acc.data_ptr(), nt, ns, float(G), eps2_of(softening))
-    pairwise_acc.launches += 1
-    return acc
+    return _direct_sum(pairwise_acc, "nbx_pairwise_f32r", pos, mass, G, softening, target_pos, "pairwise_f32r")
 
 
 pairwise_acc.launches = 0
+
+
+def _precision_wrapper(precision: str):
+    """The wrapper of one study precision's kernel in
+    csrc/pairwise_precision.cu (entry nbx_pairwise_<precision>), with its own
+    `.launches`."""
+    def wrapper(pos: torch.Tensor, mass: torch.Tensor, G: float, softening: float,
+                target_pos: torch.Tensor | None = None) -> torch.Tensor:
+        if target_pos is None:
+            target_pos = pos
+        if not _on_card(wrapper.__name__, pos, softening):
+            return pairwise_acc_reference(pos, mass, G, softening, target_pos, precision=precision)
+
+        def extras():
+            # the mass-folded variants read S = (m x, m y, m z, m) beside the sources
+            return (_mass_folded(pos, mass) if precision in ("f32", "fast") else None,)
+        return _direct_sum(wrapper, f"nbx_pairwise_{precision}", pos, mass, G, softening, target_pos,
+                           "pairwise_precision", extras)
+
+    wrapper.__name__ = wrapper.__qualname__ = f"pairwise_acc_{precision}"
+    wrapper.__doc__ = (f"`pairwise_acc(..., precision={precision!r})`: the kernel nbx_pairwise_{precision} "
+                       "on a CUDA tensor, the plain version on a CPU one.")
+    wrapper.launches = 0
+    return wrapper
+
+
+pairwise_acc_f32 = _precision_wrapper("f32")  # K1a
+pairwise_acc_fast = _precision_wrapper("fast")  # K1b
+pairwise_acc_hyb = _precision_wrapper("hyb")  # K1d
+pairwise_acc_bf16 = _precision_wrapper("bf16")  # K1e
+_VARIANTS = {"f32": pairwise_acc_f32, "fast": pairwise_acc_fast, "hyb": pairwise_acc_hyb,
+             "bf16": pairwise_acc_bf16}
 
 
 def pairwise_acc_jerk_reference(

@@ -105,5 +105,5 @@ def test_cli_raises_without_a_card(monkeypatch, which):
 
 @pytest.mark.parametrize("main", [drift.main, throughput.main])
 def test_other_precisions_wait_for_their_kernels(main):
-    with pytest.raises(NotImplementedError, match="K1a-e"):
-        main(128, 10, "hyb", device="cpu")
+    with pytest.raises(NotImplementedError, match="K1c"):
+        main(128, 10, "mxu", device="cpu")

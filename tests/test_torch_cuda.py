@@ -4,8 +4,10 @@ bitwise against one, and with the fused gravity K7 bitwise K2's collision
 outputs), the frame step, the at-scale granular step (bucketed, and with the
 default full columns) and the spatial step at world size 1 on the card
 against the same steps on the CPU, the steps free of host syncs (P3M's,
-the drift gate's and the spatial step's too), and the spatial step with
-one rank a card (NCCL) against the same ranks on gloo.
+the drift gate's and the spatial step's too), the spatial step with one
+rank a card (NCCL) against the same ranks on gloo, and the precision
+variants of the direct sum (K1a, K1b, K1d, K1e) against their plain versions
+and their error ladder.
 
 Marked `cuda`: every test skips where torch sees no CUDA device, and the
 NCCL ranks' cases where it sees fewer cards than their mesh holds (2 or
@@ -25,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import rand_vel
+from chip_smoke import LADDER, VARIANT_TOL, VARIANTS, rand_vel
 from nbx_torch import collisions_scaled, integrators, scene, sim
 from nbx_torch.bench import drift
 from nbx_torch.bench.granular import granular_cloud
@@ -727,3 +729,104 @@ def test_sharded_granular_steps_on_card_match_cpu(dev, force):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(a.pos).all()
+
+
+# ---- the precision variants of K1: K1a "f32", K1b "fast", K1d "hyb", K1e "bf16" ----------
+# Bars, max|kernel - plain| / max|plain| (VARIANT_TOL, shared with chip_smoke.py): 1e-6
+# for "f32", "fast" and "hyb", measured bitwise (0): their plain versions round every
+# product and sum where the kernels round them and sum in the kernels' order (a tile's
+# lanes in turn, then the tiles), and torch.rsqrt on the card is rsqrtf; their
+# cancellations (o - p_i sum f m, s - (p_i - c) sum w) would turn any other order into
+# a few ulps of the self pair's term, up to 1e-3 of max|acc|. 1e-5 for "bf16", measured
+# at most 1.06e-6: it sums its rows in torch's order, and nothing there cancels. The
+# ladder (LADDER): against a float64 sum on tests/test_tpu_only.py's _rand(2048, seed=1),
+# bf16's error also > 0.
+
+PRECISION_SHAPES = [(4096, 4096), (1000, 4096), (777, 3001), (1, 300), (257, 255)]
+
+
+def _precision_wrapper(precision):
+    return getattr(pairwise, f"pairwise_acc_{precision}")
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+@pytest.mark.parametrize("nt,ns", PRECISION_SHAPES)
+def test_precision_kernel_matches_plain(dev, precision, nt, ns):
+    pos, mass = _rand(ns, ns, dev)
+    tgt, _ = _rand(nt, nt + 1, dev)
+    wrapper = _precision_wrapper(precision)
+    before, k1 = wrapper.launches, pairwise.pairwise_acc.launches
+    got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5, tgt, precision)
+    assert (wrapper.launches, pairwise.pairwise_acc.launches) == (before + 1, k1)
+    want = pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, tgt, precision=precision)
+    assert _rel_err(got, want) < VARIANT_TOL[precision]
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+def test_precision_kernel_on_the_cold_collapse_disk(dev, precision):
+    """The 262,144-body disk of `bench throughput`, its first 4,096 targets."""
+    sc = scene.cold_collapse_disk(n=262144, seed=0)
+    pos, mass = torch.tensor(sc["pos"], device=dev), torch.tensor(sc["mass"], device=dev)
+    got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5, pos[:4096], precision)
+    want = pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, pos[:4096], precision=precision)
+    assert _rel_err(got, want) < VARIANT_TOL[precision]
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+def test_precision_kernel_mass_zero_padding_is_inert(dev, precision):
+    """Mass-0 sources match the plain version; at the origin, where `nbx`
+    and the plain version pad, they add nothing. (Elsewhere they move the
+    tile centroids of "fast" and "hyb", and so their roundings: 1.6e-3 of
+    max|acc| for "fast" on this scene, a few ulps of its cancelling sum.)"""
+    pos, mass = _rand(3000, 7, dev)
+    padded = mass.clone()
+    padded[1500:] = 0.0
+    got = pairwise.pairwise_acc(pos, padded, 0.5, 0.5, precision=precision)
+    assert _rel_err(got, pairwise.pairwise_acc_reference(pos, padded, 0.5, 0.5, precision=precision)) < \
+        VARIANT_TOL[precision]
+    at_origin = pos.clone()
+    at_origin[1500:] = 0.0
+    got = pairwise.pairwise_acc(at_origin, padded, 0.5, 0.5, pos[:1500], precision)
+    want = pairwise.pairwise_acc_reference(pos[:1500], mass[:1500], 0.5, 0.5, precision=precision)
+    assert _rel_err(got, want) < VARIANT_TOL[precision]
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+def test_precision_kernel_error_ladder(dev, precision):
+    pos, mass = _rand(2048, 1, dev)
+    p, m = pos.double(), mass.double()
+    d = p[None] - p[:, None]
+    want = 0.5 * ((m[None] * ((d * d).sum(-1) + 0.25) ** -1.5)[..., None] * d).sum(1)
+    err = _rel_err(pairwise.pairwise_acc(pos, mass, 0.5, 0.5, precision=precision).double(), want)
+    assert 0 < err < LADDER[precision] if precision == "bf16" else err < LADDER[precision]
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+def test_precision_wrappers_reject_bad_inputs(dev, precision):
+    pos, mass = _rand(64, 8, dev)
+    with pytest.raises(TypeError):
+        pairwise.pairwise_acc(pos.double(), mass.double(), 0.5, 0.5, precision=precision)
+    with pytest.raises(ValueError):
+        pairwise.pairwise_acc(pos, mass.cpu(), 0.5, 0.5, precision=precision)
+    with pytest.raises(ValueError):
+        pairwise.pairwise_acc(pos, mass[:10], 0.5, 0.5, precision=precision)
+    with pytest.raises(ValueError):
+        pairwise.pairwise_acc(pos, mass, 0.5, 0.5, pos[:, :2], precision)
+    with pytest.raises(ValueError):
+        pairwise.pairwise_acc(pos, mass, 0.5, 0.0, precision=precision)
+    with pytest.raises(NotImplementedError):
+        pairwise.pairwise_acc(pos, mass, 0.5, 0.5, precision="mxu")
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+def test_precision_drift_chunk_makes_no_host_sync(dev, precision):
+    pos, vel, mass, G, eps, h = drift.gate_scene(2048, device=dev)
+    drift.drift_run(pos, vel, mass, G, eps, h, 0, precision=precision)  # warm-up: kernel load
+    torch.cuda.synchronize()
+    before = _precision_wrapper(precision).launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, e = drift.drift_run(pos, vel, mass, G, eps, h, 20, 10, precision)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(e).all() and _precision_wrapper(precision).launches == before + 21

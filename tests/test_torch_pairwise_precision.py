@@ -1,0 +1,194 @@
+"""The `precision` switch of the port's `pairwise_acc` ("f32", "fast", "hyb"
+and "bf16": K1a, K1b, K1d, K1e) and of its gravity-only benchmarks, against
+`nbx` on the CPU, where the port's wrappers run their plain versions.
+
+`nbx` runs its Pallas kernels in interpret mode at tile_i=8, tile_j=128,
+compiled with XLA's `xla_allow_excess_precision` off: XLA's CPU backend
+otherwise drops the bf16 round trips (float32 -> bf16 -> float32) inside
+the interpreted kernels, so that "bf16" and "fast" would skip roundings the
+TPU makes (measured: "bf16" then differs from its own rounding points by
+8e-3 of max|acc| at n = 777). The port's plain versions run at tile=128,
+`nbx`'s tile_j: "fast" and "hyb" centre on each 128-lane tile, and "f32",
+"fast" and "hyb" sum tile by tile.
+
+Bars, max|port - nbx| / max|nbx|, from the measured values:
+
+- "bf16" 1e-5 (measured at most 4.0e-7): the same bf16 and float32
+  roundings at the same points; only the float32 row sums run in another
+  order, and nothing cancels.
+- "f32" 2e-3 (measured at most 1.21e-3, at n = 64), "fast" 2e-3 (at most
+  1.30e-3, at n = 300), "hyb" 2e-3 (at most 1.71e-3, at n = 64). These
+  cancel, and XLA's dot and mean and the port sum in other orders. "f32"
+  and "fast" end in o_xyz - p_i o_m, where o_xyz = sum_j f m x_j is
+  dominated by the self pair, 8 m_i x_i (f = eps^-3), up to 1,865 at
+  n = 64: one float32 ulp of it (1.2e-4) is 4.6e-4 of max|acc| after G,
+  and the two orders differ by up to 2.6 ulps. "fast" also moves by about
+  1e-3 with the last bit of a tile's centroid, through its bf16 splits of
+  S - c m (the dropped lo lo term; its own error against float64 is
+  2.6e-3 to 2.5e-2 here). "hyb" un-centres each tile as
+  s - (p_i - c) sum_j w, where the self pair's w (p_i - c) cancels in the
+  same way. No bar below that noise holds unless both sides sum in the same
+  order; on the card the kernels and their plain versions do
+  (`tests/test_torch_cuda.py`).
+- The error ladder, against a float64 direct sum on
+  `tests/test_tpu_only.py`'s `_rand(2048, seed=1)` at the card's tile:
+  "f32" < 1e-3, "fast" < 1e-2, "hyb" < 0.02, "bf16" < 5e-2 and > 0 (bf16
+  really in use, as `tests/test_kernel.py`'s budget test asks).
+- `drift_run` at each precision against `nbx`'s (N = 128, 200 steps, as
+  `tests/test_bench.py` runs it): 1e-5 of the largest magnitude in the
+  energies, positions and velocities (measured at most 6.8e-7): the port's
+  plain versions sum over a 256-lane tile, `nbx` over its default 2048.
+"""
+
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nbx import scene as jscene
+from nbx.bench import drift as jdrift
+from nbx.ops import pairwise as jpairwise
+from nbx_torch import __main__ as cli
+from nbx_torch.bench import drift, latency, throughput
+from nbx_torch.ops import pairwise
+
+torch.set_num_threads(1)
+
+VARIANTS = ("f32", "fast", "hyb", "bf16")
+NBX_BAR = {"f32": 2e-3, "fast": 2e-3, "hyb": 2e-3, "bf16": 1e-5}
+LADDER = {"f32": 1e-3, "fast": 1e-2, "hyb": 0.02, "bf16": 5e-2}
+DRIFT_TOL = 1e-5
+NO_EXCESS = {"xla_allow_excess_precision": False}
+
+
+def _rand(n, seed=0):
+    rng = np.random.default_rng(seed)
+    pos = (rng.normal(size=(n, 3)) * 20).astype(np.float32)
+    mass = rng.uniform(0.5, 5, n).astype(np.float32)
+    return pos, mass
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def _nbx_acc(pos, mass, precision, target_pos=None):
+    args = (jnp.asarray(pos), jnp.asarray(mass), 0.5, 0.5, None if target_pos is None else jnp.asarray(target_pos))
+    run = jpairwise.pairwise_acc.lower(*args, tile_i=8, tile_j=128, precision=precision, interpret=True)
+    return np.asarray(run.compile(NO_EXCESS)(*args))
+
+
+def _f64_acc(pos, mass):
+    p, m = pos.astype(np.float64), mass.astype(np.float64)
+    d = p[None] - p[:, None]
+    r2 = (d * d).sum(-1) + np.float32(0.5) ** 2
+    return 0.5 * ((m[None] * r2**-1.5)[..., None] * d).sum(1)
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+@pytest.mark.parametrize("case", ["64", "300", "777", "rect"])
+def test_plain_version_matches_nbx(precision, case):
+    """n = 64, 300, 777 bodies, and targets a slice of 300 sources (the
+    sharded path's use)."""
+    if case == "rect":
+        pos, mass = _rand(300, 1)
+        tgt = np.ascontiguousarray(pos[37:137])
+    else:
+        pos, mass = _rand(int(case), int(case))
+        tgt = None
+    got = pairwise.pairwise_acc_reference(torch.from_numpy(pos), torch.from_numpy(mass), 0.5, 0.5,
+                                          None if tgt is None else torch.from_numpy(tgt), precision=precision,
+                                          tile=128)
+    assert _rel(got.numpy(), _nbx_acc(pos, mass, precision, tgt)) < NBX_BAR[precision]
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+def test_error_ladder(precision):
+    pos, mass = _rand(2048, seed=1)
+    got = pairwise.pairwise_acc(torch.from_numpy(pos), torch.from_numpy(mass), 0.5, 0.5, precision=precision)
+    err = _rel(got.numpy(), _f64_acc(pos, mass))
+    assert err < LADDER[precision]
+    if precision == "bf16":
+        assert err > 0, "bf16 identical to float64: the bf16 roundings are not happening"
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+def test_cpu_wrapper_runs_the_plain_version(precision):
+    """On a CPU tensor the variant's wrapper is its plain version at the
+    card's tile, and launches nothing."""
+    pos, mass = (torch.from_numpy(x) for x in _rand(300, 3))
+    wrapper = getattr(pairwise, f"pairwise_acc_{precision}")
+    before = wrapper.launches
+    got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5, pos[10:50], precision)
+    assert torch.equal(got, pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, pos[10:50], precision=precision))
+    assert torch.equal(got, wrapper(pos, mass, 0.5, 0.5, pos[10:50]))
+    assert wrapper.launches == before
+
+
+def test_default_is_f32r_as_before():
+    """The default precision is "f32r", bitwise the sum the port computed
+    before the switch existed."""
+    pos, mass = (torch.from_numpy(x) for x in _rand(777, 4))
+    d = pos[None, :, :] - pos[:, None, :]
+    inv = torch.rsqrt((d * d).sum(-1) + 0.25)
+    want = ((inv * inv * inv * mass[None, :])[:, :, None] * d).sum(1) * 0.5
+    for got in (pairwise.pairwise_acc(pos, mass, 0.5, 0.5), pairwise.pairwise_acc(pos, mass, 0.5, 0.5, None, "f32r"),
+                pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fn", [pairwise.pairwise_acc, pairwise.pairwise_acc_reference])
+def test_mxu_and_unknown_precisions_raise(fn):
+    pos, mass = (torch.from_numpy(x) for x in _rand(64, 5))
+    with pytest.raises(NotImplementedError, match="13b"):
+        fn(pos, mass, 0.5, 0.5, precision="mxu")
+    with pytest.raises(ValueError, match="precision"):
+        fn(pos, mass, 0.5, 0.5, precision="f16")
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+def test_drift_run_matches_nbx(precision):
+    """`tests/test_bench.py`'s Plummer sphere (N = 128), 200 compensated KDK
+    steps, energies every 100."""
+    sc = jscene.plummer(n=128, total_mass=128.0, scale_radius=5.0, seed=1)
+    args = tuple(jnp.asarray(sc[k]) for k in ("pos", "vel", "mass")) + (1.0, 1.0, 1e-3)
+    run = jdrift.drift_run.lower(*args, 200, 100, precision, True).compile(NO_EXCESS)
+    want = [np.asarray(x) for x in run(*args)]
+    got = drift.drift_run(*(torch.from_numpy(sc[k]) for k in ("pos", "vel", "mass")), 1.0, 1.0, 1e-3, 200, 100,
+                          precision)
+    assert got[2].shape == (3,)
+    for g, w in zip(got, want):
+        assert _rel(g.numpy(), w) < DRIFT_TOL
+    assert drift.relative_drift(got[2]) < drift.GATE
+
+
+def test_bench_mains_take_precisions_on_the_cpu(capsys):
+    """`bench throughput` runs a comma list of precisions, one JSON line
+    each; `bench drift` and the latency of one step take one."""
+    rate = throughput.main(n=256, reps=2, precision="f32r,f32,fast,hyb,bf16", device="cpu")
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    assert [r["precision"] for r in lines] == ["f32r", "f32", "fast", "hyb", "bf16"]
+    assert rate == lines[-1]["value"] > 0 and all(r["device"] == "cpu" for r in lines)
+    for p in VARIANTS:
+        assert latency.step_latency_ms(64, 2, precision=p, device="cpu") > 0
+    r = drift.main(n=128, n_steps=100, precision="bf16", diag_every=50, device="cpu")
+    assert r["precision"] == "bf16" and r["pass"] and r["device"] == "cpu"
+
+
+@pytest.mark.parametrize("main", [throughput.main, drift.main])
+def test_bench_mains_refuse_mxu_first(main):
+    """"mxu" raises before anything runs, also at the end of a list."""
+    with pytest.raises(NotImplementedError, match="13b"):
+        main(128, 10, "f32r,mxu" if main is throughput.main else "mxu", device="cpu")
+
+
+@pytest.mark.parametrize("which", ["drift", "throughput"])
+def test_cli_with_a_precision_raises_without_a_card(monkeypatch, which):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = {"drift": ["128", "100", "bf16"], "throughput": ["128", "2", "f32r,fast,hyb"]}[which]
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        cli.main(["bench", which, *args])
