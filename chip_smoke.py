@@ -14,9 +14,10 @@ the gravity-only integration path (`bench.drift.drift_run`,
 `bench granular` and `bench collsplit` mains, the granular demo's
 configuration, the scan with its default full-column layout), the spatial
 halo-exchange step (`parallel.spatial`, the `bench spatial` main),
-the all-gather multi-device paths (`parallel.shard`) and the gravity-only
+the all-gather multi-device paths (`parallel.shard`), the gravity-only
 path at each precision of `pairwise_acc` (the `bench throughput`, `drift`
-and `latency` entries with `precision`):
+and `latency` entries with `precision`) and the layout probes
+(`bench.layoutsplit`, `bench.layoutvar`):
 
   0. device: name and power limit; TF32 off
   1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
@@ -135,16 +136,26 @@ and `latency` entries with `precision`):
      algorithms; one pm step under set_sync_debug_mode("error"); 3 steps at
      N = 4,096 with pm and auto on the card and on the CPU
  25. the precision variants of the direct sum, K1a "f32", K1b "fast", K1d
-     "hyb" and K1e "bf16" (csrc/pairwise_precision.cu): each kernel against
-     its plain version (N = 4,096 random, 1,000 x 4,096, 777 x 3,001 ragged,
+     "hyb" and K1e "bf16" (csrc/pairwise_precision.cu) and K1c "mxu"
+     (csrc/pairwise_mxu.cu, its bf16 products on the tensor cores): each
+     kernel against its plain version (N = 4,096 random, 1,000 of its
+     targets x 4,096, 1,000 separate targets x 4,096, 777 x 3,001 ragged,
      mass-0 padding, the cold-collapse disk's first 4,096 targets at
-     262,144) and against its ladder bar over a float64 sum; each timed at
-     262,144 in turns with K1, with its plain version; `bench throughput`
-     with f32r and the four in one process; `bench drift` at each
-     precision (BASELINE config 4's drift at the gate's step, a measurement:
-     phase 12 keeps the gate), the variant's launches on that path, one
-     100-step chunk under set_sync_debug_mode("error"); the latency of one
-     KDK step at 16,384 and 262,144; 10 steps at N = 1,024 card against CPU
+     262,144) and against its ladder bar over a float64 sum (mxu's bodies'
+     errors also within 1.1x its plain version's, either way, at the median
+     and the 99th percentile); each timed at 262,144 in turns with
+     K1, with its plain version; `bench throughput` with f32r and the five
+     in one process; `bench drift` at each precision (BASELINE config 4's
+     drift at the gate's step, a measurement: phase 12 keeps the gate), the
+     variant's launches on that path, one 100-step chunk under
+     set_sync_debug_mode("error"); the latency of one KDK step at 16,384
+     and 262,144; 10 steps at N = 1,024 card against CPU
+ 26. the layout probes: K2 as `bench.layoutsplit` and `bench.layoutvar`
+     launch it on bucket 0 of the 131,072-body cloud (32,8, u0.8 caps)
+     against its plain version (bounce counts and partners exact), the
+     "blocks" layout (the TPU's materialised blocks) bitwise the "desc"
+     layout, both launches timed; each probe's main at its defaults
+     (131,072 at 32,8 and 262,144 at 40,8), its K2 launches counted
 
 Every phase raises on failure, so the script exits non-zero; it needs a CUDA
 device and has no CPU fallback. The line before the last is the kernels'
@@ -165,11 +176,17 @@ path (phase 19) and is timed on D = 1's windows (phase 18). K2 through the
 slab entry (collide_fused_slab) launches on the sharded granular step's pm
 path (phase 24) and is timed as 1 slab of the cloud (phase 21, the shape
 that path gives it at D = 1). The precision variants (pairwise_f32,
-pairwise_fast, pairwise_hyb, pairwise_bf16) launch on `bench drift`'s path
-at their precision (phase 25: main's warm-up force and the run's 10,001) and
-are timed at 262,144; their bounds add the float32-to-bf16 conversions over
-16 a clock an SM. It prints its total and the time of phases 11-14, 15-17,
-18-20, 21-24 and 25 before the kernels line.
+pairwise_fast, pairwise_hyb, pairwise_bf16, pairwise_mxu) launch on `bench
+drift`'s path at their precision (phase 25: main's warm-up force and the
+run's 10,001) and are timed at 262,144; their bounds add the float32-to-bf16
+conversion instructions over 16 a clock an SM, and mxu's the tensor cores'
+bf16 FLOPs over 989 TFLOP/s.
+The probes' records (collide_fused_layoutsplit, collide_fused_layoutvar)
+count K2's launches in each probe's main and are timed on the probe's
+bucket-0 launch (phase 26). A collision pass's bytes count the rows its
+windows read and the targets it writes, not the rows of its input (the
+"blocks" copy's padding is never read). It prints its total and the time of phases
+11-14, 15-17, 18-20, 21-24, 25 and 26 before the kernels line.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -187,7 +204,7 @@ import torch
 
 from nbx_torch import collisions_scaled, diagnostics, integrators, scene, sim
 from nbx_torch.bench import collsplit, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
-from nbx_torch.bench import sharded
+from nbx_torch.bench import layoutsplit, layoutvar, sharded
 from nbx_torch.bench import spatial as spatial_bench
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
@@ -233,37 +250,77 @@ K7_LANE_OPS, K7_LANE_SFU = K2_LANE_OPS + PP_PAIR_OPS - 8, PP_PAIR_SFU
 # Type conversions per second: the CUDA C Programming Guide's throughput table
 # gives compute capability 9.0 16 results a clock an SM for "all other type
 # conversions" (float32 to bf16 among them), the SFU's rate, not the FP32 one.
+# Whether an F2FP that packs two values counts as one result or two is not
+# known, so a bound counts it as one: conversion instructions, not values.
 CVT_PEAK = 132 * 16 * 1.98e9
 # The precision variants of K1 (csrc/pairwise_precision.cu), per pair, counted
-# from the source: FP32 operations and float32-to-bf16 conversions; one rsqrt
-# each. f32: 3 differences, r^2 + eps^2 (6), f^3 (2), f S (8). fast: the same
-# to f, its bf16 split (a difference), the three passes (12 FMAs, 24). hyb:
-# the cross term (5), r^2 from it (3), the floor, w (3), the four sums (7).
-# bf16: 3 differences, the float32 sums of r^2 (3), f^3 (2), 7 bf16 products,
-# the row sums (3); d's three components and f^3 converted to bf16. The bf16
-# values go back to float32 by a shift on the integer pipe (SASS: PERF.md).
-VARIANTS = ("f32", "fast", "hyb", "bf16")
-VARIANT_PAIR_OPS = {"f32": 19, "fast": 36, "hyb": 19, "bf16": 18}
-VARIANT_PAIR_CVT = {"f32": 0, "fast": 2, "hyb": 0, "bf16": 4}
-# max|kernel - plain| / max|plain| of each variant (tests/test_torch_cuda.py
-# states the reasons): the plain versions of f32, fast and hyb round where
-# the kernels round and sum in their order, and torch.rsqrt on the card is
-# rsqrtf: measured bitwise (0); bf16 sums its rows in torch's order:
-# measured at most 1.06e-6 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
-VARIANT_TOL = {"f32": 1e-6, "fast": 1e-6, "hyb": 1e-6, "bf16": 1e-5}
+# from the source: FP32 operations; one rsqrt each. f32: 3 differences, r^2 +
+# eps^2 (6), f^3 (2), f S (8). fast: the same to f, its bf16 split (a
+# difference), the three passes (12 FMAs, 24). hyb: the cross term (5), r^2
+# from it (3), the floor, w (3), the four sums (7). bf16: 3 differences, the
+# float32 sums of r^2 (3), f^3 (2), 7 bf16 products, the row sums (3). mxu
+# (csrc/pairwise_mxu.cu): the cross term (5), r^2 from it (4), w (3), w - hi
+# (1), the tile's sums of the chunks' MMAs (1); its products on the tensor
+# cores, 2 MMAs (16 x 8 x 16, 4,096 FLOPs each) for a warp's 256 pairs. Float32-to-bf16 conversion instructions a
+# pair, from the SASS (`bench.sass`, PERF.md): fast 2 F2F (f's hi and lo),
+# bf16 3 F2FP (d's three components and f^3), mxu 1 F2FP (w's hi and lo
+# packed). The bf16 values go back to float32 by a shift on the integer pipe.
+VARIANTS = ("f32", "fast", "hyb", "bf16", "mxu")
+VARIANT_PAIR_OPS = {"f32": 19, "fast": 36, "hyb": 19, "bf16": 18, "mxu": 14}
+VARIANT_PAIR_CVT = {"f32": 0, "fast": 2, "hyb": 0, "bf16": 3, "mxu": 1}
+VARIANT_PAIR_TC_FLOPS = {"mxu": 2 * 4096 / 256}
+VARIANT_SITE = {"f32": 51, "fast": 93, "hyb": 302, "bf16": 400, "mxu": 200}  # nbx/ops/pairwise.py
+TC_PEAK = 989e12  # dense bf16 FLOP/s on the tensor cores
+# max|kernel - plain| / max|plain| of each variant where targets are sources
+# (tests/test_torch_cuda.py states the reasons): the plain versions of f32,
+# fast and hyb round where the kernels round and sum in their order, and
+# torch.rsqrt on the card is rsqrtf: measured bitwise (0); bf16 sums its rows
+# in torch's order: measured at most 1.06e-6 (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md). mxu's tensor cores sum its products in an order of their own, and
+# a self pair's term cancels in tmp_xyz - (p_i - c) tmp_w: a few ulps of
+# that term, up to 4.6e-4 of max|acc| each; where no target is a source
+# nothing cancels, and every variant is held to SEPARATE_TOL at most.
+VARIANT_TOL = {"f32": 1e-6, "fast": 1e-6, "hyb": 1e-6, "bf16": 1e-5, "mxu": 2e-3}
+SEPARATE_TOL = 1e-4
 # The error ladder: max|kernel - float64 sum| / max|float64 sum| on
-# tests/test_tpu_only.py's _rand(2048, seed=1).
-LADDER = {"f32": 1e-3, "fast": 1e-2, "hyb": 0.02, "bf16": 5e-2}
+# tests/test_tpu_only.py's _rand(2048, seed=1). mxu's is also held to its
+# plain version's over every body: each body's max|acc - float64| over
+# max|float64|, for the kernel and for the plain version; the ratio of their
+# LADDER_QUANTILES lies within LADDER_VS_PLAIN either way. (The ratio of the
+# maxima reads the last bits of one body: 1.091x in PR 9's first runs.)
+LADDER = {"f32": 1e-3, "fast": 1e-2, "hyb": 0.02, "bf16": 5e-2, "mxu": 0.02}
+LADDER_QUANTILES = (0.5, 0.99)
+LADDER_VS_PLAIN = 1.1
 
 
-def bound(ops: float, sfu: float, nbytes: float, cvt: float = 0.0) -> dict:
+def variant_tol(precision: str, self_pairs: bool) -> float:
+    """A variant's bar against its plain version, on shapes whose targets
+    are among the sources (self_pairs) or apart from them."""
+    return VARIANT_TOL[precision] if self_pairs else min(VARIANT_TOL[precision], SEPARATE_TOL)
+
+
+def ladder_ratios(got: torch.Tensor, plain: torch.Tensor, want: torch.Tensor) -> list[float]:
+    """The LADDER_QUANTILES of the bodies' errors against the float64 sum
+    `want`, the kernel's (got) over the plain version's."""
+    scale = want.abs().max()
+    k, p = ((x.double() - want).abs().amax(1) / scale for x in (got, plain))
+    q = torch.tensor(LADDER_QUANTILES, dtype=torch.float64, device=want.device)
+    return (torch.quantile(k, q) / torch.quantile(p, q)).tolist()
+
+
+def within_ladder(ratios: list[float]) -> bool:
+    return all(1 / LADDER_VS_PLAIN < r < LADDER_VS_PLAIN for r in ratios)
+
+
+def bound(ops: float, sfu: float, nbytes: float, cvt: float = 0.0, tc_flops: float = 0.0) -> dict:
     """The least time the card could take: the largest of the FP32
     operations over the FP32 peak, the special functions over the SFU rate,
-    the type conversions over their rate and the bytes over the memory rate.
-    bound_by is "operations" for any but the last; `pipe` names the term
-    (FP32, SFU, CVT or HBM)."""
+    the type conversions over their rate, the tensor cores' bf16 FLOPs over
+    their rate and the bytes over the memory rate. bound_by is "operations"
+    for any but the last; `pipe` names the term (FP32, SFU, CVT, TC or
+    HBM)."""
     times = {"FP32": ops / FP32_PEAK * 1e3, "SFU": sfu / SFU_PEAK * 1e3, "CVT": cvt / CVT_PEAK * 1e3,
-             "HBM": nbytes / HBM_PEAK * 1e3}
+             "TC": tc_flops / TC_PEAK * 1e3, "HBM": nbytes / HBM_PEAK * 1e3}
     pipe = max(times, key=times.get)
     return dict(bound_ms=times[pipe], bound_by="bytes" if pipe == "HBM" else "operations", pipe=pipe)
 
@@ -1209,14 +1266,34 @@ def layout_both(inputs, box: float, g: int, kw: dict):
     return got, want, fused, calls
 
 
+def _covered(starts: torch.Tensor, counts: torch.Tensor, n: int) -> torch.Tensor:
+    """[n + 1] int32 whose cumulative sum is > 0 on the rows of the ranges
+    [start, start + count), in the order of n rows (ends past n are cut)."""
+    starts = torch.where(counts > 0, starts, 0).clamp(0, n).reshape(-1)
+    ends = (starts + counts.clamp_min(0).reshape(-1)).clamp(max=n)
+    edge = torch.zeros(n + 1, dtype=torch.int32, device=starts.device)
+    one = torch.ones_like(starts, dtype=torch.int32)
+    return edge.index_add_(0, starts, one).index_add_(0, ends, -one)
+
+
 def launch_bound(calls) -> tuple[dict, int]:
     """The bound of one pass's launches, counted from their windows: every
     target against every kept source lane of its window (the overlap test,
-    K2_LANE_OPS each); the bodies read and written once, the descriptors
-    read once. Returns (bound, source lanes)."""
+    K2_LANE_OPS each); each row that a window reads (its targets' feats and
+    ids, its strips' feats, ids and source flags) read once, however many
+    launches read it; each target's delta row and partner written once; the
+    descriptors read once. Rows that no window reads (a layout's padding)
+    count nothing. Returns (bound, source lanes)."""
     lanes = sum(int((w[:, 1].long() * w[:, 3::2].long().sum(1)).sum()) for _, _, _, w, *_ in calls)
-    n = calls[0][0].shape[0]
-    nbytes = n * (32 + 4 + 1 + 32 + 4) + sum(c[3].numel() * 4 for c in calls)
+    edges = {}  # feats' storage -> (target edges, source edges)
+    for feats, _, _, w, *_ in calls:
+        n, w = feats.shape[0], w.long()
+        t, s = edges.get(feats.data_ptr(), (0, 0))
+        edges[feats.data_ptr()] = (t + _covered(w[:, 0], w[:, 1], n), s + _covered(w[:, 2::2], w[:, 3::2], n))
+    nbytes = sum(c[3].numel() * 4 for c in calls)
+    for t, s in edges.values():
+        t, s = t.cumsum(0) > 0, s.cumsum(0) > 0
+        nbytes += int((t | s).sum()) * (32 + 4) + int(s.sum()) * 1 + int(t.sum()) * (32 + 4)
     return bound(lanes * K2_LANE_OPS, 0, nbytes), lanes
 
 
@@ -2189,19 +2266,21 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
     G, eps, tol = 0.5, 0.5, VARIANT_TOL[precision]
     wrapper = variant_wrapper(precision)
 
-    def both(label, pos, mass, tgt=None):
+    def both(label, pos, mass, tgt=None, self_pairs=True):
         before = wrapper.launches
         got = pairwise_acc(pos, mass, G, eps, tgt, precision)
         check(wrapper.launches == before + 1, f"{precision}: one launch a call")
         return compare(f"{precision} {label}", got, pairwise_acc_reference(pos, mass, G, eps, tgt, precision=precision),
-                       25, tol)
+                       25, variant_tol(precision, self_pairs))
 
     pos, mass = rand_bodies(4096, 0, dev)
     err = both("N=4096 random", pos, mass)
     err = max(err, both("1000 targets x 4096 sources", pos, mass, pos[37:1037]))
+    sep, _ = rand_bodies(1000, 3, dev)
+    err = max(err, both("1000 separate targets x 4096 sources", pos, mass, sep, self_pairs=False))
     src, m_src = rand_bodies(3001, 1, dev)
     tgt, _ = rand_bodies(777, 2, dev)
-    err = max(err, both("777 targets x 3001 sources (ragged)", src, m_src, tgt))
+    err = max(err, both("777 targets x 3001 sources (ragged)", src, m_src, tgt, self_pairs=False))
     m_pad = mass.clone()
     m_pad[2048:] = 0.0
     err = max(err, both("half the sources mass 0", pos, m_pad))
@@ -2223,18 +2302,30 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
                            25, tol))
     pos, mass = rand_bodies(2048, 1, dev)
     want = float64_acc(pos, mass, G, eps)
-    ladder = float((pairwise_acc(pos, mass, G, eps, precision=precision).double() - want).abs().max()
-                   / want.abs().max())
+
+    def ladder_of(acc):
+        return float((acc.double() - want).abs().max() / want.abs().max())
+    got = pairwise_acc(pos, mass, G, eps, precision=precision)
+    ladder = ladder_of(got)
     log(25, f"{precision} ladder: max|kernel - float64| / max|float64| = {ladder:.3e} on _rand(2048, 1) "
             f"(bar {LADDER[precision]:g}{', and > 0' if precision == 'bf16' else ''})")
     check(ladder < LADDER[precision] and (precision != "bf16" or ladder > 0), f"{precision} on its ladder bar")
+    if precision == "mxu":  # the tensor cores' sums leave the kernel on its plain version's ladder
+        plain = pairwise_acc_reference(pos, mass, G, eps, precision=precision)
+        ratios = ladder_ratios(got, plain, want)
+        log(25, f"mxu ladder: plain version {ladder_of(plain):.3e} (max ratio {ladder / ladder_of(plain):.3f}, "
+                "not gated); the bodies' errors, kernel over plain, at quantiles "
+                + ", ".join(f"{q:g}: {r:.4f}" for q, r in zip(LADDER_QUANTILES, ratios))
+                + f" (bars {1 / LADDER_VS_PLAIN:.4f} to {LADDER_VS_PLAIN:g})")
+        check(within_ladder(ratios), "mxu's ladder within its plain version's")
     return err
 
 
 def variant_bound(p: str, n: int) -> dict:
     """Variant p's bound for N = n targets and sources."""
     nbytes = n * (12 + 16 + 12) + (16 * n if p in ("f32", "fast") else 0)
-    return bound(n * n * VARIANT_PAIR_OPS[p], n * n, nbytes, n * n * VARIANT_PAIR_CVT[p])
+    return bound(n * n * VARIANT_PAIR_OPS[p], n * n, nbytes, n * n * VARIANT_PAIR_CVT[p],
+                 n * n * VARIANT_PAIR_TC_FLOPS.get(p, 0.0))
 
 
 def variant_timings(dev, n: int = HEADLINE_N, n_small: int = DRIFT_N) -> dict:
@@ -2336,6 +2427,74 @@ def phase_precisions(dev, latency_ns=(DRIFT_N, HEADLINE_N)) -> dict:
     return recs
 
 
+# ---- the layout probes: K2 re-launched by bench/layoutsplit.py and bench/layoutvar.py ----
+
+PROBE_SITES = {"layoutsplit": "nbx/bench/layoutsplit.py:143", "layoutvar": "nbx/bench/layoutvar.py:199"}
+
+
+def probe_kernel(dev, n: int = SCALED_N, g: int = 32, band: int = 8) -> tuple[float, dict]:
+    """The probes' K2 launch on bucket 0 of the n-body cloud (the probes'
+    first default) against its plain version (deltas to KERNEL_TOL, bounce
+    counts and partners exact), the "blocks" layout bitwise the "desc"
+    layout, each launch timed. Returns (max|kernel - plain|, each probe's
+    timing by name)."""
+    pos, vel, mass, radius, box, buckets = layoutsplit.scene(n, g, band, dev)
+    b = layoutsplit.build(pos, vel, mass, radius, box, g, band, buckets[0])
+    got_d, got_j = layoutsplit.launch(b, n)
+    want_d, want_j = layoutsplit.launch(b, n, collide.collide_fused_reference)
+    err = compare(f"probe bucket 0 n={n} g={g} B={band} bucket {buckets[0]}: deltas", got_d[:, :7], want_d[:, :7],
+                  26)
+    check(torch.equal(got_d[:, 7], want_d[:, 7]) and torch.equal(got_j, want_j), "bounce counts and partners exact")
+    bounces = int(got_d[:, 7].sum())
+    check(bounces > 0, "the probe's bucket finds contacts")
+    desc = layoutvar.once(pos, vel, mass, radius, box, g, band, buckets[0], "desc")
+    blocks = layoutvar.once(pos, vel, mass, radius, box, g, band, buckets[0], "blocks")
+    check(all(torch.equal(x, y) for x, y in zip(desc, blocks)), '"blocks" bitwise "desc"')
+    log(26, f'probe bucket 0: {bounces} target-side bounces; "blocks" bitwise "desc"')
+    out = {}
+    for probe, layout in (("layoutsplit", b), ("layoutvar", layoutvar.blocks(b))):
+        rec, calls = record_launches(collide.collide_fused)
+        layoutsplit.launch(layout, n, rec)
+        out[probe] = time_launches(26, f"{probe}'s K2 launch ({'desc' if probe == 'layoutsplit' else 'blocks'} "
+                                       f"layout, {layout.feats.shape[0]} rows)", collide.collide_fused, calls)
+    return err, out
+
+
+def probe_main(probe, names, launches_per_n: int) -> int:
+    """A probe's main at its defaults, its JSON lines read back from its
+    output, each of its stages or variants (names) timed; returns its K2
+    launches, which must be launches_per_n per N."""
+    collide.collide_fused.launches = 0  # the probe's path starts here
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = probe.main()
+    print(buf.getvalue(), end="", flush=True)
+    lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    launches = collide.collide_fused.launches
+    name = probe.__name__.rsplit(".", 1)[1]
+    check(launches == launches_per_n * len(rows), f"{name}: {launches} K2 launches")
+    check([r["n"] for r in rows] == [SCALED_N, HEADLINE_N] and len(lines) >= len(rows), f"{name}: a line per N")
+    keys = [f"ms_{s}" for s in names]
+    check(all(all(0 < r[k] < float("inf") for k in keys) for r in rows), f"{name}: every time positive")
+    check(all(not any(k.startswith("mismatch") for k in r) for r in rows), f"{name}: no variant mismatches")
+    for r in rows:
+        log(26, f"{name} n={r['n']} bucket0={r['bucket0']}: " + ", ".join(f"{k} {r[k]:.4f}" for k in keys))
+    return launches
+
+
+def phase_probes(dev) -> dict:
+    """Phase 26: the layout probes. The probes' K2 launch against its plain
+    version on the 131,072-body cloud's bucket 0, "blocks" bitwise "desc",
+    each timed; each probe's main at its defaults (131,072 at 32,8 and
+    262,144 at 40,8), its K2 launches counted. Returns each probe's entry
+    of the kernels line."""
+    err, recs = probe_kernel(dev)
+    steps, warmup = 16, 4  # the mains' chains
+    launches = {"layoutsplit": probe_main(layoutsplit, layoutsplit.STAGES, steps + warmup),
+                "layoutvar": probe_main(layoutvar, layoutvar.VARIANTS, len(layoutvar.VARIANTS) * (1 + steps + warmup))}
+    return {p: dict(recs[p], launches=launches[p], max_abs_err=err, library_ms=None) for p in PROBE_SITES}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     name = phase_device()
@@ -2381,9 +2540,11 @@ def main() -> None:
     t24 = time.perf_counter()
     variants = phase_precisions(dev)  # resets each variant's count: its drift path
     t25 = time.perf_counter()
-    print(f"[done] every phase passed: {t25 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
+    probes = phase_probes(dev)  # resets K2's count before each probe's main: its path
+    t26 = time.perf_counter()
+    print(f"[done] every phase passed: {t26 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
           f"phases 15-17 {t17 - t14:.1f} s, phases 18-20 {t20 - t17:.1f} s, phases 21-24 {t24 - t20:.1f} s, "
-          f"phase 25 {t25 - t24:.1f} s", flush=True)
+          f"phase 25 {t25 - t24:.1f} s, phase 26 {t26 - t25:.1f} s", flush=True)
     records = [
         dict(name="pairwise_f32r", route="cuda", source="nbx_torch/csrc/pairwise_f32r.cu",
              replaces="nbx/ops/pairwise.py:168", launches=k1_launches, **k1),
@@ -2405,9 +2566,11 @@ def main() -> None:
              replaces="nbx/ops/collide.py:261", launches=k7_launches, **k7),
         dict(name="collide_fused_slab", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
              replaces="nbx/ops/collide.py:1913", launches=k2s_launches, **k2s),
-    ] + [dict(name=f"pairwise_{p}", route="cuda", source="nbx_torch/csrc/pairwise_precision.cu",
-              replaces=f"nbx/ops/pairwise.py:{line}", **variants[p])
-         for p, line in zip(VARIANTS, (51, 93, 302, 400))]
+    ] + [dict(name=f"pairwise_{p}", route="cuda",
+              source=f"nbx_torch/csrc/{pairwise.VARIANT_KERNEL[p][0]}.cu",
+              replaces=f"nbx/ops/pairwise.py:{VARIANT_SITE[p]}", **variants[p]) for p in VARIANTS
+    ] + [dict(name=f"collide_fused_{p}", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
+              replaces=site, launched_by=f"nbx_torch/bench/{p}.py", **probes[p]) for p, site in PROBE_SITES.items()]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -8,9 +8,10 @@ round trip and relay caching; nothing here needs that.)
 
     python -m nbx_torch.bench.throughput [n] [reps] [precision[,precision...]]
 
-A comma list ("f32r,bf16") runs every listed precision in this process, one
-after another, so that the variants are compared on one card; each prints
-its own JSON line.
+A comma list ("f32r,bf16") runs every listed precision (f32r, the default,
+f32, fast, hyb, bf16, mxu) in this process, one after another, so that the
+variants are compared on one card; each prints its own JSON line. Every
+precision of the list is checked before anything runs.
 """
 
 from __future__ import annotations

@@ -8,6 +8,8 @@ to its plain PyTorch version (`*_reference`):
 - `pairwise_acc`: precision "f32r" (the default) `nbx_torch/csrc/pairwise_f32r.cu`
   (K1); "f32", "fast", "hyb" and "bf16" `nbx_torch/csrc/pairwise_precision.cu`
   (K1a, K1b, K1d, K1e), through `pairwise_acc_f32`, `_fast`, `_hyb`, `_bf16`;
+  "mxu" `nbx_torch/csrc/pairwise_mxu.cu` (K1c, its bf16 products on the tensor
+  cores), through `pairwise_acc_mxu`;
 - `pairwise_acc_jerk`: `nbx_torch/csrc/pairwise_accjerk.cu` (K6);
 - `potential_per_body`: `nbx_torch/csrc/potential.cu` (K3).
 
@@ -27,17 +29,14 @@ from nbx_torch.ops import _build
 
 # The `precision` values of `pairwise_acc`, as in `nbx`. Each but "f32r"
 # computes the same sum with its own formulation and rounding (the precision
-# study of BASELINE config 4); "mxu" (K1c) is not ported yet.
-PRECISIONS = ("f32r", "f32", "fast", "hyb", "bf16")
-TILE = 256  # the card kernels' source tile, over which "fast" and "hyb" centre
+# study of BASELINE config 4).
+PRECISIONS = ("f32r", "f32", "fast", "hyb", "bf16", "mxu")
+TILE = 256  # the card kernels' source tile, over which "fast", "hyb" and "mxu" centre
 
 
 def check_precision(precision: str) -> str:
-    """`precision` if the port has it; raises NotImplementedError for "mxu"
-    and ValueError for an unknown value, whatever the device."""
-    if precision == "mxu":
-        raise NotImplementedError('precision "mxu" (K1c, nbx/ops/pairwise.py:200) is not ported yet '
-                                  "(ROADMAP.md item 13b)")
+    """`precision` if it is one of PRECISIONS; raises ValueError otherwise,
+    whatever the device."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     return precision
@@ -87,6 +86,34 @@ def _centroids(pos: torch.Tensor, tile: int) -> torch.Tensor:
         h = x.shape[1] // 2
         x = x[:, :h] + x[:, h:]
     return x[:, 0] / tile
+
+
+def _block_centroids(pos: torch.Tensor, tile: int) -> torch.Tensor:
+    """[T, 3]: each source tile's mean position over all its lanes, padding
+    included, on which "mxu" centres. Summed in blocks of 32 lanes, each in
+    lane order, then the blocks' sums in order: the order in which XLA's CPU
+    backend runs `nbx`'s `jnp.mean` over a tile (a reduction split into
+    windows of 32), so that the centred coordinates, and with them the bf16
+    splits of a self pair's cancelling term, round as `nbx`'s do."""
+    if tile % 32:
+        raise ValueError(f"the centring tile must be a multiple of 32, got {tile}")
+    x = _tiles(pos, tile).unflatten(1, (tile // 32, 32))  # [T, blocks, 32, 3]
+    blocks = _running_sum(x[:, :, 0], x[:, :, 1:].unbind(2))  # [T, blocks, 3]
+    return _running_sum(blocks[:, 0], blocks[:, 1:].unbind(1)) / tile
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a b + c rounded once to float32, as a fused multiply-add rounds it:
+    the exact product in float64, the sum rounded to odd (the float64 sum
+    moved one ulp towards its rounding error where that error is not 0 and
+    the sum's last bit is even), then rounded to float32, which is then the
+    correctly rounded result (53 >= 2 x 24 + 2 bits)."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    back = s - p
+    err = (p - (s - back)) + (c - back)  # s + err = p + c exactly
+    odd = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    return torch.where(odd, torch.nextafter(s, torch.copysign(torch.full_like(s, torch.inf), err)), s).float()
 
 
 def _running_sum(zero: torch.Tensor, terms) -> torch.Tensor:
@@ -184,7 +211,44 @@ def _bf16_rows(pos, mass, eps2, tile):
     return rows
 
 
-_ROWS = {"f32r": _f32r_rows, "f32": _f32_rows, "fast": _fast_rows, "hyb": _hyb_rows, "bf16": _bf16_rows}
+def _mxu_rows(pos, mass, eps2, tile):
+    """"mxu" (K1c): per source tile, r^2 = ((|p_i - c|^2 + |p_j - c|^2) -
+    2 (p_i - c).(p_j - c)) + eps^2 in float32, floored at eps^2 (not "hyb"'s
+    grouping); w = m / r^3; then the accumulation over P_c = (p_j - c, 1) as
+    three bf16 products with float32 sums, (w_hi P_hi + w_hi P_lo) + w_lo
+    P_hi, each summed over the tile's lanes in turn, un-centred per tile as
+    tmp_xyz - (p_i - c) tmp_w (`nbx/ops/pairwise.py:231-296`). c is the
+    block-summed centroid; the squares are fma(z, z, fma(x, x, y y)) and the
+    cross term fma(z, z', fma(y, y', x x')), as XLA's CPU backend contracts
+    `nbx`'s sums and its float32 dot. A self pair's term cancels in the
+    un-centring, and its bf16 splits follow the last bits of w_ii and of the
+    centroid, so those roundings decide how close the two come. The kernel
+    rounds them alike and sums its products on the tensor cores, in an
+    order of their own."""
+    m, c = _tiles(mass, tile), _block_centroids(pos, tile)
+    pc = _tiles(pos, tile) - c[:, None, :]  # [T, tile, 3]
+    xjc, yjc, zjc = pc.unbind(-1)
+    tj2 = _fma(zjc, zjc, _fma(xjc, xjc, yjc * yjc))
+    p_hi, p_lo = _bf16_split(torch.cat([pc, torch.ones_like(m)[..., None]], dim=2))  # [T, tile, 4]
+
+    def rows(t):
+        pic = t[:, None, :] - c[None]  # [B, T, 3]
+        xic, yic, zic = (v[..., None] for v in pic.unbind(-1))  # [B, T, 1]
+        cross = _fma(zic, zjc, _fma(yic, yjc, xic * xjc))  # [B, T, tile]
+        ti2 = _fma(zic, zic, _fma(xic, xic, yic * yic))
+        inv = torch.rsqrt(torch.clamp_min(((ti2 + tj2) - 2.0 * cross) + eps2, eps2))
+        w_hi, w_lo = _bf16_split(inv * inv * inv * m)
+        zero = w_hi.new_zeros((t.shape[0], c.shape[0], 4))
+
+        def one_pass(w, p):
+            return _running_sum(zero, (w[..., k, None] * p[:, k] for k in range(tile)))
+        tmp = (one_pass(w_hi, p_hi) + one_pass(w_hi, p_lo)) + one_pass(w_lo, p_hi)  # [B, T, 4]
+        return _running_sum(pic.new_zeros((t.shape[0], 3)), (tmp[..., :3] - pic * tmp[..., 3:]).unbind(1))
+    return rows
+
+
+_ROWS = {"f32r": _f32r_rows, "f32": _f32_rows, "fast": _fast_rows, "hyb": _hyb_rows, "bf16": _bf16_rows,
+         "mxu": _mxu_rows}
 
 
 def pairwise_acc_reference(
@@ -202,8 +266,8 @@ def pairwise_acc_reference(
     no diagonal mask (the self pair contributes 0 for eps > 0), each
     precision with its own formulation and rounding points (the `*_rows`
     functions above). `tile` is the width of the source tile of "f32",
-    "fast" and "hyb": their sums run tile by tile, and "fast" and "hyb"
-    centre on each tile's centroid. Its default is the card kernels' 256;
+    "fast", "hyb" and "mxu": their sums run tile by tile, and "fast", "hyb"
+    and "mxu" centre on each tile's centroid. Its default is the card kernels' 256;
     `nbx`'s tile_j compares with `nbx`. "f32r" and "bf16" do not read it."""
     rows = _ROWS[check_precision(precision)](pos, mass, eps2_of(softening), tile)
     if target_pos is None:
@@ -292,9 +356,9 @@ def pairwise_acc(
     the sources), float32. G and softening are Python floats; softening must
     be > 0, since the self pair is defined only then. `precision` picks the
     formulation, as in `nbx`: "f32r" (K1, direct float32 row sums, the most
-    accurate), or the study variants "f32", "fast", "hyb" and "bf16", each
-    its own kernel (`pairwise_acc_f32` ...). "mxu" raises
-    NotImplementedError, any other value ValueError."""
+    accurate), or the study variants "f32", "fast", "hyb", "bf16" and "mxu",
+    each its own kernel (`pairwise_acc_f32` ...). Any other value raises
+    ValueError."""
     if check_precision(precision) != "f32r":
         return _VARIANTS[precision](pos, mass, G, softening, target_pos)
     if target_pos is None:
@@ -307,22 +371,28 @@ def pairwise_acc(
 pairwise_acc.launches = 0
 
 
+# Each study precision's kernel: its source csrc/<source>.cu, whose entry
+# nbx_pairwise_<precision> takes these operands after the sources: "S" the
+# mass-folded S, None a null pointer in S's place. "mxu"'s S is the raw
+# coordinates, which the sources hold, so its entry takes none.
+VARIANT_KERNEL = {"f32": ("pairwise_precision", ("S",)), "fast": ("pairwise_precision", ("S",)),
+                  "hyb": ("pairwise_precision", (None,)), "bf16": ("pairwise_precision", (None,)),
+                  "mxu": ("pairwise_mxu", ())}
+
+
 def _precision_wrapper(precision: str):
-    """The wrapper of one study precision's kernel in
-    csrc/pairwise_precision.cu (entry nbx_pairwise_<precision>), with its own
-    `.launches`."""
+    """The wrapper of one study precision's kernel (VARIANT_KERNEL), with its
+    own `.launches`."""
+    kernel, operands = VARIANT_KERNEL[precision]
+
     def wrapper(pos: torch.Tensor, mass: torch.Tensor, G: float, softening: float,
                 target_pos: torch.Tensor | None = None) -> torch.Tensor:
         if target_pos is None:
             target_pos = pos
         if not _on_card(wrapper.__name__, pos, softening):
             return pairwise_acc_reference(pos, mass, G, softening, target_pos, precision=precision)
-
-        def extras():
-            # the mass-folded variants read S = (m x, m y, m z, m) beside the sources
-            return (_mass_folded(pos, mass) if precision in ("f32", "fast") else None,)
-        return _direct_sum(wrapper, f"nbx_pairwise_{precision}", pos, mass, G, softening, target_pos,
-                           "pairwise_precision", extras)
+        return _direct_sum(wrapper, f"nbx_pairwise_{precision}", pos, mass, G, softening, target_pos, kernel,
+                           lambda: tuple(None if x is None else _mass_folded(pos, mass) for x in operands))
 
     wrapper.__name__ = wrapper.__qualname__ = f"pairwise_acc_{precision}"
     wrapper.__doc__ = (f"`pairwise_acc(..., precision={precision!r})`: the kernel nbx_pairwise_{precision} "
@@ -335,8 +405,9 @@ pairwise_acc_f32 = _precision_wrapper("f32")  # K1a
 pairwise_acc_fast = _precision_wrapper("fast")  # K1b
 pairwise_acc_hyb = _precision_wrapper("hyb")  # K1d
 pairwise_acc_bf16 = _precision_wrapper("bf16")  # K1e
+pairwise_acc_mxu = _precision_wrapper("mxu")  # K1c
 _VARIANTS = {"f32": pairwise_acc_f32, "fast": pairwise_acc_fast, "hyb": pairwise_acc_hyb,
-             "bf16": pairwise_acc_bf16}
+             "bf16": pairwise_acc_bf16, "mxu": pairwise_acc_mxu}
 
 
 def pairwise_acc_jerk_reference(

@@ -5,9 +5,10 @@ outputs), the frame step, the at-scale granular step (bucketed, and with the
 default full columns) and the spatial step at world size 1 on the card
 against the same steps on the CPU, the steps free of host syncs (P3M's,
 the drift gate's and the spatial step's too), the spatial step with one
-rank a card (NCCL) against the same ranks on gloo, and the precision
-variants of the direct sum (K1a, K1b, K1d, K1e) against their plain versions
-and their error ladder.
+rank a card (NCCL) against the same ranks on gloo, the precision
+variants of the direct sum (K1a, K1b, K1d, K1e, and K1c on the tensor cores)
+against their plain versions and their error ladder, and K2 as the layout
+probes launch it.
 
 Marked `cuda`: every test skips where torch sees no CUDA device, and the
 NCCL ranks' cases where it sees fewer cards than their mesh holds (2 or
@@ -27,9 +28,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import LADDER, VARIANT_TOL, VARIANTS, rand_vel
+from chip_smoke import LADDER, VARIANT_TOL, VARIANTS, ladder_ratios, rand_vel, variant_tol, within_ladder
 from nbx_torch import collisions_scaled, integrators, scene, sim
-from nbx_torch.bench import drift
+from nbx_torch.bench import drift, layoutsplit, layoutvar
 from nbx_torch.bench.granular import granular_cloud
 from nbx_torch.bench.pp_scenes import MAIN_CASES, RESIDUAL_CASES, main_case, residual_case
 from nbx_torch.collisions import draw_fracture_uniforms
@@ -731,16 +732,20 @@ def test_sharded_granular_steps_on_card_match_cpu(dev, force):
     assert torch.isfinite(a.pos).all()
 
 
-# ---- the precision variants of K1: K1a "f32", K1b "fast", K1d "hyb", K1e "bf16" ----------
+# ---- the precision variants of K1: K1a "f32", K1b "fast", K1d "hyb", K1e "bf16", K1c "mxu"
 # Bars, max|kernel - plain| / max|plain| (VARIANT_TOL, shared with chip_smoke.py): 1e-6
 # for "f32", "fast" and "hyb", measured bitwise (0): their plain versions round every
 # product and sum where the kernels round them and sum in the kernels' order (a tile's
 # lanes in turn, then the tiles), and torch.rsqrt on the card is rsqrtf; their
 # cancellations (o - p_i sum f m, s - (p_i - c) sum w) would turn any other order into
 # a few ulps of the self pair's term, up to 1e-3 of max|acc|. 1e-5 for "bf16", measured
-# at most 1.06e-6: it sums its rows in torch's order, and nothing there cancels. The
+# at most 1.06e-6: it sums its rows in torch's order, and nothing there cancels. "mxu"
+# sums its bf16 products on the tensor cores, in their own order: 2e-3 where targets are
+# sources (the self pair's term cancels in tmp_xyz - (p_i - c) tmp_w), 1e-4 where they are
+# not (variant_tol; PRECISION_SHAPES draw their targets apart from the sources). The
 # ladder (LADDER): against a float64 sum on tests/test_tpu_only.py's _rand(2048, seed=1),
-# bf16's error also > 0.
+# bf16's error also > 0; mxu's bodies' errors at the median and the 99th percentile
+# within 1.1x of its plain version's, either way (chip_smoke.ladder_ratios).
 
 PRECISION_SHAPES = [(4096, 4096), (1000, 4096), (777, 3001), (1, 300), (257, 255)]
 
@@ -759,7 +764,7 @@ def test_precision_kernel_matches_plain(dev, precision, nt, ns):
     got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5, tgt, precision)
     assert (wrapper.launches, pairwise.pairwise_acc.launches) == (before + 1, k1)
     want = pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, tgt, precision=precision)
-    assert _rel_err(got, want) < VARIANT_TOL[precision]
+    assert _rel_err(got, want) < variant_tol(precision, self_pairs=False)
 
 
 @pytest.mark.parametrize("precision", VARIANTS)
@@ -797,8 +802,12 @@ def test_precision_kernel_error_ladder(dev, precision):
     p, m = pos.double(), mass.double()
     d = p[None] - p[:, None]
     want = 0.5 * ((m[None] * ((d * d).sum(-1) + 0.25) ** -1.5)[..., None] * d).sum(1)
-    err = _rel_err(pairwise.pairwise_acc(pos, mass, 0.5, 0.5, precision=precision).double(), want)
+    got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5, precision=precision)
+    err = _rel_err(got.double(), want)
     assert 0 < err < LADDER[precision] if precision == "bf16" else err < LADDER[precision]
+    if precision == "mxu":
+        plain = pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, precision=precision)
+        assert within_ladder(ladder_ratios(got, plain, want))
 
 
 @pytest.mark.parametrize("precision", VARIANTS)
@@ -814,8 +823,8 @@ def test_precision_wrappers_reject_bad_inputs(dev, precision):
         pairwise.pairwise_acc(pos, mass, 0.5, 0.5, pos[:, :2], precision)
     with pytest.raises(ValueError):
         pairwise.pairwise_acc(pos, mass, 0.5, 0.0, precision=precision)
-    with pytest.raises(NotImplementedError):
-        pairwise.pairwise_acc(pos, mass, 0.5, 0.5, precision="mxu")
+    with pytest.raises(ValueError, match="precision"):
+        pairwise.pairwise_acc(pos, mass, 0.5, 0.5, precision="tf32")
 
 
 @pytest.mark.parametrize("precision", VARIANTS)
@@ -830,3 +839,25 @@ def test_precision_drift_chunk_makes_no_host_sync(dev, precision):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(e).all() and _precision_wrapper(precision).launches == before + 21
+
+
+# ---- K2 as the layout probes launch it (bench/layoutsplit.py, bench/layoutvar.py) ---------
+
+@pytest.mark.parametrize("n,cfg", [(131072, (32, 8)), (262144, (40, 8))])
+def test_probe_kernel_matches_plain_and_blocks_are_bitwise_desc(dev, n, cfg):
+    """Bucket 0 of the probes' cloud: the kernel against its plain version
+    (deltas to 1e-5, bounce counts and partners exact), one launch; the
+    "blocks" layout bitwise the "desc" layout."""
+    g, band = cfg
+    pos, vel, mass, radius, box, buckets = layoutsplit.scene(n, g, band, dev)
+    b = layoutsplit.build(pos, vel, mass, radius, box, g, band, buckets[0])
+    before = collide.collide_fused.launches
+    got_d, got_j = layoutsplit.launch(b, n)
+    assert collide.collide_fused.launches == before + 1
+    want_d, want_j = layoutsplit.launch(b, n, collide.collide_fused_reference)
+    assert _rel_err(got_d[:, :7], want_d[:, :7]) < TOL
+    assert torch.equal(got_d[:, 7], want_d[:, 7]) and torch.equal(got_j, want_j)
+    assert int(got_d[:, 7].sum()) > 0
+    desc = layoutvar.once(pos, vel, mass, radius, box, g, band, buckets[0], "desc")
+    blocks = layoutvar.once(pos, vel, mass, radius, box, g, band, buckets[0], "blocks")
+    assert all(torch.equal(x, y) for x, y in zip(desc, blocks))
