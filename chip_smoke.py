@@ -135,16 +135,23 @@ and `latency` entries with `precision`) and the layout probes
      uniforms) in every counter and partner, under deterministic
      algorithms; one pm step under set_sync_debug_mode("error"); 3 steps at
      N = 4,096 with pm and auto on the card and on the CPU
- 25. the precision variants of the direct sum, K1a "f32", K1b "fast", K1d
-     "hyb" and K1e "bf16" (csrc/pairwise_precision.cu) and K1c "mxu"
-     (csrc/pairwise_mxu.cu, its bf16 products on the tensor cores): each
-     kernel against its plain version (N = 4,096 random, 1,000 of its
-     targets x 4,096, 1,000 separate targets x 4,096, 777 x 3,001 ragged,
-     mass-0 padding, the cold-collapse disk's first 4,096 targets at
-     262,144) and against its ladder bar over a float64 sum (mxu's bodies'
-     errors also within 1.1x its plain version's, either way, at the median
-     and the 99th percentile); each timed at 262,144 in turns with
-     K1, with its plain version; `bench throughput` with f32r and the five
+ 25. the precision variants of the direct sum, K1a "f32", K1d "hyb" and K1e
+     "bf16" (csrc/pairwise_precision.cu), K1b "fast" (csrc/pairwise_fast.cu)
+     and K1c "mxu" (csrc/pairwise_mxu.cu), fast and mxu with their bf16
+     products on the tensor cores, fast and hyb with their sources split
+     over a second grid dimension: each kernel against its plain version
+     (N = 4,096 random, 1,000 of its targets x 4,096, 1,000 separate
+     targets x 4,096, 777 x 3,001 ragged, 777 x 255 (one tile, one split),
+     a shape whose last split is shorter, mass-0 padding, the
+     cold-collapse disk's first 4,096 targets at 262,144; hyb bitwise, fast
+     and hyb twice on the same inputs bitwise) and against its ladder bar
+     over a float64 sum (fast's and mxu's bodies' errors also within 1.1x
+     their plain version's, either way, at the median and the 99th
+     percentile); fast and mxu on 25,600 targets among 1,792 sources by
+     the distance to the nearest source (not gated); the split grids at
+     16,384 and 262,144; each timed at 262,144 and at 16,384 in turns
+     with K1, with its plain version; `bench.sass` on fast and hyb (fast's
+     inner loop runs HMMA); `bench throughput` with f32r and the five
      in one process; `bench drift` at each precision (BASELINE config 4's
      drift at the gate's step, a measurement: phase 12 keeps the gate), the
      variant's launches on that path, one 100-step chunk under
@@ -178,9 +185,13 @@ path (phase 24) and is timed as 1 slab of the cloud (phase 21, the shape
 that path gives it at D = 1). The precision variants (pairwise_f32,
 pairwise_fast, pairwise_hyb, pairwise_bf16, pairwise_mxu) launch on `bench
 drift`'s path at their precision (phase 25: main's warm-up force and the
-run's 10,001) and are timed at 262,144; their bounds add the float32-to-bf16
-conversion instructions over 16 a clock an SM, and mxu's the tensor cores'
-bf16 FLOPs over 989 TFLOP/s.
+run's 10,001) and are timed at 262,144 (ms, bound_ms) and at that path's
+16,384 (ms_drift_shape, bound_ms_drift_shape); their bounds add the
+float32-to-bf16 conversion instructions over 16 a clock an SM, and fast's
+and mxu's the tensor cores' bf16 FLOPs over 989 TFLOP/s. A call of fast or
+hyb launches two kernels, the split sum and `combine_splits`: their
+`launches` count calls of that pair, and `ms` and `ms_drift_shape` time
+both (phase 25 prints the combine's device time on the drift path).
 The probes' records (collide_fused_layoutsplit, collide_fused_layoutvar)
 count K2's launches in each probe's main and are timed on the probe's
 bucket-0 launch (phase 26). A collision pass's bytes count the rows its
@@ -204,7 +215,7 @@ import torch
 
 from nbx_torch import collisions_scaled, diagnostics, integrators, scene, sim
 from nbx_torch.bench import collsplit, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
-from nbx_torch.bench import layoutsplit, layoutvar, sharded
+from nbx_torch.bench import layoutsplit, layoutvar, sass, sharded
 from nbx_torch.bench import spatial as spatial_bench
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
@@ -253,38 +264,48 @@ K7_LANE_OPS, K7_LANE_SFU = K2_LANE_OPS + PP_PAIR_OPS - 8, PP_PAIR_SFU
 # Whether an F2FP that packs two values counts as one result or two is not
 # known, so a bound counts it as one: conversion instructions, not values.
 CVT_PEAK = 132 * 16 * 1.98e9
-# The precision variants of K1 (csrc/pairwise_precision.cu), per pair, counted
-# from the source: FP32 operations; one rsqrt each. f32: 3 differences, r^2 +
-# eps^2 (6), f^3 (2), f S (8). fast: the same to f, its bf16 split (a
-# difference), the three passes (12 FMAs, 24). hyb: the cross term (5), r^2
-# from it (3), the floor, w (3), the four sums (7). bf16: 3 differences, the
-# float32 sums of r^2 (3), f^3 (2), 7 bf16 products, the row sums (3). mxu
-# (csrc/pairwise_mxu.cu): the cross term (5), r^2 from it (4), w (3), w - hi
-# (1), the tile's sums of the chunks' MMAs (1); its products on the tensor
-# cores, 2 MMAs (16 x 8 x 16, 4,096 FLOPs each) for a warp's 256 pairs. Float32-to-bf16 conversion instructions a
-# pair, from the SASS (`bench.sass`, PERF.md): fast 2 F2F (f's hi and lo),
-# bf16 3 F2FP (d's three components and f^3), mxu 1 F2FP (w's hi and lo
-# packed). The bf16 values go back to float32 by a shift on the integer pipe.
+# The precision variants of K1, per pair, counted from their sources: FP32
+# operations (an FMA counts 2, as in the peak); one rsqrt each. f32
+# (csrc/pairwise_precision.cu): 3 differences, r^2 + eps^2 (6), f^3 (2),
+# f S (8). hyb (the same source): the cross term (5, as FMAs), r^2 from it
+# (3: a sum and an FMA), the floor, w (3), the four sums (7: three FMAs and
+# a sum). bf16 (the same source): 3 differences, the float32 sums of r^2
+# (3), f^3 (2), 7 bf16 products, the row sums (3). fast
+# (csrc/pairwise_fast.cu): 3 differences, r^2 + eps^2 (6), f^3 (2), f - hi
+# (1), the tile's sums of the chunks' MMAs (1); mxu (csrc/pairwise_mxu.cu):
+# the cross term (5), r^2 from it (4), w (3), w - hi (1), the tile's sums
+# (1). Both run their products on the tensor cores, 2 MMAs (16 x 8 x 16,
+# 4,096 FLOPs each) for a warp's 256 pairs. Float32-to-bf16 conversion
+# instructions a pair, from the SASS (`bench.sass`, PERF.md): bf16 3 F2FP
+# (d's three components and f^3); fast and mxu 1 F2FP (two values' hi, or
+# their lo, packed). The bf16 values go back to float32 by a shift on the
+# integer pipe.
 VARIANTS = ("f32", "fast", "hyb", "bf16", "mxu")
-VARIANT_PAIR_OPS = {"f32": 19, "fast": 36, "hyb": 19, "bf16": 18, "mxu": 14}
-VARIANT_PAIR_CVT = {"f32": 0, "fast": 2, "hyb": 0, "bf16": 3, "mxu": 1}
-VARIANT_PAIR_TC_FLOPS = {"mxu": 2 * 4096 / 256}
+VARIANT_PAIR_OPS = {"f32": 19, "fast": 13, "hyb": 19, "bf16": 18, "mxu": 14}
+VARIANT_PAIR_CVT = {"f32": 0, "fast": 1, "hyb": 0, "bf16": 3, "mxu": 1}
+VARIANT_PAIR_TC_FLOPS = {"fast": 2 * 4096 / 256, "mxu": 2 * 4096 / 256}
 VARIANT_SITE = {"f32": 51, "fast": 93, "hyb": 302, "bf16": 400, "mxu": 200}  # nbx/ops/pairwise.py
 TC_PEAK = 989e12  # dense bf16 FLOP/s on the tensor cores
 # max|kernel - plain| / max|plain| of each variant where targets are sources
-# (tests/test_torch_cuda.py states the reasons): the plain versions of f32,
-# fast and hyb round where the kernels round and sum in their order, and
-# torch.rsqrt on the card is rsqrtf: measured bitwise (0); bf16 sums its rows
-# in torch's order: measured at most 1.06e-6 (NVIDIA H100 80GB HBM3, 700 W;
-# PERF.md). mxu's tensor cores sum its products in an order of their own, and
-# a self pair's term cancels in tmp_xyz - (p_i - c) tmp_w: a few ulps of
-# that term, up to 4.6e-4 of max|acc| each; where no target is a source
-# nothing cancels, and every variant is held to SEPARATE_TOL at most.
-VARIANT_TOL = {"f32": 1e-6, "fast": 1e-6, "hyb": 1e-6, "bf16": 1e-5, "mxu": 2e-3}
+# (tests/test_torch_cuda.py states the reasons): the plain versions of f32
+# and hyb round where the kernels round and sum in their order (hyb's
+# splits too), and torch.rsqrt on the card is rsqrtf: measured bitwise (0),
+# and hyb is held bitwise; bf16 sums its rows in torch's order: measured at
+# most 1.06e-6 (NVIDIA H100 80GB HBM3, 700 W; PERF.md). fast and mxu sum
+# their products on the tensor cores, in an order of their own, so they
+# agree with their plain versions to those sums' roundings, not bitwise; and
+# a self pair's term cancels (fast: f m_i x_i in o_xyz - p_i o_w; mxu: in
+# tmp_xyz - (p_i - c) tmp_w): a few ulps of that term, up to 4.5e-4 of
+# max|acc| for fast and 4.6e-4 for mxu. Where no target is a source no self pair's
+# term cancels, and every variant is held to SEPARATE_TOL at most. (A target
+# within eps of a source cancels that pair's term alike: near_pairs below
+# measures fast and mxu on many targets among few sources.)
+VARIANT_TOL = {"f32": 1e-6, "fast": 2e-3, "hyb": 1e-6, "bf16": 1e-5, "mxu": 2e-3}
 SEPARATE_TOL = 1e-4
+TENSOR_CORE_VARIANTS = ("fast", "mxu")  # their ladder is also held to their plain version's
 # The error ladder: max|kernel - float64 sum| / max|float64 sum| on
-# tests/test_tpu_only.py's _rand(2048, seed=1). mxu's is also held to its
-# plain version's over every body: each body's max|acc - float64| over
+# tests/test_tpu_only.py's _rand(2048, seed=1). fast's and mxu's are also
+# held to their plain version's over every body: each body's max|acc - float64| over
 # max|float64|, for the kernel and for the plain version; the ratio of their
 # LADDER_QUANTILES lies within LADDER_VS_PLAIN either way. (The ratio of the
 # maxima reads the last bits of one body: 1.091x in PR 9's first runs.)
@@ -1095,12 +1116,16 @@ def phase_gravity_kernels(dev, n_small: int = DRIFT_N, n_big: int = HEADLINE_N) 
     return k6, k3
 
 
-def launches_per_step(state: integrators.PhaseState, force, h: float,
-                      steps: int) -> tuple[float, float, float, float]:
+def launches_per_step(state: integrators.PhaseState, force, h: float, steps: int, names=("pairwise_f32r",),
+                      per_step: int = 1, exact: bool = True) -> tuple[float, float, float, float]:
     """(kernels launched per compensated KDK step, wall ms per step, device
-    ms per step, K1's device ms per step) over one chunk of `steps` steps
-    under torch.profiler: the wall and the device times are of the same
-    steps."""
+    ms per step, the force kernel's device ms per step) over one chunk of
+    `steps` steps under torch.profiler: the wall and the device times are
+    of the same steps. The force's kernels are those whose names hold one
+    of `names`, per_step a step (K1 by default), their time the mean of
+    those the profiler saw times per_step. `exact`: the profiler must have
+    seen every one of them (it has missed a few of a chunk's ~1,900
+    kernels, and then reads the kernels and the device time a step low)."""
     cuda = torch.autograd.DeviceType.CUDA
     pc = vc = torch.zeros_like(state.pos)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1113,10 +1138,11 @@ def launches_per_step(state: integrators.PhaseState, force, h: float,
         wall_ms = (time.perf_counter() - t0) / steps * 1e3
     kernels = [e for e in prof.events() if e.device_type == cuda]
     check(len(kernels) > 0, "the profiler saw the device's kernels")
-    k1 = [e for e in kernels if "pairwise_f32r" in e.name]
-    check(len(k1) == steps, f"the profiler saw K1 {len(k1)} times in {steps} steps")
-    return (len(kernels) / steps, wall_ms,
-            *(sum(e.time_range.elapsed_us() for e in ks) / steps / 1e3 for ks in (kernels, k1)))
+    k1 = [e for e in kernels if any(name in e.name for name in names)]
+    check(len(k1) == steps * per_step or not exact and 0 < len(k1) <= steps * per_step,
+          f"the profiler saw {names} {len(k1)} times in {steps} steps")
+    return (len(kernels) / steps, wall_ms, sum(e.time_range.elapsed_us() for e in kernels) / steps / 1e3,
+            sum(e.time_range.elapsed_us() for e in k1) / len(k1) * per_step / 1e3)
 
 
 def phase_drift_gate(dev, n: int = DRIFT_N, n_steps: int = 10_000, diag_every: int = 100):
@@ -2258,20 +2284,43 @@ def float64_acc(pos, mass, G: float, eps: float) -> torch.Tensor:
     return G * ((m[None] * r2**-1.5)[..., None] * d).sum(1)
 
 
+# N whose last split is shorter, every body a target: 79 tiles, fast's 5 runs
+# of 16, 16, 16, 16, 15, hyb's 27 of 3, ..., 3, 1
+SHORT_LAST_SPLIT_N = 20_000
+
+
+def split_text(precision: str, nt: int, ns: int) -> str:
+    """A split kernel's grid at (nt, ns): target blocks x S splits of whole
+    tiles."""
+    rows = pairwise.SPLIT_KERNELS[precision][0]
+    s = pairwise.source_splits(nt, ns, rows)
+    per = pairwise.split_tiles(ns, s)
+    return f"grid {-(-nt // rows)} x S={s} = {-(-nt // rows) * s} blocks ({per} tile{'s' * (per > 1)} a split)"
+
+
 def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
     """One variant's kernel against its plain version on the card (random,
-    rectangular, ragged, mass-0 sources, mass-0 padding inert, the
-    cold-collapse disk's first 4,096 targets), one launch a call, and its
-    ladder bar against float64. Returns the largest max|kernel - plain|."""
+    rectangular, ragged, one source tile, mass-0 sources, mass-0 padding
+    inert, the cold-collapse disk's first 4,096 targets), one launch a call,
+    and its ladder bar against float64; "hyb" bitwise, "fast" and "hyb"
+    twice on the same inputs bitwise. Returns the largest
+    max|kernel - plain|."""
     G, eps, tol = 0.5, 0.5, VARIANT_TOL[precision]
     wrapper = variant_wrapper(precision)
 
-    def both(label, pos, mass, tgt=None, self_pairs=True):
+    def both(label, pos, mass, tgt=None, self_pairs=True, eps=eps):
         before = wrapper.launches
         got = pairwise_acc(pos, mass, G, eps, tgt, precision)
         check(wrapper.launches == before + 1, f"{precision}: one launch a call")
-        return compare(f"{precision} {label}", got, pairwise_acc_reference(pos, mass, G, eps, tgt, precision=precision),
-                       25, variant_tol(precision, self_pairs))
+        want = pairwise_acc_reference(pos, mass, G, eps, tgt, precision=precision)
+        if precision in pairwise.SPLIT_KERNELS:
+            nt = pos.shape[0] if tgt is None else tgt.shape[0]
+            label += f"; {split_text(precision, nt, pos.shape[0])}"
+            again = pairwise_acc(pos, mass, G, eps, tgt, precision)
+            check(torch.equal(got, again), f"{precision}: two launches bitwise")
+        if precision == "hyb":
+            check(torch.equal(got, want), f"hyb {label}: bitwise its plain version")
+        return compare(f"{precision} {label}", got, want, 25, variant_tol(precision, self_pairs))
 
     pos, mass = rand_bodies(4096, 0, dev)
     err = both("N=4096 random", pos, mass)
@@ -2281,6 +2330,14 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
     src, m_src = rand_bodies(3001, 1, dev)
     tgt, _ = rand_bodies(777, 2, dev)
     err = max(err, both("777 targets x 3001 sources (ragged)", src, m_src, tgt, self_pairs=False))
+    err = max(err, both("777 targets x 255 sources (one tile: S = 1)", src[:255], m_src[:255], tgt, self_pairs=False))
+    src, m_src = rand_bodies(SHORT_LAST_SPLIT_N, 4, dev)
+    err = max(err, both(f"N={SHORT_LAST_SPLIT_N} random (a shorter last split)", src, m_src))
+    if precision in pairwise.SPLIT_KERNELS:
+        # eps^2 = 1e-40, below FLT_MIN: their rsqrtf instantiation, on
+        # targets 300 away in each coordinate (nothing near goes unsoftened)
+        err = max(err, both("1000 targets outside 4096 sources, softening 1e-20", pos, mass, sep + 300.0,
+                            self_pairs=False, eps=1e-20))
     m_pad = mass.clone()
     m_pad[2048:] = 0.0
     err = max(err, both("half the sources mass 0", pos, m_pad))
@@ -2295,11 +2352,15 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
     cfg = SimConfig()
     sc = scene.cold_collapse_disk(n=n_big, seed=0)
     pos, mass = torch.tensor(sc["pos"], device=dev), torch.tensor(sc["mass"], device=dev)
-    got = pairwise_acc(pos, mass, cfg.G, cfg.softening, precision=precision)
+    got = pairwise_acc(pos, mass, cfg.G, cfg.softening, precision=precision)[:4096]
     check(all_finite(got), f"{precision} output finite at N={n_big}")
-    err = max(err, compare(f"{precision} N={n_big} cold_collapse_disk, first 4096 targets", got[:4096],
-                           pairwise_acc_reference(pos, mass, cfg.G, cfg.softening, pos[:4096], precision=precision),
-                           25, tol))
+    # the plain version on the first 4,096 targets, its tiles added in the
+    # runs of the kernel's grid over all n_big
+    splits = (pairwise.source_splits(n_big, n_big, pairwise.SPLIT_KERNELS[precision][0])
+              if precision in pairwise.SPLIT_KERNELS else None)
+    want = pairwise_acc_reference(pos, mass, cfg.G, cfg.softening, pos[:4096], precision=precision, splits=splits)
+    check(precision != "hyb" or torch.equal(got, want), "hyb on the disk: bitwise its plain version")
+    err = max(err, compare(f"{precision} N={n_big} cold_collapse_disk, first 4096 targets", got, want, 25, tol))
     pos, mass = rand_bodies(2048, 1, dev)
     want = float64_acc(pos, mass, G, eps)
 
@@ -2310,15 +2371,33 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
     log(25, f"{precision} ladder: max|kernel - float64| / max|float64| = {ladder:.3e} on _rand(2048, 1) "
             f"(bar {LADDER[precision]:g}{', and > 0' if precision == 'bf16' else ''})")
     check(ladder < LADDER[precision] and (precision != "bf16" or ladder > 0), f"{precision} on its ladder bar")
-    if precision == "mxu":  # the tensor cores' sums leave the kernel on its plain version's ladder
+    if precision in TENSOR_CORE_VARIANTS:  # their sums leave the kernel on its plain version's ladder
         plain = pairwise_acc_reference(pos, mass, G, eps, precision=precision)
         ratios = ladder_ratios(got, plain, want)
-        log(25, f"mxu ladder: plain version {ladder_of(plain):.3e} (max ratio {ladder / ladder_of(plain):.3f}, "
-                "not gated); the bodies' errors, kernel over plain, at quantiles "
+        log(25, f"{precision} ladder: plain version {ladder_of(plain):.3e} (max ratio "
+                f"{ladder / ladder_of(plain):.3f}, not gated); the bodies' errors, kernel over plain, at quantiles "
                 + ", ".join(f"{q:g}: {r:.4f}" for q, r in zip(LADDER_QUANTILES, ratios))
                 + f" (bars {1 / LADDER_VS_PLAIN:.4f} to {LADDER_VS_PLAIN:g})")
-        check(within_ladder(ratios), "mxu's ladder within its plain version's")
+        check(within_ladder(ratios), f"{precision}'s ladder within its plain version's")
     return err
+
+
+def near_pairs(dev, nt: int = 25_600, ns: int = 1_792) -> None:
+    """fast and mxu on nt random targets apart from ns random sources:
+    max|kernel - plain| / max|plain| over all targets and over those whose
+    nearest source lies beyond 1 and 2 eps. A measurement, not gated: a
+    target within eps of a source cancels that pair's term as a self pair
+    does, so the separate-target bar does not hold there."""
+    src, m = rand_bodies(ns, 4, dev)
+    tgt, _ = rand_bodies(nt, 5, dev)
+    near = torch.cdist(tgt.double(), src.double()).min(1).values
+    for p in TENSOR_CORE_VARIANTS:
+        got = pairwise_acc(src, m, 0.5, 0.5, tgt, p)
+        want = pairwise_acc_reference(src, m, 0.5, 0.5, tgt, precision=p)
+        err = (got - want).abs().amax(1) / want.abs().max()
+        log(25, f"{p} {nt} targets apart from {ns} sources: rel {float(err.max()):.3e} over all, "
+                + ", ".join(f"{float(err[near > 0.5 * k].max()):.3e} beyond {k} eps ({int((near <= 0.5 * k).sum())} "
+                            "within)" for k in (1, 2)))
 
 
 def variant_bound(p: str, n: int) -> dict:
@@ -2328,34 +2407,68 @@ def variant_bound(p: str, n: int) -> dict:
                  n * n * VARIANT_PAIR_TC_FLOPS.get(p, 0.0))
 
 
+def turns_with_k1(args, reps: int, precisions, n: int) -> tuple[dict, list]:
+    """Each precision's kernel at N = n timed in turns with K1 (K1 first and
+    last; each warmed up first). Returns ({precision: ms}, [K1 before,
+    after])."""
+    def run(p):
+        return lambda: pairwise_acc(*args, precision=p)
+    k1 = [cuda_ms(lambda: pairwise_acc(*args), reps)]
+    out = {}
+    for p in precisions:
+        run(p)()  # warm-up
+        out[p] = cuda_ms(run(p), reps)
+    k1.append(cuda_ms(lambda: pairwise_acc(*args), reps))
+    log(25, f"N={n}: K1 (f32r) in the same process {k1[0]:.4f} ms before the variants, {k1[1]:.4f} after; "
+            "variant/K1: " + ", ".join(f"{p} {out[p] / k1[0]:.3f}x" for p in precisions))
+    return out, k1
+
+
 def variant_timings(dev, n: int = HEADLINE_N, n_small: int = DRIFT_N) -> dict:
-    """Each variant's kernel at N = n on the cold-collapse disk, timed in
-    turns with K1 (K1 first and last), its plain version once, its bound;
-    then each at the drift gate's N = n_small, the shape of the path whose
-    launches the kernels line counts."""
+    """Each variant's kernel at N = n on the cold-collapse disk and at the
+    drift gate's N = n_small (the shape of the path whose launches the
+    kernels line counts), timed in turns with K1, with its bound; its plain
+    version once at n. The split kernels' grids at both."""
     cfg = SimConfig()
     sc = scene.cold_collapse_disk(n=n, seed=0)
     pos, mass = torch.tensor(sc["pos"], device=dev), torch.tensor(sc["mass"], device=dev)
     args = (pos, mass, cfg.G, cfg.softening)
-    k1 = [cuda_ms(lambda: pairwise_acc(*args), 3)]
+    small = drift.gate_scene(n_small, device=dev)
+    small_args = (small[0], small[2], small[3], small[4])
+    for size in (n_small, n):
+        for p in pairwise.SPLIT_KERNELS:
+            log(25, f"{p} N={size}: {split_text(p, size, size)}")
+    big, _ = turns_with_k1(args, 3, VARIANTS, n)
+    small_ms, _ = turns_with_k1(small_args, 20, VARIANTS, n_small)
     out = {}
     for p in VARIANTS:
-        pairwise_acc(*args, precision=p)  # warm-up
-        ms = cuda_ms(lambda: pairwise_acc(*args, precision=p), 3)
         plain_ms = cuda_ms(lambda: pairwise_acc_reference(*args, precision=p), 1)
-        b = variant_bound(p, n)
-        out[p] = dict(ms=ms, plain_ms=plain_ms, **record(b), library_ms=None)
+        b, b_small = variant_bound(p, n), variant_bound(p, n_small)
+        ms = big[p]
+        out[p] = dict(ms=ms, plain_ms=plain_ms, **record(b), library_ms=None, ms_drift_shape=small_ms[p],
+                      bound_ms_drift_shape=b_small["bound_ms"])
         log(25, f"{p} N={n}: kernel {ms:.3f} ms ({n * n / (ms * 1e-3):.4e} pairs/s), plain {plain_ms:.3f} ms, "
                 f"plain/kernel {plain_ms / ms:.2f}x; {bound_text(b)}; kernel/bound {ms / b['bound_ms']:.2f}")
-    k1.append(cuda_ms(lambda: pairwise_acc(*args), 3))
-    log(25, f"K1 (f32r) in the same process: {k1[0]:.3f} ms before the variants, {k1[1]:.3f} after; variant/K1: "
-            + ", ".join(f"{p} {out[p]['ms'] / k1[0]:.2f}x" for p in VARIANTS))
-    pos, _, mass, G, eps, _ = drift.gate_scene(n_small, device=dev)
-    for p in ("f32r",) + VARIANTS:
-        ms = cuda_ms(lambda: pairwise_acc(pos, mass, G, eps, precision=p), 20)
-        b = bound(n_small**2 * K1_PAIR_OPS, n_small**2, n_small * 28) if p == "f32r" else variant_bound(p, n_small)
-        log(25, f"{p} N={n_small} (the drift gate's sphere): kernel {ms:.4f} ms; {bound_text(b)}")
+        log(25, f"{p} N={n_small} (the drift gate's sphere): kernel {small_ms[p]:.4f} ms; {bound_text(b_small)}; "
+                f"kernel/bound {small_ms[p] / b_small['bound_ms']:.2f}")
     return out
+
+
+def variant_sass() -> None:
+    """`bench.sass` on the split kernels: instructions a pair in their inner
+    loops; K1b's products on the tensor cores (HMMA), its FFMAs below the
+    12 a pair of the CUDA-core products it replaced."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = sass.main(("pairwise_fast", "pairwise_precision"))
+    for r in rows:
+        log(25, f"sass {r['function'].split('(')[0]}: {r['pairs_in_loop']} pairs in the loop, "
+                f"{r['instructions_a_pair']:.4f} instructions a pair: "
+                + ", ".join(f"{op} {n:.4g}" for op, n in r["by_opcode"].items()))
+    fast = [r for r in rows if "pairwise_fast_kernel" in r["function"]]
+    check(len(fast) == 2 and all(any(op.startswith("HMMA") for op in r["by_opcode"]) and
+                                 r["by_opcode"].get("FFMA", 0) < 12 for r in fast),
+          "K1b's inner loop runs HMMA, with fewer than 12 FFMAs a pair")
 
 
 def variant_throughput(dev, n: int = HEADLINE_N, reps: int = 10) -> None:
@@ -2386,6 +2499,22 @@ def variant_drift(dev, precision: str, n: int = DRIFT_N, n_steps: int = 10_000, 
     log(25, f"{precision} drift over {r['steps']} steps at N={n}: {r['value']:.4e} (gate {r['gate']:g}, "
             f"pass {r['pass']}, a measurement here); {r['ms_per_step']:.4f} ms/step; {launches} launches")
     pos, vel, mass, G, eps, h = drift.gate_scene(n, device=dev)
+
+    def force(x):
+        return pairwise_acc(x, mass, G, eps, precision=precision)
+    # a measurement: the launches are counted exactly above, and the profiler
+    # has missed about 15 of such a chunk's kernels (99 of the 100 variant
+    # launches once)
+    split = precision in pairwise.SPLIT_KERNELS
+    state = integrators.PhaseState(pos, vel, force(pos))
+    per_step, wall_ms, dev_ms, own_ms = launches_per_step(
+        state, force, h, diag_every, ("pairwise_", "combine_splits"), 2 if split else 1, exact=False)
+    log(25, f"{precision} under torch.profiler, {diag_every} steps: {per_step:.2f} kernels per step, "
+            f"{wall_ms:.4f} wall ms per step, {dev_ms:.4f} device ms per step (busy {dev_ms / wall_ms:.3f}), "
+            f"its kernels {own_ms:.4f} of it")
+    if split:  # the share of the second launch, in a chunk of its own
+        *_, combine_ms = launches_per_step(state, force, h, diag_every, ("combine_splits",), exact=False)
+        log(25, f"{precision}: combine_splits {combine_ms:.4f} device ms per step of the pair's {own_ms:.4f}")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2408,14 +2537,18 @@ def variant_steps_vs_cpu(dev, precision: str, n: int = 1024, steps: int = 10) ->
 
 
 def phase_precisions(dev, latency_ns=(DRIFT_N, HEADLINE_N)) -> dict:
-    """Phase 25: the precision variants K1a, K1b, K1d, K1e. Each kernel
-    against its plain version and its ladder bar; each timed at 262,144
-    beside K1; `bench throughput` with every precision; `bench drift` at each
-    (launches on that path, one sync-checked chunk); `bench latency`'s step at
-    16,384 and 262,144; 10 steps at 1,024 card against CPU. Returns each
-    variant's entry of the kernels line."""
+    """Phase 25: the precision variants K1a, K1b, K1c, K1d, K1e. Each kernel
+    against its plain version and its ladder bar; fast's and mxu's errors
+    by the nearest source; each timed at 262,144 and 16,384 beside K1;
+    `bench.sass` on K1b and K1d; `bench throughput` with every precision;
+    `bench drift` at each (launches on that path, a profiled chunk, one
+    sync-checked chunk); `bench latency`'s step at 16,384 and 262,144; 10
+    steps at 1,024 card against CPU. Returns each variant's entry of the
+    kernels line."""
     errs = {p: variant_checks(dev, p) for p in VARIANTS}
+    near_pairs(dev)
     recs = variant_timings(dev)
+    variant_sass()
     variant_throughput(dev)
     for p in VARIANTS:
         recs[p].update(launches=variant_drift(dev, p), max_abs_err=errs[p])

@@ -5,9 +5,11 @@ Builds the kernels (`ops/_build.py`), disassembles each library with
 (the shortest span that ends in a backward branch). The loop body holds a
 whole number of pairs, one MUFU.RSQ (rsqrtf) each, so the opcode counts in
 the body over its MUFU.RSQ count are the instructions a pair: thread
-instructions, as the schedulers issue them. "mxu"'s loop body is a warp's
-16-source chunks, 8 pairs a lane each, and 2 MMAs (HMMA) a chunk, each one
-instruction a lane for the warp's 256 pairs: 1/4 of an HMMA a pair. Prints one
+instructions, as the schedulers issue them. "mxu"'s and "fast"'s loop bodies
+are a warp's 16-source chunks, 8 pairs a lane each, and 2 MMAs (HMMA) a
+chunk, each one instruction a lane for the warp's 256 pairs: 1/4 of an HMMA
+a pair. A loop without MUFU.RSQ (the split sums' combine) is counted once
+(pairs_in_loop 0). Prints one
 JSON line per kernel function: its name, the pairs in the loop body, and the
 instructions a pair by opcode (modifiers dropped after the first, as in
 F2FP.BF16).
@@ -28,7 +30,8 @@ from pathlib import Path
 
 from nbx_torch.ops import _build
 
-DIRECT_SUMS = ("pairwise_f32r", "pairwise_precision", "pairwise_mxu", "pairwise_accjerk", "potential")
+DIRECT_SUMS = ("pairwise_f32r", "pairwise_precision", "pairwise_fast", "pairwise_mxu", "pairwise_accjerk",
+               "potential")
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 

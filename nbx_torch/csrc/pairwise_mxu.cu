@@ -70,7 +70,15 @@
 
 #include <cstdint>
 
+#include "mma_bf16.cuh"
+#include "split_sum.cuh"
+
 namespace {
+
+using nbx_mma::mma_bf16;
+using nbx_mma::split2;
+using nbx_sum::cross3;
+using nbx_sum::square3;
 
 constexpr int kThreads = 256;                  // 8 warps
 constexpr int kTile = kThreads;                // sources a tile, one a thread at the load
@@ -79,16 +87,6 @@ constexpr int kRows = kThreads / 32 * kWarpRows;  // targets a block
 constexpr int kChunk = 16;                     // sources an MMA: its K
 constexpr int kCols = 8;                       // the MMA's N: [P_hi | P_lo]
 constexpr int kPitch = kTile + 8;              // bf16 a B column: + 8 puts the 8 columns in distinct banks
-
-// fma(a.z, b.z, fma(a.y, b.y, a.x b.x)): the cross term.
-__device__ __forceinline__ float cross3(float ax, float ay, float az, float bx, float by, float bz) {
-  return __fmaf_rn(az, bz, __fmaf_rn(ay, by, __fmul_rn(ax, bx)));
-}
-
-// fma(z, z, fma(x, x, y y)): a square, rounded otherwise than cross3(v, v).
-__device__ __forceinline__ float square3(float x, float y, float z) {
-  return __fmaf_rn(z, z, __fmaf_rn(x, x, __fmul_rn(y, y)));
-}
 
 __device__ __forceinline__ float3 add3(float3 a, float3 b) {
   return make_float3(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z));
@@ -133,30 +131,6 @@ __device__ __forceinline__ float weight(const Target& t, float4 q, float tj2, fl
   const float r2 = fmaxf(__fadd_rn(__fsub_rn(__fadd_rn(t.t2, tj2), __fmul_rn(2.f, cross)), eps2), eps2);
   const float inv = rsqrtf(r2);
   return inv * inv * inv * q.w;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// hi = bf16(w), lo = bf16(w - hi) of two neighbouring weights of an A
-// fragment row, each pair packed as one register (the lower column in the
-// low half).
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(__fsub_rn(a, __low2float(h)), __fsub_rn(b, __high2float(h))));
-}
-
-// d += A B: A 16 x 16 bf16 (row-major fragment a0-a3), B 16 x 8 bf16
-// (column-major fragment b0, b1), d 16 x 8 float32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __global__ void __launch_bounds__(kThreads)

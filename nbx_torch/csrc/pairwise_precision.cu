@@ -1,16 +1,16 @@
-// Softened direct-sum gravity at the study precisions of `pairwise_acc`,
+// Softened direct-sum gravity at three study precisions of `pairwise_acc`,
 // float32 in and out, for NVIDIA Hopper (sm_90a).
 //
 //   acc_i = G * sum_j m_j d_ij (|d_ij|^2 + eps^2)^(-3/2),   d_ij = p_j - p_i
 //
-// Replaces four TPU kernels of nbx/ops/pairwise.py, all behind
+// Replaces three TPU kernels of nbx/ops/pairwise.py, all behind
 // `pairwise_acc` (call site :537), each with its own entry:
 //
 //   nbx_pairwise_f32   precision "f32"  `_acc_kernel` (:51)        K1a
-//   nbx_pairwise_fast  precision "fast" `_fast_acc_kernel` (:93)   K1b
 //   nbx_pairwise_hyb   precision "hyb"  `_hyb_acc_kernel` (:302)   K1d
 //   nbx_pairwise_bf16  precision "bf16" `_bf16_acc_kernel` (:400)  K1e
 //
+// ("fast", K1b, runs its products on the tensor cores: pairwise_fast.cu.)
 // Each keeps its TPU kernel's formulation and its places of rounding and
 // cancellation, which are the variant (the precision study of BASELINE
 // config 4), not the TPU's blocks or matrix unit:
@@ -18,13 +18,6 @@
 // - "f32": f = (|d|^2 + eps^2)^(-3/2) a pair, o = sum_j f S_j with the
 //   mass-folded S = (m x, m y, m z, m), then o_xyz - p_i o_m once, at the end:
 //   a cancellation over the whole source range.
-// - "fast": per source tile, S centred on the tile's centroid c (s_c = S -
-//   (c m, 0)), the product as three bf16 passes (f_hi s_hi + f_hi s_lo +
-//   f_lo s_hi, hi = bf16(v), lo = bf16(v - hi)) with float32 sums, c sum_j f m
-//   added back per tile, then "f32"'s cancellation. A product of two bf16
-//   values is exact in float32, so FP32 FMAs on the CUDA cores compute what
-//   the TPU's bf16 passes compute; only the order of the float32 sums could
-//   differ, and it does not (below).
 // - "hyb": per source tile, r^2 by the centred identity |p_i - c|^2 +
 //   |p_j - c|^2 - 2 (p_i - c).(p_j - c), all in float32 (on Hopper the 3-deep
 //   cross term is three FP32 operations; TF32 would lose it), floored at
@@ -33,74 +26,62 @@
 // - "bf16": d rounded to bf16; each of d d, f^3 m and w d a bf16 product
 //   (never fused into an FMA); r^2 and the row sums in float32.
 //
-// Design: K1's (csrc/pairwise_f32r.cu): one thread per target, 256 threads a
-// block, the sources in tiles of 256 loaded cooperatively into shared memory,
-// each tile summed into a partial that is then added to the running total,
-// ragged edges masked here (source lanes past Ns load position 0 and mass 0,
-// as the TPU kernel's padding lanes; target threads past Nt store nothing).
-// What a tile needs per source is formed once, at the load: the centroid of
-// "fast" and "hyb" (the mean over every lane of the tile, padding included,
-// as the TPU kernel's mean over its padded tile; a halving tree, so that it
-// does not depend on how many tiles there are), "fast"'s split of s_c,
-// "hyb"'s centred source and |p_j - c|^2 + eps^2, "bf16"'s rounded m. The
-// wrapper builds S with torch ops. Where a cancellation follows, the kernel
-// rounds each product and sum in the order the plain PyTorch version rounds
-// them (`__fmul_rn`, `__fadd_rn`: nvcc would otherwise contract a * b + c
-// into an FMA), and sums each tile's lanes and then the tiles one after
-// another, as the plain version does; a cancellation amplifies any other
-// rounding by |p| / |d|.
+// Design of "f32" and "bf16": K1's (csrc/pairwise_f32r.cu): one thread per
+// target, 256 threads a block, the sources in tiles of 256 loaded
+// cooperatively into shared memory, each tile summed into a partial that is
+// then added to the running total, ragged edges masked here (source lanes
+// past Ns load position 0 and mass 0, as the TPU kernel's padding lanes;
+// target threads past Nt store nothing). The wrapper builds S with torch
+// ops. "f32" rounds each product and sum in the order the plain PyTorch
+// version rounds them (`__fmul_rn`, `__fadd_rn`: nvcc would otherwise
+// contract a * b + c into an FMA), and sums each tile's lanes and then the
+// tiles one after another, as the plain version does; a cancellation
+// amplifies any other rounding by |p| / |d|.
+//
+// Design of "hyb": 256 threads a block, each with kTargets = 4 targets in
+// registers, so that a source's centred float4 and its |p_j - c|^2 + eps^2,
+// formed once at the tile's load, are read from shared memory once for 4
+// targets; and a second grid dimension over the sources (split_sum.cuh),
+// so that the drift gate's 16,384 targets (16 blocks of 1,024) still fill
+// the card: 32 splits of 2 tiles, 512 blocks. Per tile each thread forms
+// the centroid c (a halving tree over all 256 lanes, padding included, as
+// the TPU kernel's mean over its padded tile), its targets' p_i - c and
+// |p_i - c|^2, and sums the tile's lanes in turn; the tiles of a split add
+// in turn, and `combine_splits` adds the splits in turn and multiplies by
+// G. The squares and the cross term are FMAs as in "mxu" (fma(z, z, fma(x,
+// x, y y)), fma(z, z', fma(y, y', x x'))), and so are the three centred
+// sums (s = fma(w, x - c, s)); the plain version (`_hyb_rows`) rounds them
+// alike, so the two agree bitwise. rsqrt.approx.ftz alone replaces rsqrtf
+// where eps^2 is normal (split_sum.cuh).
 //
 // Bound: as K1, once a tile is in shared memory a pair costs no device-memory
-// traffic; FP32 operations, one rsqrtf a pair on the SFU and, for "fast" and
-// "bf16", float32-to-bf16 conversions (16 a clock an SM, as the SFU) bound
-// the kernels: chip_smoke.py counts each term. Speed work (bf16 products as
-// packed `__nv_bfloat162`, mma.sync for "fast", several targets a thread) is
-// for later changes; this version is the simple, correct one.
+// traffic; FP32 operations, one rsqrt a pair on the SFU and, for "bf16",
+// float32-to-bf16 conversions (16 a clock an SM, as the SFU) bound the
+// kernels: chip_smoke.py counts each term. "hyb" issues an FMUL and 2 FMAs
+// for the cross term, an add and an FMA for r^2, the floor, MUFU.RSQ, 3
+// FMULs for w, 3 FMAs and an add for the sums, and 2 / kTargets shared
+// loads a pair (which nvcc merges to about 1.25 / kTargets).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cfloat>
+
+#include "split_sum.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = kThreads;
+// "hyb"'s targets a thread (ops/pairwise.py HYB_TARGETS): 4 over 2 measured
+// 10.4% faster at 262,144 and 7% at 16,384 (PERF.md).
+constexpr int kTargets = 4;
 
-enum class Precision { kF32, kFast, kHyb, kBf16 };
-
-// f32(bf16(v)), rounded to nearest even.
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+enum class Precision { kF32, kBf16 };
 
 // (a.x b.x + a.y b.y) + a.z b.z, every product and sum rounded in turn.
 __device__ __forceinline__ float dot3_rn(float ax, float ay, float az, float bx, float by, float bz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
-}
-
-// The tile's centroid: the mean of v over all kTile lanes, padding lanes
-// included, summed by a halving tree (lane l plus lane l + h, h = kTile / 2,
-// ..., 1: shared memory, then warp shuffles) whatever the number of tiles,
-// as the plain version sums it. Every thread of the block gets it; every
-// thread must call it.
-__device__ __forceinline__ float3 tile_mean(float3 v, float3* red, float3* mean) {
-  const int t = threadIdx.x;
-  red[t] = v;
-  __syncthreads();
-  for (int h = kTile / 2; h >= 32; h >>= 1) {
-    if (t < h) red[t] = make_float3(red[t].x + red[t + h].x, red[t].y + red[t + h].y, red[t].z + red[t + h].z);
-    __syncthreads();
-  }
-  if (t < 32) {
-    float3 s = red[t];
-    for (int o = 16; o > 0; o >>= 1) {
-      s.x += __shfl_down_sync(0xffffffffu, s.x, o);
-      s.y += __shfl_down_sync(0xffffffffu, s.y, o);
-      s.z += __shfl_down_sync(0xffffffffu, s.z, o);
-    }
-    if (t == 0) *mean = make_float3(s.x * (1.f / kTile), s.y * (1.f / kTile), s.z * (1.f / kTile));
-  }
-  __syncthreads();
-  return *mean;
 }
 
 // (|d|^2 + eps^2)^(-3/2) for d = q - p_i, r^2 summed as the plain version
@@ -115,15 +96,12 @@ template <Precision P>
 __global__ void __launch_bounds__(kThreads)
 pairwise_precision_kernel(const float* __restrict__ tgt,    // [nt, 3]
                           const float4* __restrict__ src,   // [ns] (x, y, z, m)
-                          const float4* __restrict__ smat,  // [ns] (m x, m y, m z, m): f32, fast
+                          const float4* __restrict__ smat,  // [ns] (m x, m y, m z, m): f32
                           float* __restrict__ acc,          // [nt, 3]
                           int nt, int ns, float g, float eps2) {
-  __shared__ float4 pos_tile[kTile];       // (x, y, z, m); hyb: (x - c, y - c, z - c, m)
-  __shared__ float4 hi_tile[kTile];        // f32: S; fast: hi of s_c
-  __shared__ float4 lo_tile[kTile];        // fast: lo of s_c
-  __shared__ float r2_tile[kTile];         // hyb: |p_j - c|^2 + eps^2
+  __shared__ float4 pos_tile[kTile];       // (x, y, z, m)
+  __shared__ float4 hi_tile[kTile];        // f32: S
   __shared__ __nv_bfloat16 m_tile[kTile];  // bf16: bf16(m)
-  __shared__ float3 red[kTile], mean;      // fast, hyb: the centroid's sums
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   const int i = blockIdx.x * kThreads + threadIdx.x;
   float xi = 0.f, yi = 0.f, zi = 0.f;
@@ -132,34 +110,15 @@ pairwise_precision_kernel(const float* __restrict__ tgt,    // [nt, 3]
     yi = tgt[3 * i + 1];
     zi = tgt[3 * i + 2];
   }
-  // Running totals over the tiles. f32, fast: (sum f m x, sum f m y,
-  // sum f m z, sum f m); hyb, bf16: the acceleration before G (ow unused).
+  // Running totals over the tiles. f32: (sum f m x, sum f m y, sum f m z,
+  // sum f m); bf16: the acceleration before G (ow unused).
   float ox = 0.f, oy = 0.f, oz = 0.f, ow = 0.f;
   for (int j0 = 0; j0 < ns; j0 += kTile) {
     const int j = j0 + threadIdx.x;
     const float4 p = j < ns ? src[j] : zero4;
-    float cx = 0.f, cy = 0.f, cz = 0.f;
-    if constexpr (P == Precision::kFast || P == Precision::kHyb) {
-      const float3 c = tile_mean(make_float3(p.x, p.y, p.z), red, &mean);
-      cx = c.x;
-      cy = c.y;
-      cz = c.z;
-    }
     pos_tile[threadIdx.x] = p;
     if constexpr (P == Precision::kF32) {
       hi_tile[threadIdx.x] = j < ns ? smat[j] : zero4;
-    } else if constexpr (P == Precision::kFast) {
-      const float4 s = j < ns ? smat[j] : zero4;
-      const float4 sc = make_float4(__fsub_rn(s.x, __fmul_rn(cx, s.w)), __fsub_rn(s.y, __fmul_rn(cy, s.w)),
-                                    __fsub_rn(s.z, __fmul_rn(cz, s.w)), s.w);
-      const float4 hi = make_float4(bf16_round(sc.x), bf16_round(sc.y), bf16_round(sc.z), bf16_round(sc.w));
-      hi_tile[threadIdx.x] = hi;
-      lo_tile[threadIdx.x] = make_float4(bf16_round(sc.x - hi.x), bf16_round(sc.y - hi.y),
-                                         bf16_round(sc.z - hi.z), bf16_round(sc.w - hi.w));
-    } else if constexpr (P == Precision::kHyb) {
-      const float x = p.x - cx, y = p.y - cy, z = p.z - cz;
-      pos_tile[threadIdx.x] = make_float4(x, y, z, p.w);
-      r2_tile[threadIdx.x] = __fadd_rn(dot3_rn(x, y, z, x, y, z), eps2);
     } else {
       m_tile[threadIdx.x] = __float2bfloat16_rn(p.w);
     }
@@ -180,45 +139,6 @@ pairwise_precision_kernel(const float* __restrict__ tgt,    // [nt, 3]
       oy = __fadd_rn(oy, ty);
       oz = __fadd_rn(oz, tz);
       ow = __fadd_rn(ow, tw);
-    } else if constexpr (P == Precision::kFast) {
-      // one partial a pass and a column; the products are exact, so each FMA
-      // rounds as the product and then the sum would
-      float4 hh = zero4, hl = zero4, lh = zero4;
-#pragma unroll 4
-      for (int k = 0; k < kTile; ++k) {
-        const float f = inv_cube(pos_tile[k], xi, yi, zi, eps2);
-        const float fh = bf16_round(f);
-        const float fl = bf16_round(f - fh);
-        const float4 hi = hi_tile[k], lo = lo_tile[k];
-        hh = make_float4(fmaf(fh, hi.x, hh.x), fmaf(fh, hi.y, hh.y), fmaf(fh, hi.z, hh.z), fmaf(fh, hi.w, hh.w));
-        hl = make_float4(fmaf(fh, lo.x, hl.x), fmaf(fh, lo.y, hl.y), fmaf(fh, lo.z, hl.z), fmaf(fh, lo.w, hl.w));
-        lh = make_float4(fmaf(fl, hi.x, lh.x), fmaf(fl, hi.y, lh.y), fmaf(fl, hi.z, lh.z), fmaf(fl, hi.w, lh.w));
-      }
-      // tmp = the three passes; out += tmp + (c sum f m, 0)
-      const float tw = __fadd_rn(__fadd_rn(hh.w, hl.w), lh.w);
-      ox = __fadd_rn(ox, __fadd_rn(__fadd_rn(__fadd_rn(hh.x, hl.x), lh.x), __fmul_rn(cx, tw)));
-      oy = __fadd_rn(oy, __fadd_rn(__fadd_rn(__fadd_rn(hh.y, hl.y), lh.y), __fmul_rn(cy, tw)));
-      oz = __fadd_rn(oz, __fadd_rn(__fadd_rn(__fadd_rn(hh.z, hl.z), lh.z), __fmul_rn(cz, tw)));
-      ow = __fadd_rn(ow, tw);
-    } else if constexpr (P == Precision::kHyb) {
-      const float xic = xi - cx, yic = yi - cy, zic = zi - cz;
-      const float ti2 = dot3_rn(xic, yic, zic, xic, yic, zic);
-      float sx = 0.f, sy = 0.f, sz = 0.f, sw = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < kTile; ++k) {
-        const float4 q = pos_tile[k];
-        const float cross = dot3_rn(xic, yic, zic, q.x, q.y, q.z);
-        const float r2 = fmaxf(__fsub_rn(__fadd_rn(ti2, r2_tile[k]), __fmul_rn(2.f, cross)), eps2);
-        const float inv = rsqrtf(r2);
-        const float w = inv * inv * inv * q.w;
-        sx = __fadd_rn(sx, __fmul_rn(w, q.x));
-        sy = __fadd_rn(sy, __fmul_rn(w, q.y));
-        sz = __fadd_rn(sz, __fmul_rn(w, q.z));
-        sw = __fadd_rn(sw, w);
-      }
-      ox = __fadd_rn(ox, __fsub_rn(sx, __fmul_rn(xic, sw)));
-      oy = __fadd_rn(oy, __fsub_rn(sy, __fmul_rn(yic, sw)));
-      oz = __fadd_rn(oz, __fsub_rn(sz, __fmul_rn(zic, sw)));
     } else {
       float tx = 0.f, ty = 0.f, tz = 0.f;
 #pragma unroll 8
@@ -242,7 +162,7 @@ pairwise_precision_kernel(const float* __restrict__ tgt,    // [nt, 3]
     __syncthreads();
   }
   if (i < nt) {
-    if constexpr (P == Precision::kF32 || P == Precision::kFast) {
+    if constexpr (P == Precision::kF32) {
       ox = __fsub_rn(ox, __fmul_rn(xi, ow));
       oy = __fsub_rn(oy, __fmul_rn(yi, ow));
       oz = __fsub_rn(oz, __fmul_rn(zi, ow));
@@ -264,27 +184,124 @@ int launch(const void* tgt, const void* src, const void* smat, void* acc, int nt
   return static_cast<int>(cudaGetLastError());
 }
 
+// "hyb": kTargets targets a thread, block (x, s) summing its kThreads x
+// kTargets targets (target t of thread l: row x kThreads kTargets + t
+// kThreads + l) against split s of the sources, into part[s, i, 0:3]. Each
+// tile's centred sources (x - c, y - c, z - c, m) and |p_j - c|^2 + eps^2
+// are read from shared memory once for the thread's kTargets targets.
+template <bool kFtz>
+__global__ void __launch_bounds__(kThreads)
+pairwise_hyb_kernel(const float* __restrict__ tgt,   // [nt, 3]
+                    const float4* __restrict__ src,  // [ns] (x, y, z, m)
+                    float* __restrict__ part,        // [splits, nt, 3]
+                    int nt, int ns, float eps2, int tiles_per_split) {
+  __shared__ float4 q_tile[kTile];  // (x - c, y - c, z - c, m)
+  __shared__ float tj2_tile[kTile];  // |p_j - c|^2 + eps^2
+  __shared__ float3 red[kTile], mean;
+  const int i0 = blockIdx.x * kThreads * kTargets + threadIdx.x;
+  float ox[kTargets], oy[kTargets], oz[kTargets];  // the split's totals, before G
+#pragma unroll
+  for (int t = 0; t < kTargets; ++t) ox[t] = oy[t] = oz[t] = 0.f;
+  const int2 range = nbx_sum::split_range(ns, tiles_per_split);
+  for (int j0 = range.x; j0 < range.y; j0 += kTile) {
+    const int j = j0 + threadIdx.x;
+    const float4 p = j < ns ? src[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float3 c = nbx_sum::tree_mean(make_float3(p.x, p.y, p.z), red, &mean);
+    {
+      const float x = p.x - c.x, y = p.y - c.y, z = p.z - c.z;
+      q_tile[threadIdx.x] = make_float4(x, y, z, p.w);
+      tj2_tile[threadIdx.x] = __fadd_rn(nbx_sum::square3(x, y, z), eps2);
+    }
+    __syncthreads();
+
+    // p_i - c and |p_i - c|^2 of each target (rows past nt: the origin's,
+    // computed and never stored); the tile's centred sums
+    float xic[kTargets], yic[kTargets], zic[kTargets], ti2[kTargets];
+    float sx[kTargets], sy[kTargets], sz[kTargets], sw[kTargets];
+#pragma unroll
+    for (int t = 0; t < kTargets; ++t) {
+      const int i = i0 + t * kThreads;
+      xic[t] = (i < nt ? tgt[3 * i + 0] : 0.f) - c.x;
+      yic[t] = (i < nt ? tgt[3 * i + 1] : 0.f) - c.y;
+      zic[t] = (i < nt ? tgt[3 * i + 2] : 0.f) - c.z;
+      ti2[t] = nbx_sum::square3(xic[t], yic[t], zic[t]);
+      sx[t] = sy[t] = sz[t] = sw[t] = 0.f;
+    }
+#pragma unroll 4
+    for (int k = 0; k < kTile; ++k) {
+      const float4 q = q_tile[k];
+      const float tj2 = tj2_tile[k];
+#pragma unroll
+      for (int t = 0; t < kTargets; ++t) {
+        const float cross = nbx_sum::cross3(xic[t], yic[t], zic[t], q.x, q.y, q.z);
+        // (ti2 + tj2) - 2 cross: 2 cross is exact, so one FMA rounds as the
+        // product and then the difference would
+        const float r2 = fmaxf(__fmaf_rn(-2.f, cross, __fadd_rn(ti2[t], tj2)), eps2);
+        const float inv = nbx_sum::rsqrt_of<kFtz>(r2);
+        const float w = inv * inv * inv * q.w;
+        sx[t] = __fmaf_rn(w, q.x, sx[t]);
+        sy[t] = __fmaf_rn(w, q.y, sy[t]);
+        sz[t] = __fmaf_rn(w, q.z, sz[t]);
+        sw[t] = __fadd_rn(sw[t], w);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kTargets; ++t) {
+      ox[t] = __fadd_rn(ox[t], __fsub_rn(sx[t], __fmul_rn(xic[t], sw[t])));
+      oy[t] = __fadd_rn(oy[t], __fsub_rn(sy[t], __fmul_rn(yic[t], sw[t])));
+      oz[t] = __fadd_rn(oz[t], __fsub_rn(sz[t], __fmul_rn(zic[t], sw[t])));
+    }
+    __syncthreads();
+  }
+  float* out = part + static_cast<size_t>(blockIdx.y) * nt * 3;
+#pragma unroll
+  for (int t = 0; t < kTargets; ++t) {
+    const int i = i0 + t * kThreads;
+    if (i < nt) {
+      out[3 * i + 0] = ox[t];
+      out[3 * i + 1] = oy[t];
+      out[3 * i + 2] = oz[t];
+    }
+  }
+}
+
+template <bool kFtz>
+int launch_hyb(const float* tgt, const float4* src, float* part, float* acc, int nt, int ns, float g, float eps2,
+               int tiles_per_split, cudaStream_t stream) {
+  const int splits = nbx_sum::split_count(ns, tiles_per_split);
+  const dim3 grid((nt + kThreads * kTargets - 1) / (kThreads * kTargets), splits);
+  pairwise_hyb_kernel<kFtz><<<grid, kThreads, 0, stream>>>(tgt, src, part, nt, ns, eps2, tiles_per_split);
+  nbx_sum::combine<3>(part, tgt, acc, nt, splits, g, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry points, loaded with ctypes, one a precision; each takes every
-// pointer (smat null for hyb and bf16). Each launches on `stream` and returns
-// the launch's cudaError_t (0 on success); none synchronises.
+// Plain C entry points, loaded with ctypes, one a precision. Each launches
+// on `stream` and returns the launch's cudaError_t (0 on success); none
+// synchronises. f32 and bf16 take every pointer (smat null for bf16).
 extern "C" int nbx_pairwise_f32(const void* tgt, const void* src, const void* smat, void* acc, int nt, int ns,
                                 float g, float eps2, void* stream) {
   return launch<Precision::kF32>(tgt, src, smat, acc, nt, ns, g, eps2, stream);
 }
 
-extern "C" int nbx_pairwise_fast(const void* tgt, const void* src, const void* smat, void* acc, int nt, int ns,
-                                 float g, float eps2, void* stream) {
-  return launch<Precision::kFast>(tgt, src, smat, acc, nt, ns, g, eps2, stream);
-}
-
-extern "C" int nbx_pairwise_hyb(const void* tgt, const void* src, const void* smat, void* acc, int nt, int ns,
-                                float g, float eps2, void* stream) {
-  return launch<Precision::kHyb>(tgt, src, smat, acc, nt, ns, g, eps2, stream);
-}
-
 extern "C" int nbx_pairwise_bf16(const void* tgt, const void* src, const void* smat, void* acc, int nt, int ns,
                                  float g, float eps2, void* stream) {
   return launch<Precision::kBf16>(tgt, src, smat, acc, nt, ns, g, eps2, stream);
+}
+
+// hyb: `part` is [splits, nt, 3] float32 scratch, splits =
+// ceil(ceil(ns / 256) / tiles_per_split) (at least 1). MUFU.RSQ alone where
+// eps^2 is a normal float32, rsqrtf below.
+extern "C" int nbx_pairwise_hyb(const void* tgt, const void* src, void* part, void* acc, int nt, int ns, float g,
+                                float eps2, int tiles_per_split, void* stream) {
+  if (nt <= 0) return static_cast<int>(cudaSuccess);
+  if (tiles_per_split <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* t = static_cast<const float*>(tgt);
+  const auto* s = static_cast<const float4*>(src);
+  auto* p = static_cast<float*>(part);
+  auto* a = static_cast<float*>(acc);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return eps2 >= FLT_MIN ? launch_hyb<true>(t, s, p, a, nt, ns, g, eps2, tiles_per_split, st)
+                         : launch_hyb<false>(t, s, p, a, nt, ns, g, eps2, tiles_per_split, st);
 }

@@ -6,10 +6,13 @@ Each wrapper sends a CUDA tensor to its hand-written kernel and a CPU tensor
 to its plain PyTorch version (`*_reference`):
 
 - `pairwise_acc`: precision "f32r" (the default) `nbx_torch/csrc/pairwise_f32r.cu`
-  (K1); "f32", "fast", "hyb" and "bf16" `nbx_torch/csrc/pairwise_precision.cu`
-  (K1a, K1b, K1d, K1e), through `pairwise_acc_f32`, `_fast`, `_hyb`, `_bf16`;
-  "mxu" `nbx_torch/csrc/pairwise_mxu.cu` (K1c, its bf16 products on the tensor
-  cores), through `pairwise_acc_mxu`;
+  (K1); "f32", "hyb" and "bf16" `nbx_torch/csrc/pairwise_precision.cu` (K1a,
+  K1d, K1e), through `pairwise_acc_f32`, `_hyb`, `_bf16`; "fast"
+  `nbx_torch/csrc/pairwise_fast.cu` and "mxu" `nbx_torch/csrc/pairwise_mxu.cu`
+  (K1b, K1c, their bf16 products on the tensor cores), through
+  `pairwise_acc_fast`, `_mxu`. K1b and K1d split their sources over a second
+  grid dimension (`source_splits`) and add the splits' partials in a second
+  pass;
 - `pairwise_acc_jerk`: `nbx_torch/csrc/pairwise_accjerk.cu` (K6);
 - `potential_per_body`: `nbx_torch/csrc/potential.cu` (K3).
 
@@ -32,6 +35,12 @@ from nbx_torch.ops import _build
 # study of BASELINE config 4).
 PRECISIONS = ("f32r", "f32", "fast", "hyb", "bf16", "mxu")
 TILE = 256  # the card kernels' source tile, over which "fast", "hyb" and "mxu" centre
+SPLIT_GRID = 512  # the blocks a split kernel's grid aims at (about 4 a Hopper SM)
+HYB_TARGETS = 4  # K1d's targets a thread (kTargets in csrc/pairwise_precision.cu)
+# The kernels that split their sources: K1b "fast" (a warp per 16 targets)
+# and K1d "hyb" (HYB_TARGETS a thread): targets a block, floats a target of
+# each split's partials.
+SPLIT_KERNELS = {"fast": (128, 4), "hyb": (256 * HYB_TARGETS, 3)}
 
 
 def check_precision(precision: str) -> str:
@@ -40,6 +49,24 @@ def check_precision(precision: str) -> str:
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     return precision
+
+
+def split_tiles(ns: int, splits: int, tile: int = TILE) -> int:
+    """Tiles a split of ns sources into `splits` runs of whole tiles:
+    ceil(tiles / splits), the last run holding what is left (at least one
+    tile, also for ns = 0)."""
+    return -(-max(1, -(-ns // tile)) // splits)
+
+
+def source_splits(nt: int, ns: int, rows: int, tile: int = TILE) -> int:
+    """S, the source splits of a kernel with `rows` targets a block, from
+    the shapes alone: runs of tiles // want whole tiles, want the fewest
+    splits that put SPLIT_GRID blocks in the grid, at most one a tile. So S
+    >= want, every run holds a tile, and split_tiles(ns, S) gives the runs
+    back. 1 wherever the target blocks alone reach SPLIT_GRID."""
+    tiles = max(1, -(-ns // tile))
+    want = min(tiles, -(-SPLIT_GRID // max(1, -(-nt // rows))))
+    return -(-tiles // (tiles // want))
 
 
 def _f32r_rows(pos, mass, eps2, tile):
@@ -127,6 +154,17 @@ def _running_sum(zero: torch.Tensor, terms) -> torch.Tensor:
     return total
 
 
+def _split_sum(parts: torch.Tensor, splits: int) -> torch.Tensor:
+    """[B, C]: the tiles' terms parts [B, T, C] summed as the split kernels
+    sum them: each split's run of split_tiles(...) tiles in turn, from zero,
+    then the splits' sums in turn (`combine_splits` in
+    csrc/split_sum.cuh). One split sums the tiles in turn."""
+    per = max(1, -(-parts.shape[1] // splits))
+    zero = parts.new_zeros((parts.shape[0], parts.shape[2]))
+    sums = [_running_sum(zero, parts[:, s0 : s0 + per].unbind(1)) for s0 in range(0, parts.shape[1], per)] or [zero]
+    return _running_sum(sums[0], sums[1:])
+
+
 def _f32_rows(pos, mass, eps2, tile):
     """"f32" (K1a): o = sum_j f_ij S_j with f = (|d|^2 + eps^2)^-3/2 and S
     mass-folded, then the cancellation o_xyz - p_i o_m over the whole source
@@ -149,12 +187,15 @@ def _bf16_split(v):
     return hi, (v - hi).bfloat16().float()
 
 
-def _fast_rows(pos, mass, eps2, tile):
+def _fast_rows(pos, mass, eps2, tile, splits=1):
     """"fast" (K1b): K1a's sum per source tile, the tile centred on its
     centroid c (s_c = S - [c m, 0]), the product in three bf16 passes with
     float32 sums (f_hi s_hi + f_hi s_lo + f_lo s_hi, each product exact in
-    float32), c sum_j f m added back per tile, then K1a's cancellation
-    (`nbx/ops/pairwise.py:130-165`). Summed as the kernel sums."""
+    float32, each pass summed over the tile's lanes in turn), c sum_j f m
+    added back per tile, then K1a's cancellation
+    (`nbx/ops/pairwise.py:130-165`). The tiles add as `splits` runs
+    (`_split_sum`). The kernel sums each 16-source chunk of a pass on the
+    tensor cores, in an order of their own."""
     p, m, c = _tiles(pos, tile), _tiles(mass, tile), _centroids(pos, tile)
     s = _tiles(_mass_folded(pos, mass), tile)
     s_hi, s_lo = _bf16_split(torch.cat([s[..., :3] - c[:, None, :] * m[..., None], s[..., 3:]], dim=2))  # [T, tile, 4]
@@ -167,31 +208,38 @@ def _fast_rows(pos, mass, eps2, tile):
             return _running_sum(zero, (f[..., k, None] * s[:, k] for k in range(tile)))
         tmp = one_pass(f_hi, s_hi) + one_pass(f_hi, s_lo) + one_pass(f_lo, s_hi)  # [B, T, 4]
         w = tmp[..., 3:]
-        o = _running_sum(zero[:, 0], torch.cat([tmp[..., :3] + c * w, w], dim=2).unbind(1))
+        o = _split_sum(torch.cat([tmp[..., :3] + c * w, w], dim=2), splits)
         return o[:, :3] - t * o[:, 3:]
     return rows
 
 
-def _hyb_rows(pos, mass, eps2, tile):
+def _hyb_rows(pos, mass, eps2, tile, splits=1):
     """"hyb" (K1d): per source tile, r^2 by the centred identity
-    |p_i - c|^2 + |p_j - c|^2 - 2 (p_i - c).(p_j - c) in float32, floored at
-    eps^2; w = m / r^3; the centred sums s = sum_j w (p_j - c) and sum_j w,
-    un-centred per tile as s - (p_i - c) sum_j w
-    (`nbx/ops/pairwise.py:347-393`). Summed as the kernel sums."""
+    (|p_i - c|^2 + |p_j - c|^2) - 2 (p_i - c).(p_j - c) in float32, floored
+    at eps^2; w = m / r^3; the centred sums s = sum_j w (p_j - c) and
+    sum_j w, un-centred per tile as s - (p_i - c) sum_j w
+    (`nbx/ops/pairwise.py:347-393`). Rounded as the kernel rounds: the
+    squares fma(z, z, fma(x, x, y y)) and the cross term
+    fma(z, z', fma(y, y', x x')), as in "mxu" (and as XLA's CPU backend
+    contracts `nbx`'s), the centred sums s = fma(w, p_j - c, s) lane after
+    lane; the tiles add as `splits` runs (`_split_sum`)."""
     m, c = _tiles(mass, tile), _centroids(pos, tile)
-    xjc, yjc, zjc = (_tiles(pos, tile) - c[:, None, :]).unbind(-1)  # [T, tile]
-    tj2e = xjc * xjc + yjc * yjc + zjc * zjc + eps2
+    pc = _tiles(pos, tile) - c[:, None, :]  # [T, tile, 3]
+    xjc, yjc, zjc = pc.unbind(-1)
+    tj2e = _fma(zjc, zjc, _fma(xjc, xjc, yjc * yjc)) + eps2
 
     def rows(t):
         pic = t[:, None, :] - c[None]  # [B, T, 3]
         xic, yic, zic = (v[..., None] for v in pic.unbind(-1))  # [B, T, 1]
-        cross = xic * xjc + yic * yjc + zic * zjc  # [B, T, tile]
-        ti2 = xic * xic + yic * yic + zic * zic
+        cross = _fma(zic, zjc, _fma(yic, yjc, xic * xjc))  # [B, T, tile]
+        ti2 = _fma(zic, zic, _fma(xic, xic, yic * yic))
         inv = torch.rsqrt(torch.clamp_min((ti2 + tj2e) - 2.0 * cross, eps2))
         w = inv * inv * inv * m
-        terms = torch.stack([w * xjc, w * yjc, w * zjc, w], dim=-1)  # [B, T, tile, 4]
-        s = _running_sum(terms.new_zeros(terms.shape[:2] + (4,)), terms.unbind(2))  # [B, T, 4]
-        return _running_sum(pic.new_zeros((t.shape[0], 3)), (s[..., :3] - pic * s[..., 3:]).unbind(1))
+        s = pic.new_zeros(pic.shape)
+        for k in range(tile):
+            s = _fma(w[..., k, None], pc[:, k], s)
+        sw = _running_sum(w.new_zeros(w.shape[:2]), w.unbind(2))[..., None]
+        return _split_sum(s - pic * sw, splits)
     return rows
 
 
@@ -260,6 +308,7 @@ def pairwise_acc_reference(
     block: int = 1024,
     precision: str = "f32r",
     tile: int = TILE,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel of `precision`, in blocks of
     `block` targets: acc_i = G sum_j m_j d (|d|^2 + eps^2)^-3/2, d = p_j - p_i,
@@ -268,10 +317,17 @@ def pairwise_acc_reference(
     functions above). `tile` is the width of the source tile of "f32",
     "fast", "hyb" and "mxu": their sums run tile by tile, and "fast", "hyb"
     and "mxu" centre on each tile's centroid. Its default is the card kernels' 256;
-    `nbx`'s tile_j compares with `nbx`. "f32r" and "bf16" do not read it."""
-    rows = _ROWS[check_precision(precision)](pos, mass, eps2_of(softening), tile)
+    `nbx`'s tile_j compares with `nbx`. "f32r" and "bf16" do not read it.
+    `splits` is the number of runs of tiles in which "fast" and "hyb" add
+    their tiles; by default their kernels' (`source_splits` of the shapes)."""
     if target_pos is None:
         target_pos = pos
+    if check_precision(precision) in SPLIT_KERNELS:
+        if splits is None:
+            splits = source_splits(target_pos.shape[0], pos.shape[0], SPLIT_KERNELS[precision][0], tile)
+        rows = _ROWS[precision](pos, mass, eps2_of(softening), tile, splits)
+    else:
+        rows = _ROWS[precision](pos, mass, eps2_of(softening), tile)
     out = [rows(target_pos[i0 : i0 + block]) for i0 in range(0, target_pos.shape[0], block)]
     if not out:
         return target_pos.new_zeros((0, 3))
@@ -319,12 +375,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _direct_sum(wrapper, entry: str, pos, mass, G: float, softening: float, target_pos, kernel: str,
-                extras=tuple) -> torch.Tensor:
+                extras=tuple, split: tuple[int, int] | None = None) -> torch.Tensor:
     """A direct-sum wrapper's launch on CUDA tensors: check the inputs, pack
     the sources as float4 (x, y, z, m), launch csrc/<kernel>.cu's `entry` on
     (targets, sources, *extras(), acc, Nt, Ns, G, eps^2) and count it on
     `wrapper.launches`. `extras` builds the further inputs (contiguous
-    float32 tensors, or None for a null pointer) once the inputs passed."""
+    float32 tensors, or None for a null pointer) once the inputs passed. A
+    kernel that splits its sources takes `split` = (targets a block, floats
+    a target of the partials): the partials [S, Nt, width] follow the
+    extras, and the tiles a split after eps^2."""
     ns, nt = pos.shape[0], target_pos.shape[0]
     _check("pos", pos, (ns, 3), pos.device)
     _check("mass", mass, (ns,), pos.device)
@@ -335,9 +394,15 @@ def _direct_sum(wrapper, entry: str, pos, mass, G: float, softening: float, targ
     acc = torch.empty((nt, 3), dtype=torch.float32, device=pos.device)
     if nt == 0:
         return acc
-    _launch(kernel, [_P] * (3 + len(more)) + [_I, _I, _F, _F, _P], pos.device, tgt.data_ptr(), src.data_ptr(),
-            *(None if x is None else x.data_ptr() for x in more), acc.data_ptr(), nt, ns, float(G),
-            eps2_of(softening), entry=entry)
+    ints = ()
+    if split is not None:
+        rows, width = split
+        splits = source_splits(nt, ns, rows)
+        more += (torch.empty((splits, nt, width), dtype=torch.float32, device=pos.device),)
+        ints = (split_tiles(ns, splits),)
+    _launch(kernel, [_P] * (3 + len(more)) + [_I, _I, _F, _F] + [_I] * len(ints) + [_P], pos.device,
+            tgt.data_ptr(), src.data_ptr(), *(None if x is None else x.data_ptr() for x in more), acc.data_ptr(),
+            nt, ns, float(G), eps2_of(softening), *ints, entry=entry)
     wrapper.launches += 1
     return acc
 
@@ -374,9 +439,11 @@ pairwise_acc.launches = 0
 # Each study precision's kernel: its source csrc/<source>.cu, whose entry
 # nbx_pairwise_<precision> takes these operands after the sources: "S" the
 # mass-folded S, None a null pointer in S's place. "mxu"'s S is the raw
-# coordinates, which the sources hold, so its entry takes none.
-VARIANT_KERNEL = {"f32": ("pairwise_precision", ("S",)), "fast": ("pairwise_precision", ("S",)),
-                  "hyb": ("pairwise_precision", (None,)), "bf16": ("pairwise_precision", (None,)),
+# coordinates, which the sources hold, and "hyb" centres them itself, so
+# their entries take none. "fast" and "hyb" then take their partials
+# (SPLIT_KERNELS).
+VARIANT_KERNEL = {"f32": ("pairwise_precision", ("S",)), "fast": ("pairwise_fast", ("S",)),
+                  "hyb": ("pairwise_precision", ()), "bf16": ("pairwise_precision", (None,)),
                   "mxu": ("pairwise_mxu", ())}
 
 
@@ -392,7 +459,8 @@ def _precision_wrapper(precision: str):
         if not _on_card(wrapper.__name__, pos, softening):
             return pairwise_acc_reference(pos, mass, G, softening, target_pos, precision=precision)
         return _direct_sum(wrapper, f"nbx_pairwise_{precision}", pos, mass, G, softening, target_pos, kernel,
-                           lambda: tuple(None if x is None else _mass_folded(pos, mass) for x in operands))
+                           lambda: tuple(None if x is None else _mass_folded(pos, mass) for x in operands),
+                           SPLIT_KERNELS.get(precision))
 
     wrapper.__name__ = wrapper.__qualname__ = f"pairwise_acc_{precision}"
     wrapper.__doc__ = (f"`pairwise_acc(..., precision={precision!r})`: the kernel nbx_pairwise_{precision} "

@@ -28,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import LADDER, VARIANT_TOL, VARIANTS, ladder_ratios, rand_vel, variant_tol, within_ladder
+from chip_smoke import (LADDER, SHORT_LAST_SPLIT_N, TENSOR_CORE_VARIANTS, VARIANT_TOL, VARIANTS, ladder_ratios,
+                        rand_vel, variant_tol, within_ladder)
 from nbx_torch import collisions_scaled, integrators, scene, sim
 from nbx_torch.bench import drift, layoutsplit, layoutvar
 from nbx_torch.bench.granular import granular_cloud
@@ -734,18 +735,20 @@ def test_sharded_granular_steps_on_card_match_cpu(dev, force):
 
 # ---- the precision variants of K1: K1a "f32", K1b "fast", K1d "hyb", K1e "bf16", K1c "mxu"
 # Bars, max|kernel - plain| / max|plain| (VARIANT_TOL, shared with chip_smoke.py): 1e-6
-# for "f32", "fast" and "hyb", measured bitwise (0): their plain versions round every
-# product and sum where the kernels round them and sum in the kernels' order (a tile's
-# lanes in turn, then the tiles), and torch.rsqrt on the card is rsqrtf; their
-# cancellations (o - p_i sum f m, s - (p_i - c) sum w) would turn any other order into
-# a few ulps of the self pair's term, up to 1e-3 of max|acc|. 1e-5 for "bf16", measured
-# at most 1.06e-6: it sums its rows in torch's order, and nothing there cancels. "mxu"
-# sums its bf16 products on the tensor cores, in their own order: 2e-3 where targets are
-# sources (the self pair's term cancels in tmp_xyz - (p_i - c) tmp_w), 1e-4 where they are
-# not (variant_tol; PRECISION_SHAPES draw their targets apart from the sources). The
-# ladder (LADDER): against a float64 sum on tests/test_tpu_only.py's _rand(2048, seed=1),
-# bf16's error also > 0; mxu's bodies' errors at the median and the 99th percentile
-# within 1.1x of its plain version's, either way (chip_smoke.ladder_ratios).
+# for "f32" and "hyb", measured bitwise (0), and "hyb" is held bitwise: their plain
+# versions round every product and sum where the kernels round them and sum in the
+# kernels' order (a tile's lanes in turn, then the tiles; "hyb"'s runs of tiles, then
+# the runs), and torch.rsqrt on the card is rsqrtf; their cancellations (o - p_i sum f m,
+# s - (p_i - c) sum w) would turn any other order into a few ulps of the self pair's term,
+# up to 1e-3 of max|acc|. 1e-5 for "bf16", measured at most 1.06e-6: it sums its rows in
+# torch's order, and nothing there cancels. "fast" and "mxu" sum their bf16 products on
+# the tensor cores, in their own order: 2e-3 where targets are sources (the self pair's
+# term cancels in o_xyz - p_i o_w, in tmp_xyz - (p_i - c) tmp_w), 1e-4 where they are not
+# (variant_tol; PRECISION_SHAPES draw their targets apart from the sources). The ladder
+# (LADDER): against a float64 sum on tests/test_tpu_only.py's _rand(2048, seed=1), bf16's
+# error also > 0; fast's and mxu's bodies' errors at the median and the 99th percentile
+# within 1.1x of their plain version's, either way (chip_smoke.ladder_ratios). "fast" and
+# "hyb" split their sources (pairwise.source_splits); the same inputs give the same bits.
 
 PRECISION_SHAPES = [(4096, 4096), (1000, 4096), (777, 3001), (1, 300), (257, 255)]
 
@@ -805,9 +808,59 @@ def test_precision_kernel_error_ladder(dev, precision):
     got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5, precision=precision)
     err = _rel_err(got.double(), want)
     assert 0 < err < LADDER[precision] if precision == "bf16" else err < LADDER[precision]
-    if precision == "mxu":
+    if precision in TENSOR_CORE_VARIANTS:
         plain = pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, precision=precision)
         assert within_ladder(ladder_ratios(got, plain, want))
+
+
+# (nt, ns): one tile (S = 1), S = 16 of one tile each, hyb's 27 runs of 3 tiles and 1
+HYB_SPLIT_SHAPES = [(777, 255), (4096, 4096), (SHORT_LAST_SPLIT_N, SHORT_LAST_SPLIT_N)]
+
+
+@pytest.mark.parametrize("nt,ns", HYB_SPLIT_SHAPES)
+def test_hyb_kernel_is_bitwise_its_plain_version_at_every_split(dev, nt, ns):
+    pos, mass = _rand(ns, 11, dev)
+    tgt, _ = _rand(nt, 12, dev)
+    s = pairwise.source_splits(nt, ns, pairwise.SPLIT_KERNELS["hyb"][0])
+    assert (s == 1) == (ns <= pairwise.TILE)
+    got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5, tgt, "hyb")
+    assert torch.equal(got, pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, tgt, precision="hyb"))
+
+
+@pytest.mark.parametrize("precision", list(pairwise.SPLIT_KERNELS))
+def test_split_kernel_with_a_shorter_last_split_matches_plain(dev, precision):
+    n = SHORT_LAST_SPLIT_N
+    s = pairwise.source_splits(n, n, pairwise.SPLIT_KERNELS[precision][0])
+    assert s > 1 and s * pairwise.split_tiles(n, s) > -(-n // pairwise.TILE)
+    pos, mass = _rand(n, 13, dev)
+    got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5, precision=precision)
+    assert _rel_err(got, pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, precision=precision)) < \
+        VARIANT_TOL[precision]
+
+
+@pytest.mark.parametrize("precision", list(pairwise.SPLIT_KERNELS))
+def test_split_kernel_below_flt_min_takes_rsqrtf(dev, precision):
+    """softening 1e-20: eps^2 = 1e-40 is subnormal, so the kernels take
+    rsqrtf, not rsqrt.approx.ftz; the targets 300 away from the sources in
+    each coordinate, so that no near pair goes unsoftened."""
+    pos, mass = _rand(4096, 15, dev)
+    tgt, _ = _rand(1000, 16, dev)
+    tgt += 300.0
+    got = pairwise.pairwise_acc(pos, mass, 0.5, 1e-20, tgt, precision)
+    want = pairwise.pairwise_acc_reference(pos, mass, 0.5, 1e-20, tgt, precision=precision)
+    assert torch.isfinite(got).all() and _rel_err(got, want) < variant_tol(precision, self_pairs=False)
+    assert precision != "hyb" or torch.equal(got, want)
+
+
+@pytest.mark.parametrize("precision", list(pairwise.SPLIT_KERNELS))
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_split_kernel_gives_the_same_bits_twice(dev, precision, n):
+    """No atomics: two launches on the same inputs agree bitwise (16,384:
+    the drift gate's sphere, S > 1)."""
+    pos, _, mass, G, eps, _ = drift.gate_scene(n, device=dev)
+    assert pairwise.source_splits(n, n, pairwise.SPLIT_KERNELS[precision][0]) > 1
+    first = pairwise.pairwise_acc(pos, mass, G, eps, precision=precision)
+    assert torch.equal(first, pairwise.pairwise_acc(pos, mass, G, eps, precision=precision))
 
 
 @pytest.mark.parametrize("precision", VARIANTS)

@@ -18,8 +18,10 @@ Bars, max|port - nbx| / max|nbx|, from the measured values:
   roundings at the same points; only the float32 row sums run in another
   order, and nothing cancels.
 - "f32" 2e-3 (measured at most 1.21e-3, at n = 64), "fast" 2e-3 (at most
-  1.30e-3, at n = 300), "hyb" 2e-3 (at most 1.71e-3, at n = 64). These
-  cancel, and XLA's dot and mean and the port sum in other orders. "f32"
+  1.30e-3, at n = 300), "hyb" 2e-3 (at most 1.71e-3, at n = 64; with the
+  kernel's FMAs followed in its plain version: 1.712e-3, 4.093e-4,
+  2.513e-4, 2.171e-4 on n = 64, 300, 777 and "rect", where FMA-free sums
+  gave 1.712e-3, 3.366e-4, 2.513e-4, 2.171e-4). These cancel, and XLA's dot and mean and the port sum in other orders. "f32"
   and "fast" end in o_xyz - p_i o_m, where o_xyz = sum_j f m x_j is
   dominated by the self pair, 8 m_i x_i (f = eps^-3), up to 1,865 at
   n = 64: one float32 ulp of it (1.2e-4) is 4.6e-4 of max|acc| after G,

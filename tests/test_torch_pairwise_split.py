@@ -1,0 +1,131 @@
+"""The source split of the direct sums "fast" (K1b) and "hyb" (K1d): the
+split helper `source_splits`, and the plain versions that add their tiles
+as the split kernels do, against `nbx` on the CPU.
+
+A split kernel sums its targets against runs of whole source tiles, one run
+a block, and a second pass adds the runs' partials in order. The plain
+versions (`_fast_rows`, `_hyb_rows`) take `splits=` and add each run's tiles
+in turn, then the runs in turn; with one run that is the sum of the tiles in
+turn. Against `nbx` (its Pallas kernels in interpret mode at tile_i=8,
+tile_j=128, compiled with `xla_allow_excess_precision` off, as
+`tests/test_torch_pairwise_precision.py` runs them) the bars are that
+file's: 2e-3 of max|nbx| for both ("fast" and "hyb" cancel a self pair's
+term, and the two sum in other orders; measured there at most 1.30e-3 and
+1.71e-3). Splitting moves only the order of the tiles' float32 additions.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nbx.ops import pairwise as jpairwise
+from nbx_torch.ops import pairwise
+
+torch.set_num_threads(1)
+
+NBX_BAR = {"fast": 2e-3, "hyb": 2e-3}  # tests/test_torch_pairwise_precision.py's
+NO_EXCESS = {"xla_allow_excess_precision": False}
+TILE = 128  # nbx's tile_j, over which both centre
+CASES = ["300", "777", "rect"]  # 3, 7 and 3 source tiles
+
+
+def _rand(n, seed=0):
+    rng = np.random.default_rng(seed)
+    pos = (rng.normal(size=(n, 3)) * 20).astype(np.float32)
+    mass = rng.uniform(0.5, 5, n).astype(np.float32)
+    return pos, mass
+
+
+def _case(case):
+    """(pos, mass, targets or None): n bodies, or 100 targets among 300."""
+    if case == "rect":
+        pos, mass = _rand(300, 1)
+        return pos, mass, np.ascontiguousarray(pos[37:137])
+    return (*_rand(int(case), int(case)), None)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@functools.cache
+def _nbx(precision, case):
+    pos, mass, tgt = _case(case)
+    args = (jnp.asarray(pos), jnp.asarray(mass), 0.5, 0.5, None if tgt is None else jnp.asarray(tgt))
+    run = jpairwise.pairwise_acc.lower(*args, tile_i=8, tile_j=TILE, precision=precision, interpret=True)
+    return np.asarray(run.compile(NO_EXCESS)(*args))
+
+
+def _plain(precision, case, splits, tile=TILE):
+    pos, mass, tgt = (None if x is None else torch.from_numpy(x) for x in _case(case))
+    return pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, tgt, precision=precision, tile=tile, splits=splits)
+
+
+# (nt, ns) -> S of "fast" (128 targets a block) and "hyb" (1,024)
+SPLIT_SHAPES = {(16_384, 16_384): (4, 32), (262_144, 262_144): (1, 2), (1_048_576, 1_048_576): (1, 1),
+                (4_096, 4_096): (16, 16), (1_000, 4_096): (16, 16), (777, 3_001): (12, 12), (100, 255): (1, 1),
+                (5, 0): (1, 1), (25_600, 1_792): (4, 7), (204_800, 1_792): (1, 4)}
+
+
+@pytest.mark.parametrize("nt,ns", list(SPLIT_SHAPES))
+def test_source_splits_cover_whole_tiles(nt, ns):
+    """S from the shapes alone: at least one split, at most one a tile,
+    every split a run of whole tiles that holds at least one (the last run
+    of (25,600, 1,792) and (204,800, 1,792) one tile to the others' two),
+    and the grid at SPLIT_GRID blocks or more where the tiles allow it."""
+    tiles = max(1, -(-ns // pairwise.TILE))
+    for precision, want in zip(("fast", "hyb"), SPLIT_SHAPES[nt, ns]):
+        rows = pairwise.SPLIT_KERNELS[precision][0]
+        s = pairwise.source_splits(nt, ns, rows)
+        per = pairwise.split_tiles(ns, s)
+        assert s == want and 1 <= s <= tiles, (precision, s)
+        assert (s - 1) * per < tiles <= s * per  # whole tiles, the last run not empty
+        blocks = -(-nt // rows)
+        assert s == 1 if blocks >= pairwise.SPLIT_GRID else blocks * s >= pairwise.SPLIT_GRID or s == tiles
+
+
+def test_drift_gate_grid_is_four_times_wider():
+    """At the drift gate's 16,384 bodies both kernels split, and their grids
+    hold at least 4x the 64 blocks of one thread a target."""
+    for precision in ("fast", "hyb"):
+        rows = pairwise.SPLIT_KERNELS[precision][0]
+        s = pairwise.source_splits(16_384, 16_384, rows)
+        assert s > 1 and -(-16_384 // rows) * s >= 4 * 64
+
+
+def _tiles_in_turn(parts, splits):
+    """The unsplit sum: every tile's terms added in turn from zero."""
+    return pairwise._running_sum(parts.new_zeros((parts.shape[0], parts.shape[2])), parts.unbind(1))
+
+
+@pytest.mark.parametrize("precision", ["fast", "hyb"])
+@pytest.mark.parametrize("case", CASES)
+def test_one_split_is_the_sum_of_the_tiles_in_turn(precision, case, monkeypatch):
+    """splits=1 is bitwise the plain version that adds its tiles in turn,
+    at the card's tile."""
+    got = _plain(precision, case, 1, pairwise.TILE)
+    monkeypatch.setattr(pairwise, "_split_sum", _tiles_in_turn)
+    assert torch.equal(got, _plain(precision, case, 1, pairwise.TILE))
+
+
+@pytest.mark.parametrize("precision", ["fast", "hyb"])
+@pytest.mark.parametrize("splits", [2, 3, None])
+@pytest.mark.parametrize("case", CASES)
+def test_split_plain_version_matches_nbx(precision, splits, case):
+    """Two runs, three (7 tiles: 3, 3, 1) and the kernels' own S."""
+    assert _rel(_plain(precision, case, splits).numpy(), _nbx(precision, case)) < NBX_BAR[precision]
+
+
+def test_split_sum_adds_each_run_then_the_runs():
+    """Two runs of 7 tiles, 4 and 3: each run's tiles in turn, then the
+    runs; one run: the tiles in turn."""
+    parts = torch.from_numpy(np.random.default_rng(3).normal(size=(5, 7, 4)).astype(np.float32))
+    zero = torch.zeros((5, 4))
+    want = pairwise._running_sum(zero, parts[:, :4].unbind(1)) + pairwise._running_sum(zero, parts[:, 4:].unbind(1))
+    assert torch.equal(pairwise._split_sum(parts, 2), want)
+    assert torch.equal(pairwise._split_sum(parts, 1), _tiles_in_turn(parts, 1))
