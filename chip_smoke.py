@@ -21,9 +21,12 @@ and `latency` entries with `precision`) and the layout probes
 
   0. device: name and power limit; TF32 off
   1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
-  2. the gravity kernel against its plain PyTorch version on the card, at
-     N = 4,096, rectangular and ragged shapes, mass-0 padding, and the
-     N = 262,144 cold-collapse disk; times both at N = 262,144
+  2. the gravity kernel K1 against its plain PyTorch version on the card, at
+     N = 4,096, rectangular, ragged and separate shapes (softening 1e-20
+     too), one source tile, a shorter last split (N = 20,000), mass-0
+     padding, the drift gate's sphere (N = 16,384; two launches bitwise)
+     and the N = 262,144 cold-collapse disk, each with its split grid; times
+     both at N = 262,144 and the kernel at 16,384
   3. the reference scene at the reference size (capacity 300, full physics,
      300 frames), plus 20 frames held against the same frames on the CPU
   4. full physics with the kernel: capacity 4,096, 50 frames; one more frame
@@ -65,7 +68,8 @@ and `latency` entries with `precision`) and the layout probes
      N = 16,384, 10,000 Kahan-compensated KDK steps with K1, the energy
      through K3 every 100 steps, relative drift < 1e-4; ms/step, launches;
      kernels, wall ms and device ms per step of one 100-step chunk under
-     torch.profiler; one chunk under set_sync_debug_mode("error")
+     torch.profiler (K1's two launches a step, combine_splits alone in a
+     second chunk; not gated); one chunk under set_sync_debug_mode("error")
  13. the 4th-order Hermite scheme with K6 on the same scene and step: 1,000
      steps, the energy through K3 every 100, drift < 1e-4 beside KDK's over
      the same steps; one chunk under set_sync_debug_mode("error"); then 10
@@ -138,23 +142,24 @@ and `latency` entries with `precision`) and the layout probes
  25. the precision variants of the direct sum, K1a "f32", K1d "hyb" and K1e
      "bf16" (csrc/pairwise_precision.cu), K1b "fast" (csrc/pairwise_fast.cu)
      and K1c "mxu" (csrc/pairwise_mxu.cu), fast and mxu with their bf16
-     products on the tensor cores, fast and hyb with their sources split
-     over a second grid dimension: each kernel against its plain version
+     products on the tensor cores, f32, fast and hyb with their sources
+     split over a second grid dimension: each kernel against its plain version
      (N = 4,096 random, 1,000 of its targets x 4,096, 1,000 separate
      targets x 4,096, 777 x 3,001 ragged, 777 x 255 (one tile, one split),
      a shape whose last split is shorter, mass-0 padding, the
-     cold-collapse disk's first 4,096 targets at 262,144; hyb bitwise, fast
-     and hyb twice on the same inputs bitwise) and against its ladder bar
-     over a float64 sum (fast's and mxu's bodies' errors also within 1.1x
-     their plain version's, either way, at the median and the 99th
-     percentile); fast and mxu on 25,600 targets among 1,792 sources by
-     the distance to the nearest source (not gated); the split grids at
-     16,384 and 262,144; each timed at 262,144 and at 16,384 in turns
-     with K1, with its plain version; `bench.sass` on fast and hyb (fast's
-     inner loop runs HMMA); `bench throughput` with f32r and the five
-     in one process; `bench drift` at each precision (BASELINE config 4's
-     drift at the gate's step, a measurement: phase 12 keeps the gate), the
-     variant's launches on that path, one 100-step chunk under
+     cold-collapse disk's first 4,096 targets at 262,144; f32 and hyb
+     bitwise, f32, fast and hyb twice on the same inputs bitwise) and
+     against its ladder bar over a float64 sum (fast's and mxu's bodies'
+     errors also within 1.1x their plain version's, either way, at the
+     median and the 99th percentile); fast and mxu on 25,600 targets among
+     1,792 sources by the distance to the nearest source (not gated); the
+     split grids of K1 and the three at 16,384 and 262,144; each timed at
+     262,144 and at 16,384 in turns with K1, with its plain version;
+     `bench.sass` on K1, f32, fast, hyb and bf16 (fast's inner loop runs
+     HMMA); `bench throughput` with f32r and the five in one process;
+     `bench drift` at each precision (BASELINE config 4's drift at the
+     gate's step, a measurement: phase 12 keeps the gate), the variant's
+     launches on that path, one 100-step chunk under
      set_sync_debug_mode("error"); the latency of one KDK step at 16,384
      and 262,144; 10 steps at N = 1,024 card against CPU
  26. the layout probes: K2 as `bench.layoutsplit` and `bench.layoutvar`
@@ -171,9 +176,11 @@ version (the largest over every check), its time and its plain version's
 time at that path's shapes, and its bound (the largest of the bytes over
 3.35 TB/s, the FP32 operations over 67 TFLOP/s, the H100 SXM data sheet's
 rates, and the special functions over the SFU's 16 per clock per SM,
-counted from this run's inputs). K4 and K5 are recorded on the merger
-step's path (phase 10), K3 on the drift gate's (phase 12) and K6 on the
-Hermite path's (phase 13), both timed at its N = 16,384. The collision
+counted from this run's inputs). K1 is recorded on the frame step's path
+(phases 4-5) and timed at 262,144 (ms, bound_ms) and at the drift gate's
+16,384 (ms_drift_shape, bound_ms_drift_shape). K4 and K5 are recorded on
+the merger step's path (phase 10), K3 on the drift gate's (phase 12) and
+K6 on the Hermite path's (phase 13), both timed at its N = 16,384. The collision
 kernel has three entries: collide_fused (K2; the at-scale path, phase 7),
 collide_full_column (K8's function; launches on the layout bench's path,
 phase 17, timed on the disk's full-column configuration, phase 15) and
@@ -188,10 +195,10 @@ drift`'s path at their precision (phase 25: main's warm-up force and the
 run's 10,001) and are timed at 262,144 (ms, bound_ms) and at that path's
 16,384 (ms_drift_shape, bound_ms_drift_shape); their bounds add the
 float32-to-bf16 conversion instructions over 16 a clock an SM, and fast's
-and mxu's the tensor cores' bf16 FLOPs over 989 TFLOP/s. A call of fast or
-hyb launches two kernels, the split sum and `combine_splits`: their
+and mxu's the tensor cores' bf16 FLOPs over 989 TFLOP/s. A call of K1, f32,
+fast or hyb launches two kernels, the split sum and `combine_splits`: their
 `launches` count calls of that pair, and `ms` and `ms_drift_shape` time
-both (phase 25 prints the combine's device time on the drift path).
+both (phases 12 and 25 print the combine's device time on the drift path).
 The probes' records (collide_fused_layoutsplit, collide_fused_layoutvar)
 count K2's launches in each probe's main and are timed on the probe's
 bucket-0 launch (phase 26). A collision pass's bytes count the rows its
@@ -288,9 +295,9 @@ VARIANT_SITE = {"f32": 51, "fast": 93, "hyb": 302, "bf16": 400, "mxu": 200}  # n
 TC_PEAK = 989e12  # dense bf16 FLOP/s on the tensor cores
 # max|kernel - plain| / max|plain| of each variant where targets are sources
 # (tests/test_torch_cuda.py states the reasons): the plain versions of f32
-# and hyb round where the kernels round and sum in their order (hyb's
+# and hyb round where the kernels round and sum in their order (their
 # splits too), and torch.rsqrt on the card is rsqrtf: measured bitwise (0),
-# and hyb is held bitwise; bf16 sums its rows in torch's order: measured at
+# and both are held bitwise; bf16 sums its rows in torch's order: measured at
 # most 1.06e-6 (NVIDIA H100 80GB HBM3, 700 W; PERF.md). fast and mxu sum
 # their products on the tensor cores, in an order of their own, so they
 # agree with their plain versions to those sums' roundings, not bitwise; and
@@ -300,7 +307,10 @@ TC_PEAK = 989e12  # dense bf16 FLOP/s on the tensor cores
 # term cancels, and every variant is held to SEPARATE_TOL at most. (A target
 # within eps of a source cancels that pair's term alike: near_pairs below
 # measures fast and mxu on many targets among few sources.)
-VARIANT_TOL = {"f32": 1e-6, "fast": 2e-3, "hyb": 1e-6, "bf16": 1e-5, "mxu": 2e-3}
+# (K1's own bar, KERNEL_TOL, stands beside them for the card tests that
+# run every split kernel.) f32 and hyb are also held bitwise (BITWISE).
+VARIANT_TOL = {"f32r": KERNEL_TOL, "f32": 1e-6, "fast": 2e-3, "hyb": 1e-6, "bf16": 1e-5, "mxu": 2e-3}
+BITWISE = ("f32", "hyb")
 SEPARATE_TOL = 1e-4
 TENSOR_CORE_VARIANTS = ("fast", "mxu")  # their ladder is also held to their plain version's
 # The error ladder: max|kernel - float64 sum| / max|float64 sum| on
@@ -395,6 +405,20 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, phase: int = 2, to
     return abs_err
 
 
+# N whose last split is shorter, every body a target: 79 tiles, fast's 5 runs
+# of 16, 16, 16, 16, 15; K1's, f32's and hyb's 27 of 3, ..., 3, 1
+SHORT_LAST_SPLIT_N = 20_000
+
+
+def split_text(precision: str, nt: int, ns: int) -> str:
+    """A split kernel's grid at (nt, ns): target blocks x S splits of whole
+    tiles."""
+    rows = pairwise.SPLIT_KERNELS[precision][0]
+    s = pairwise.source_splits(nt, ns, rows)
+    per = pairwise.split_tiles(ns, s)
+    return f"grid {-(-nt // rows)} x S={s} = {-(-nt // rows) * s} blocks ({per} tile{'s' * (per > 1)} a split)"
+
+
 def phase_device() -> str:
     check(torch.cuda.is_available(), "torch.cuda.is_available() (this script needs a CUDA device)")
     name = torch.cuda.get_device_name(0)
@@ -419,22 +443,39 @@ def phase_build() -> None:
                 log(1, f"ptxas: {line.strip()}")
 
 
-def phase_kernel(dev, n_big: int = HEADLINE_N) -> dict:
+def phase_kernel(dev, n_big: int = HEADLINE_N, n_small: int = DRIFT_N) -> dict:
+    """K1 against its plain version (every shape labelled with its split
+    grid; two launches bitwise at the drift gate's sphere), then timed at
+    n_big on the cold-collapse disk and at n_small on the drift gate's
+    sphere (the shape of the path whose launches the kernels line counts)."""
     G, eps = 0.5, 0.5
+
+    def both(label, pos, mass, tgt=None, eps=eps, G=G):
+        nt = pos.shape[0] if tgt is None else tgt.shape[0]
+        return compare(f"{label}; {split_text('f32r', nt, pos.shape[0])}", pairwise_acc(pos, mass, G, eps, tgt),
+                       pairwise_acc_reference(pos, mass, G, eps, tgt))
+
     pos, mass = rand_bodies(4096, 0, dev)
-    compare("N=4096 random", pairwise_acc(pos, mass, G, eps), pairwise_acc_reference(pos, mass, G, eps))
-    tgt = pos[37:1037]
-    compare("1000 targets x 4096 sources",
-            pairwise_acc(pos, mass, G, eps, tgt), pairwise_acc_reference(pos, mass, G, eps, tgt))
+    err = both("N=4096 random", pos, mass)
+    err = max(err, both("1000 targets x 4096 sources", pos, mass, pos[37:1037]))
+    sep, _ = rand_bodies(1000, 3, dev)
+    # eps^2 = 1e-40, below FLT_MIN: the rsqrtf instantiation, on targets 300
+    # away in each coordinate (nothing near goes unsoftened)
+    err = max(err, both("1000 targets outside 4096 sources, softening 1e-20", pos, mass, sep + 300.0, eps=1e-20))
     src, m_src = rand_bodies(3001, 1, dev)
     tgt, _ = rand_bodies(777, 2, dev)
-    compare("777 targets x 3001 sources (ragged)",
-            pairwise_acc(src, m_src, G, eps, tgt), pairwise_acc_reference(src, m_src, G, eps, tgt))
+    err = max(err, both("777 targets x 3001 sources (ragged)", src, m_src, tgt))
+    err = max(err, both("777 targets x 255 sources (one tile: S = 1)", src[:255], m_src[:255], tgt))
+    src, m_src = rand_bodies(SHORT_LAST_SPLIT_N, 4, dev)
+    err = max(err, both(f"N={SHORT_LAST_SPLIT_N} random (a shorter last split)", src, m_src))
     m_pad = mass.clone()
     m_pad[2048:] = 0.0
-    compare("mass-0 padding inert",
-            pairwise_acc(pos, m_pad, G, eps)[:2048],
-            pairwise_acc_reference(pos[:2048], mass[:2048], G, eps))
+    err = max(err, compare("mass-0 padding inert", pairwise_acc(pos, m_pad, G, eps)[:2048],
+                           pairwise_acc_reference(pos[:2048], mass[:2048], G, eps)))
+    small, _, m_small, G_small, eps_small, _ = drift.gate_scene(n_small, device=dev)
+    err = max(err, both(f"Plummer N={n_small} (the drift gate's)", small, m_small, G=G_small, eps=eps_small))
+    first = pairwise_acc(small, m_small, G_small, eps_small)
+    check(torch.equal(first, pairwise_acc(small, m_small, G_small, eps_small)), "K1: two launches bitwise")
 
     cfg = SimConfig()
     sc = scene.cold_collapse_disk(n=n_big, seed=0)
@@ -442,16 +483,21 @@ def phase_kernel(dev, n_big: int = HEADLINE_N) -> dict:
     mass = torch.tensor(sc["mass"], device=dev)
     got = pairwise_acc(pos, mass, cfg.G, cfg.softening)
     want = pairwise_acc_reference(pos, mass, cfg.G, cfg.softening, pos[:4096])
-    err = compare(f"N={n_big} cold_collapse_disk, first 4096 targets", got[:4096], want)
+    err = max(err, compare(f"N={n_big} cold_collapse_disk, first 4096 targets; "
+                           f"{split_text('f32r', n_big, n_big)}", got[:4096], want))
     check(all_finite(got), f"kernel output finite at N={n_big}")
 
     ms = cuda_ms(lambda: pairwise_acc(pos, mass, cfg.G, cfg.softening), 5)
     plain_ms = cuda_ms(lambda: pairwise_acc_reference(pos, mass, cfg.G, cfg.softening), 1)
+    small_ms = cuda_ms(lambda: pairwise_acc(small, m_small, G_small, eps_small), 20)
     rate = n_big**2 / (ms * 1e-3)
-    b = bound(n_big * n_big * K1_PAIR_OPS, n_big * n_big * K1_PAIR_SFU, n_big * (12 + 4 + 12))
+    b, b_small = (bound(n * n * K1_PAIR_OPS, n * n * K1_PAIR_SFU, n * (12 + 4 + 12)) for n in (n_big, n_small))
     log(2, f"N={n_big}: kernel {ms:.3f} ms ({rate:.4e} pairs/s), plain {plain_ms:.3f} ms, "
-           f"plain/kernel {plain_ms / ms:.2f}x; {bound_text(b)}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **record(b), library_ms=None)
+           f"plain/kernel {plain_ms / ms:.2f}x; {bound_text(b)}; kernel/bound {ms / b['bound_ms']:.2f}")
+    log(2, f"N={n_small} (the drift gate's sphere): kernel {small_ms:.4f} ms; {bound_text(b_small)}; "
+           f"kernel/bound {small_ms / b_small['bound_ms']:.2f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **record(b), library_ms=None, ms_drift_shape=small_ms,
+                bound_ms_drift_shape=b_small["bound_ms"])
 
 
 def phase_reference(dev, frames: int = 300) -> None:
@@ -1116,16 +1162,16 @@ def phase_gravity_kernels(dev, n_small: int = DRIFT_N, n_big: int = HEADLINE_N) 
     return k6, k3
 
 
-def launches_per_step(state: integrators.PhaseState, force, h: float, steps: int, names=("pairwise_f32r",),
-                      per_step: int = 1, exact: bool = True) -> tuple[float, float, float, float]:
+def launches_per_step(state: integrators.PhaseState, force, h: float, steps: int, names: tuple,
+                      per_step: int = 1) -> tuple[float, float, float, float]:
     """(kernels launched per compensated KDK step, wall ms per step, device
-    ms per step, the force kernel's device ms per step) over one chunk of
+    ms per step, the force kernels' device ms per step) over one chunk of
     `steps` steps under torch.profiler: the wall and the device times are
     of the same steps. The force's kernels are those whose names hold one
-    of `names`, per_step a step (K1 by default), their time the mean of
-    those the profiler saw times per_step. `exact`: the profiler must have
-    seen every one of them (it has missed a few of a chunk's ~1,900
-    kernels, and then reads the kernels and the device time a step low)."""
+    of `names`, per_step a step, their time the mean of those the profiler
+    saw times per_step. A measurement: the profiler has missed a few of a
+    chunk's ~1,900 kernels, and then reads the kernels and the device time a
+    step low; the wrappers' `.launches` count the launches exactly."""
     cuda = torch.autograd.DeviceType.CUDA
     pc = vc = torch.zeros_like(state.pos)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1139,8 +1185,7 @@ def launches_per_step(state: integrators.PhaseState, force, h: float, steps: int
     kernels = [e for e in prof.events() if e.device_type == cuda]
     check(len(kernels) > 0, "the profiler saw the device's kernels")
     k1 = [e for e in kernels if any(name in e.name for name in names)]
-    check(len(k1) == steps * per_step or not exact and 0 < len(k1) <= steps * per_step,
-          f"the profiler saw {names} {len(k1)} times in {steps} steps")
+    check(0 < len(k1) <= steps * per_step, f"the profiler saw {names} {len(k1)} times in {steps} steps")
     return (len(kernels) / steps, wall_ms, sum(e.time_range.elapsed_us() for e in kernels) / steps / 1e3,
             sum(e.time_range.elapsed_us() for e in k1) / len(k1) * per_step / 1e3)
 
@@ -1164,13 +1209,18 @@ def phase_drift_gate(dev, n: int = DRIFT_N, n_steps: int = 10_000, diag_every: i
           f"K1 {k1} and K3 {k3} launches in {n_steps} steps with energies every {diag_every}")
     d = drift.relative_drift(energies)
     check(all_finite(p, v, energies), "state and energies finite")
+    # a measurement: K1's launches are counted exactly above; a call is two
+    # launches, the split sum and combine_splits
+    state = integrators.PhaseState(p, v, pairwise_acc(p, mass, G, eps))
     per_step, prof_ms, dev_ms, k1_ms = launches_per_step(
-        integrators.PhaseState(p, v, pairwise_acc(p, mass, G, eps)), lambda x: pairwise_acc(x, mass, G, eps), h,
-        diag_every)
+        state, lambda x: pairwise_acc(x, mass, G, eps), h, diag_every, ("pairwise_f32r", "combine_splits"), 2)
+    *_, combine_ms = launches_per_step(state, lambda x: pairwise_acc(x, mass, G, eps), h, diag_every,
+                                       ("combine_splits",))
     log(12, f"Plummer N={n}, h={h:.4e}, eps={eps:.4f}, {n_steps} compensated KDK steps: drift {d:.4e} "
             f"(gate {drift.GATE:g}); {ms:.4f} ms/step wall; launches K1 {k1} K3 {k3}; under torch.profiler, "
             f"{diag_every} steps: {per_step:.2f} kernels per step, {prof_ms:.4f} wall ms per step, "
-            f"{dev_ms:.4f} device ms per step (busy {dev_ms / prof_ms:.3f}), K1 {k1_ms:.4f} of it")
+            f"{dev_ms:.4f} device ms per step (busy {dev_ms / prof_ms:.3f}), K1 {k1_ms:.4f} of it "
+            f"(combine_splits {combine_ms:.4f}, in a chunk of its own)")
     check(d < drift.GATE, f"relative energy drift {d} < {drift.GATE}")
 
     torch.cuda.set_sync_debug_mode("error")
@@ -2284,26 +2334,12 @@ def float64_acc(pos, mass, G: float, eps: float) -> torch.Tensor:
     return G * ((m[None] * r2**-1.5)[..., None] * d).sum(1)
 
 
-# N whose last split is shorter, every body a target: 79 tiles, fast's 5 runs
-# of 16, 16, 16, 16, 15, hyb's 27 of 3, ..., 3, 1
-SHORT_LAST_SPLIT_N = 20_000
-
-
-def split_text(precision: str, nt: int, ns: int) -> str:
-    """A split kernel's grid at (nt, ns): target blocks x S splits of whole
-    tiles."""
-    rows = pairwise.SPLIT_KERNELS[precision][0]
-    s = pairwise.source_splits(nt, ns, rows)
-    per = pairwise.split_tiles(ns, s)
-    return f"grid {-(-nt // rows)} x S={s} = {-(-nt // rows) * s} blocks ({per} tile{'s' * (per > 1)} a split)"
-
-
 def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
     """One variant's kernel against its plain version on the card (random,
     rectangular, ragged, one source tile, mass-0 sources, mass-0 padding
     inert, the cold-collapse disk's first 4,096 targets), one launch a call,
-    and its ladder bar against float64; "hyb" bitwise, "fast" and "hyb"
-    twice on the same inputs bitwise. Returns the largest
+    and its ladder bar against float64; "f32" and "hyb" bitwise, the split
+    kernels twice on the same inputs bitwise. Returns the largest
     max|kernel - plain|."""
     G, eps, tol = 0.5, 0.5, VARIANT_TOL[precision]
     wrapper = variant_wrapper(precision)
@@ -2318,8 +2354,8 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
             label += f"; {split_text(precision, nt, pos.shape[0])}"
             again = pairwise_acc(pos, mass, G, eps, tgt, precision)
             check(torch.equal(got, again), f"{precision}: two launches bitwise")
-        if precision == "hyb":
-            check(torch.equal(got, want), f"hyb {label}: bitwise its plain version")
+        if precision in BITWISE:
+            check(torch.equal(got, want), f"{precision} {label}: bitwise its plain version")
         return compare(f"{precision} {label}", got, want, 25, variant_tol(precision, self_pairs))
 
     pos, mass = rand_bodies(4096, 0, dev)
@@ -2359,7 +2395,7 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
     splits = (pairwise.source_splits(n_big, n_big, pairwise.SPLIT_KERNELS[precision][0])
               if precision in pairwise.SPLIT_KERNELS else None)
     want = pairwise_acc_reference(pos, mass, cfg.G, cfg.softening, pos[:4096], precision=precision, splits=splits)
-    check(precision != "hyb" or torch.equal(got, want), "hyb on the disk: bitwise its plain version")
+    check(precision not in BITWISE or torch.equal(got, want), f"{precision} on the disk: bitwise its plain version")
     err = max(err, compare(f"{precision} N={n_big} cold_collapse_disk, first 4096 targets", got, want, 25, tol))
     pos, mass = rand_bodies(2048, 1, dev)
     want = float64_acc(pos, mass, G, eps)
@@ -2455,12 +2491,12 @@ def variant_timings(dev, n: int = HEADLINE_N, n_small: int = DRIFT_N) -> dict:
 
 
 def variant_sass() -> None:
-    """`bench.sass` on the split kernels: instructions a pair in their inner
-    loops; K1b's products on the tensor cores (HMMA), its FFMAs below the
-    12 a pair of the CUDA-core products it replaced."""
+    """`bench.sass` on K1 and the variants' split kernels: instructions a
+    pair in their inner loops; K1b's products on the tensor cores (HMMA),
+    its FFMAs below the 12 a pair of the CUDA-core products it replaced."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rows = sass.main(("pairwise_fast", "pairwise_precision"))
+        rows = sass.main(("pairwise_f32r", "pairwise_fast", "pairwise_precision"))
     for r in rows:
         log(25, f"sass {r['function'].split('(')[0]}: {r['pairs_in_loop']} pairs in the loop, "
                 f"{r['instructions_a_pair']:.4f} instructions a pair: "
@@ -2502,18 +2538,17 @@ def variant_drift(dev, precision: str, n: int = DRIFT_N, n_steps: int = 10_000, 
 
     def force(x):
         return pairwise_acc(x, mass, G, eps, precision=precision)
-    # a measurement: the launches are counted exactly above, and the profiler
-    # has missed about 15 of such a chunk's kernels (99 of the 100 variant
-    # launches once)
+    # a measurement: the launches are counted exactly above (the profiler
+    # once saw 99 of the 100 variant launches)
     split = precision in pairwise.SPLIT_KERNELS
     state = integrators.PhaseState(pos, vel, force(pos))
     per_step, wall_ms, dev_ms, own_ms = launches_per_step(
-        state, force, h, diag_every, ("pairwise_", "combine_splits"), 2 if split else 1, exact=False)
+        state, force, h, diag_every, ("pairwise_", "combine_splits"), 2 if split else 1)
     log(25, f"{precision} under torch.profiler, {diag_every} steps: {per_step:.2f} kernels per step, "
             f"{wall_ms:.4f} wall ms per step, {dev_ms:.4f} device ms per step (busy {dev_ms / wall_ms:.3f}), "
             f"its kernels {own_ms:.4f} of it")
     if split:  # the share of the second launch, in a chunk of its own
-        *_, combine_ms = launches_per_step(state, force, h, diag_every, ("combine_splits",), exact=False)
+        *_, combine_ms = launches_per_step(state, force, h, diag_every, ("combine_splits",))
         log(25, f"{precision}: combine_splits {combine_ms:.4f} device ms per step of the pair's {own_ms:.4f}")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -2540,11 +2575,11 @@ def phase_precisions(dev, latency_ns=(DRIFT_N, HEADLINE_N)) -> dict:
     """Phase 25: the precision variants K1a, K1b, K1c, K1d, K1e. Each kernel
     against its plain version and its ladder bar; fast's and mxu's errors
     by the nearest source; each timed at 262,144 and 16,384 beside K1;
-    `bench.sass` on K1b and K1d; `bench throughput` with every precision;
-    `bench drift` at each (launches on that path, a profiled chunk, one
-    sync-checked chunk); `bench latency`'s step at 16,384 and 262,144; 10
-    steps at 1,024 card against CPU. Returns each variant's entry of the
-    kernels line."""
+    `bench.sass` on K1 and the variants' kernels; `bench throughput` with
+    every precision; `bench drift` at each (launches on that path, a
+    profiled chunk, one sync-checked chunk); `bench latency`'s step at
+    16,384 and 262,144; 10 steps at 1,024 card against CPU. Returns each
+    variant's entry of the kernels line."""
     errs = {p: variant_checks(dev, p) for p in VARIANTS}
     near_pairs(dev)
     recs = variant_timings(dev)

@@ -11,7 +11,7 @@
 // pair has d = dv = 0 and adds exactly 0, which needs eps > 0), mass-0
 // sources inert, float32 sums, G applied once at the end.
 //
-// Design: the skeleton of pairwise_f32r.cu. One thread per target, 128
+// Design: the skeleton of K1's first version. One thread per target, 128
 // threads per block: at the drift gate's N = 16,384 that is 128 blocks for
 // the card's 132 SMs, where 256 threads would leave half of them idle. A
 // source is two float4, (x, y, z, m) and (vx, vy, vz, 0); the block stages

@@ -26,29 +26,35 @@
 // - "bf16": d rounded to bf16; each of d d, f^3 m and w d a bf16 product
 //   (never fused into an FMA); r^2 and the row sums in float32.
 //
-// Design of "f32" and "bf16": K1's (csrc/pairwise_f32r.cu): one thread per
-// target, 256 threads a block, the sources in tiles of 256 loaded
-// cooperatively into shared memory, each tile summed into a partial that is
-// then added to the running total, ragged edges masked here (source lanes
-// past Ns load position 0 and mass 0, as the TPU kernel's padding lanes;
-// target threads past Nt store nothing). The wrapper builds S with torch
-// ops. "f32" rounds each product and sum in the order the plain PyTorch
-// version rounds them (`__fmul_rn`, `__fadd_rn`: nvcc would otherwise
-// contract a * b + c into an FMA), and sums each tile's lanes and then the
-// tiles one after another, as the plain version does; a cancellation
-// amplifies any other rounding by |p| / |d|.
+// Design of "bf16": one thread per target, 256 threads a block, the sources
+// in tiles of 256 loaded cooperatively into shared memory, each tile summed
+// into a partial that is then added to the running total, ragged edges
+// masked here (source lanes past Ns load position 0 and mass 0, as the TPU
+// kernel's padding lanes; target threads past Nt store nothing).
 //
-// Design of "hyb": 256 threads a block, each with kTargets = 4 targets in
-// registers, so that a source's centred float4 and its |p_j - c|^2 + eps^2,
-// formed once at the tile's load, are read from shared memory once for 4
-// targets; and a second grid dimension over the sources (split_sum.cuh),
-// so that the drift gate's 16,384 targets (16 blocks of 1,024) still fill
-// the card: 32 splits of 2 tiles, 512 blocks. Per tile each thread forms
-// the centroid c (a halving tree over all 256 lanes, padding included, as
-// the TPU kernel's mean over its padded tile), its targets' p_i - c and
-// |p_i - c|^2, and sums the tile's lanes in turn; the tiles of a split add
-// in turn, and `combine_splits` adds the splits in turn and multiplies by
-// G. The squares and the cross term are FMAs as in "mxu" (fma(z, z, fma(x,
+// Design of "f32" and "hyb": K1's (csrc/pairwise_f32r.cu): 256 threads a
+// block, each with kTargets = 4 targets in registers, so that a source's
+// float4s in shared memory are read once for 4 targets; and a second grid
+// dimension over the sources (split_sum.cuh), so that the drift gate's
+// 16,384 targets (16 blocks of 1,024) still fill the card: 32 splits of 2
+// tiles, 512 blocks. Each rounds where its plain version rounds and sums in
+// its order, so that the two agree bitwise: a cancellation amplifies any
+// other rounding by |p| / |d|.
+//
+// "f32" reads a tile's positions and its mass-folded S (the wrapper builds
+// S with torch ops), forms r^2 = fma(dz, dz, fma(dy, dy, fma(dx, dx,
+// eps^2))) and f = (1 / r)^3, and sums each target's o = fma(f, S_j, o)
+// over the tile's lanes in turn; each target's tile sums add to its split's
+// running totals in turn, and `combine_splits<4>` adds the splits in turn,
+// makes the cancellation o_xyz - p_i o_m (an FMUL and an FSUB, unfused, as
+// the plain version rounds them) and multiplies by G.
+//
+// "hyb" forms per tile the centroid c (a halving tree over all 256 lanes,
+// padding included, as the TPU kernel's mean over its padded tile), its
+// targets' p_i - c and |p_i - c|^2, and sums the tile's lanes in turn; the
+// tiles of a split add in turn, and `combine_splits<3>` adds the splits in
+// turn and multiplies by G. Its centred source float4 and |p_j - c|^2 +
+// eps^2 are formed once at the tile's load. The squares and the cross term are FMAs as in "mxu" (fma(z, z, fma(x,
 // x, y y)), fma(z, z', fma(y, y', x x'))), and so are the three centred
 // sums (s = fma(w, x - c, s)); the plain version (`_hyb_rows`) rounds them
 // alike, so the two agree bitwise. rsqrt.approx.ftz alone replaces rsqrtf
@@ -57,10 +63,12 @@
 // Bound: as K1, once a tile is in shared memory a pair costs no device-memory
 // traffic; FP32 operations, one rsqrt a pair on the SFU and, for "bf16",
 // float32-to-bf16 conversions (16 a clock an SM, as the SFU) bound the
-// kernels: chip_smoke.py counts each term. "hyb" issues an FMUL and 2 FMAs
-// for the cross term, an add and an FMA for r^2, the floor, MUFU.RSQ, 3
-// FMULs for w, 3 FMAs and an add for the sums, and 2 / kTargets shared
-// loads a pair (which nvcc merges to about 1.25 / kTargets).
+// kernels: chip_smoke.py counts each term. "f32" issues 3 differences, 3
+// FMAs for r^2, MUFU.RSQ, 2 FMULs for f and 4 FMAs for the sums, and 2 /
+// kTargets shared loads a pair. "hyb" issues an FMUL and 2 FMAs for the
+// cross term, an add and an FMA for r^2, the floor, MUFU.RSQ, 3 FMULs for
+// w, 3 FMAs and an add for the sums, and 2 / kTargets shared loads a pair
+// (which nvcc merges to about 1.25 / kTargets).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,37 +80,20 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = kThreads;
-// "hyb"'s targets a thread (ops/pairwise.py HYB_TARGETS): 4 over 2 measured
-// 10.4% faster at 262,144 and 7% at 16,384 (PERF.md).
+constexpr int kTile = nbx_sum::kTile;
+static_assert(kTile == kThreads, "one source a thread at the tile's load");
+// targets a thread of "f32" and "hyb" (ops/pairwise.py TARGETS): 4 over 2
+// measured 10.4% faster at 262,144 and 7% at 16,384 for "hyb" (PERF.md).
 constexpr int kTargets = 4;
 
-enum class Precision { kF32, kBf16 };
-
-// (a.x b.x + a.y b.y) + a.z b.z, every product and sum rounded in turn.
-__device__ __forceinline__ float dot3_rn(float ax, float ay, float az, float bx, float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
-}
-
-// (|d|^2 + eps^2)^(-3/2) for d = q - p_i, r^2 summed as the plain version
-// sums it.
-__device__ __forceinline__ float inv_cube(float4 q, float xi, float yi, float zi, float eps2) {
-  const float dx = q.x - xi, dy = q.y - yi, dz = q.z - zi;
-  const float inv = rsqrtf(__fadd_rn(dot3_rn(dx, dy, dz, dx, dy, dz), eps2));
-  return inv * inv * inv;
-}
-
-template <Precision P>
+// "bf16": one thread a target.
 __global__ void __launch_bounds__(kThreads)
-pairwise_precision_kernel(const float* __restrict__ tgt,    // [nt, 3]
-                          const float4* __restrict__ src,   // [ns] (x, y, z, m)
-                          const float4* __restrict__ smat,  // [ns] (m x, m y, m z, m): f32
-                          float* __restrict__ acc,          // [nt, 3]
-                          int nt, int ns, float g, float eps2) {
+pairwise_bf16_kernel(const float* __restrict__ tgt,   // [nt, 3]
+                     const float4* __restrict__ src,  // [ns] (x, y, z, m)
+                     float* __restrict__ acc,         // [nt, 3]
+                     int nt, int ns, float g, float eps2) {
   __shared__ float4 pos_tile[kTile];       // (x, y, z, m)
-  __shared__ float4 hi_tile[kTile];        // f32: S
-  __shared__ __nv_bfloat16 m_tile[kTile];  // bf16: bf16(m)
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  __shared__ __nv_bfloat16 m_tile[kTile];  // bf16(m)
   const int i = blockIdx.x * kThreads + threadIdx.x;
   float xi = 0.f, yi = 0.f, zi = 0.f;
   if (i < nt) {
@@ -110,77 +101,113 @@ pairwise_precision_kernel(const float* __restrict__ tgt,    // [nt, 3]
     yi = tgt[3 * i + 1];
     zi = tgt[3 * i + 2];
   }
-  // Running totals over the tiles. f32: (sum f m x, sum f m y, sum f m z,
-  // sum f m); bf16: the acceleration before G (ow unused).
-  float ox = 0.f, oy = 0.f, oz = 0.f, ow = 0.f;
+  float ox = 0.f, oy = 0.f, oz = 0.f;  // the acceleration before G
   for (int j0 = 0; j0 < ns; j0 += kTile) {
     const int j = j0 + threadIdx.x;
-    const float4 p = j < ns ? src[j] : zero4;
+    const float4 p = j < ns ? src[j] : make_float4(0.f, 0.f, 0.f, 0.f);
     pos_tile[threadIdx.x] = p;
-    if constexpr (P == Precision::kF32) {
-      hi_tile[threadIdx.x] = j < ns ? smat[j] : zero4;
-    } else {
-      m_tile[threadIdx.x] = __float2bfloat16_rn(p.w);
-    }
+    m_tile[threadIdx.x] = __float2bfloat16_rn(p.w);
     __syncthreads();
-
-    if constexpr (P == Precision::kF32) {
-      float tx = 0.f, ty = 0.f, tz = 0.f, tw = 0.f;
+    float tx = 0.f, ty = 0.f, tz = 0.f;
 #pragma unroll 8
-      for (int k = 0; k < kTile; ++k) {
-        const float f = inv_cube(pos_tile[k], xi, yi, zi, eps2);
-        const float4 s = hi_tile[k];
-        tx = __fadd_rn(tx, __fmul_rn(f, s.x));
-        ty = __fadd_rn(ty, __fmul_rn(f, s.y));
-        tz = __fadd_rn(tz, __fmul_rn(f, s.z));
-        tw = __fadd_rn(tw, __fmul_rn(f, s.w));
-      }
-      ox = __fadd_rn(ox, tx);
-      oy = __fadd_rn(oy, ty);
-      oz = __fadd_rn(oz, tz);
-      ow = __fadd_rn(ow, tw);
-    } else {
-      float tx = 0.f, ty = 0.f, tz = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < kTile; ++k) {
-        const float4 q = pos_tile[k];
-        const __nv_bfloat16 dx = __float2bfloat16_rn(q.x - xi);
-        const __nv_bfloat16 dy = __float2bfloat16_rn(q.y - yi);
-        const __nv_bfloat16 dz = __float2bfloat16_rn(q.z - zi);
-        const float r2 = __bfloat162float(__hmul(dx, dx)) + __bfloat162float(__hmul(dy, dy)) +
-                         __bfloat162float(__hmul(dz, dz)) + eps2;
-        const float inv = rsqrtf(r2);
-        const __nv_bfloat16 w = __hmul(__float2bfloat16_rn(inv * inv * inv), m_tile[k]);
-        tx += __bfloat162float(__hmul(w, dx));
-        ty += __bfloat162float(__hmul(w, dy));
-        tz += __bfloat162float(__hmul(w, dz));
-      }
-      ox += tx;
-      oy += ty;
-      oz += tz;
+    for (int k = 0; k < kTile; ++k) {
+      const float4 q = pos_tile[k];
+      const __nv_bfloat16 dx = __float2bfloat16_rn(q.x - xi);
+      const __nv_bfloat16 dy = __float2bfloat16_rn(q.y - yi);
+      const __nv_bfloat16 dz = __float2bfloat16_rn(q.z - zi);
+      const float r2 = __bfloat162float(__hmul(dx, dx)) + __bfloat162float(__hmul(dy, dy)) +
+                       __bfloat162float(__hmul(dz, dz)) + eps2;
+      const float inv = rsqrtf(r2);
+      const __nv_bfloat16 w = __hmul(__float2bfloat16_rn(inv * inv * inv), m_tile[k]);
+      tx += __bfloat162float(__hmul(w, dx));
+      ty += __bfloat162float(__hmul(w, dy));
+      tz += __bfloat162float(__hmul(w, dz));
     }
+    ox += tx;
+    oy += ty;
+    oz += tz;
     __syncthreads();
   }
   if (i < nt) {
-    if constexpr (P == Precision::kF32) {
-      ox = __fsub_rn(ox, __fmul_rn(xi, ow));
-      oy = __fsub_rn(oy, __fmul_rn(yi, ow));
-      oz = __fsub_rn(oz, __fmul_rn(zi, ow));
-    }
     acc[3 * i + 0] = ox * g;
     acc[3 * i + 1] = oy * g;
     acc[3 * i + 2] = oz * g;
   }
 }
 
-template <Precision P>
-int launch(const void* tgt, const void* src, const void* smat, void* acc, int nt, int ns, float g, float eps2,
-           void* stream) {
-  if (nt <= 0) return static_cast<int>(cudaSuccess);
-  const int blocks = (nt + kThreads - 1) / kThreads;
-  pairwise_precision_kernel<P><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(tgt), static_cast<const float4*>(src), static_cast<const float4*>(smat),
-      static_cast<float*>(acc), nt, ns, g, eps2);
+// "f32": kTargets targets a thread, block (x, s) summing its kThreads x
+// kTargets targets (target t of thread l: row x kThreads kTargets + t
+// kThreads + l) against split s of the sources, into part[s, i, 0:4] =
+// (sum f m x, sum f m y, sum f m z, sum f m).
+template <bool kFtz>
+__global__ void __launch_bounds__(kThreads)
+pairwise_f32_kernel(const float* __restrict__ tgt,    // [nt, 3]
+                    const float4* __restrict__ src,   // [ns] (x, y, z, m)
+                    const float4* __restrict__ smat,  // [ns] (m x, m y, m z, m)
+                    float* __restrict__ part,         // [splits, nt, 4]
+                    int nt, int ns, float eps2, int tiles_per_split) {
+  __shared__ float4 p_tile[kTile];  // (x, y, z, m)
+  __shared__ float4 s_tile[kTile];  // S
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int i0 = blockIdx.x * kThreads * kTargets + threadIdx.x;
+  float xi[kTargets], yi[kTargets], zi[kTargets];
+  float ox[kTargets], oy[kTargets], oz[kTargets], ow[kTargets];  // the split's totals
+#pragma unroll
+  for (int t = 0; t < kTargets; ++t) {
+    const int i = i0 + t * kThreads;
+    xi[t] = i < nt ? tgt[3 * i + 0] : 0.f;
+    yi[t] = i < nt ? tgt[3 * i + 1] : 0.f;
+    zi[t] = i < nt ? tgt[3 * i + 2] : 0.f;
+    ox[t] = oy[t] = oz[t] = ow[t] = 0.f;
+  }
+  const int2 range = nbx_sum::split_range(ns, tiles_per_split);
+  for (int j0 = range.x; j0 < range.y; j0 += kTile) {
+    const int j = j0 + threadIdx.x;
+    p_tile[threadIdx.x] = j < ns ? src[j] : zero4;
+    s_tile[threadIdx.x] = j < ns ? smat[j] : zero4;
+    __syncthreads();
+    float tx[kTargets], ty[kTargets], tz[kTargets], tw[kTargets];
+#pragma unroll
+    for (int t = 0; t < kTargets; ++t) tx[t] = ty[t] = tz[t] = tw[t] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < kTile; ++k) {
+      const float4 q = p_tile[k];
+      const float4 s = s_tile[k];
+#pragma unroll
+      for (int t = 0; t < kTargets; ++t) {
+        const float dx = __fsub_rn(q.x, xi[t]), dy = __fsub_rn(q.y, yi[t]), dz = __fsub_rn(q.z, zi[t]);
+        const float inv = nbx_sum::rsqrt_of<kFtz>(__fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmaf_rn(dx, dx, eps2))));
+        const float f = __fmul_rn(__fmul_rn(inv, inv), inv);
+        tx[t] = __fmaf_rn(f, s.x, tx[t]);
+        ty[t] = __fmaf_rn(f, s.y, ty[t]);
+        tz[t] = __fmaf_rn(f, s.z, tz[t]);
+        tw[t] = __fmaf_rn(f, s.w, tw[t]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kTargets; ++t) {
+      ox[t] = __fadd_rn(ox[t], tx[t]);
+      oy[t] = __fadd_rn(oy[t], ty[t]);
+      oz[t] = __fadd_rn(oz[t], tz[t]);
+      ow[t] = __fadd_rn(ow[t], tw[t]);
+    }
+    __syncthreads();
+  }
+  float4* out = reinterpret_cast<float4*>(part + static_cast<size_t>(blockIdx.y) * nt * 4);
+#pragma unroll
+  for (int t = 0; t < kTargets; ++t) {
+    const int i = i0 + t * kThreads;
+    if (i < nt) out[i] = make_float4(ox[t], oy[t], oz[t], ow[t]);
+  }
+}
+
+template <bool kFtz>
+int launch_f32(const float* tgt, const float4* src, const float4* smat, float* part, float* acc, int nt, int ns,
+               float g, float eps2, int tiles_per_split, cudaStream_t stream) {
+  const int splits = nbx_sum::split_count(ns, tiles_per_split);
+  const dim3 grid((nt + kThreads * kTargets - 1) / (kThreads * kTargets), splits);
+  pairwise_f32_kernel<kFtz><<<grid, kThreads, 0, stream>>>(tgt, src, smat, part, nt, ns, eps2, tiles_per_split);
+  nbx_sum::combine<4>(part, tgt, acc, nt, splits, g, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,21 +305,33 @@ int launch_hyb(const float* tgt, const float4* src, float* part, float* acc, int
 }  // namespace
 
 // Plain C entry points, loaded with ctypes, one a precision. Each launches
-// on `stream` and returns the launch's cudaError_t (0 on success); none
-// synchronises. f32 and bf16 take every pointer (smat null for bf16).
-extern "C" int nbx_pairwise_f32(const void* tgt, const void* src, const void* smat, void* acc, int nt, int ns,
-                                float g, float eps2, void* stream) {
-  return launch<Precision::kF32>(tgt, src, smat, acc, nt, ns, g, eps2, stream);
+// on `stream` and returns the launches' cudaError_t (0 on success); none
+// synchronises. The split sums ("f32", "hyb") take `part`, [splits, nt, 4]
+// or [splits, nt, 3] float32 scratch, splits = ceil(ceil(ns / 256) /
+// tiles_per_split) (at least 1), launch the split sum and the combine, and
+// take MUFU.RSQ alone where eps^2 is a normal float32, rsqrtf below.
+extern "C" int nbx_pairwise_bf16(const void* tgt, const void* src, void* acc, int nt, int ns, float g, float eps2,
+                                 void* stream) {
+  if (nt <= 0) return static_cast<int>(cudaSuccess);
+  pairwise_bf16_kernel<<<(nt + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(tgt), static_cast<const float4*>(src), static_cast<float*>(acc), nt, ns, g, eps2);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int nbx_pairwise_bf16(const void* tgt, const void* src, const void* smat, void* acc, int nt, int ns,
-                                 float g, float eps2, void* stream) {
-  return launch<Precision::kBf16>(tgt, src, smat, acc, nt, ns, g, eps2, stream);
+extern "C" int nbx_pairwise_f32(const void* tgt, const void* src, const void* smat, void* part, void* acc, int nt,
+                                int ns, float g, float eps2, int tiles_per_split, void* stream) {
+  if (nt <= 0) return static_cast<int>(cudaSuccess);
+  if (tiles_per_split <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* t = static_cast<const float*>(tgt);
+  const auto* s = static_cast<const float4*>(src);
+  const auto* m = static_cast<const float4*>(smat);
+  auto* p = static_cast<float*>(part);
+  auto* a = static_cast<float*>(acc);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return eps2 >= FLT_MIN ? launch_f32<true>(t, s, m, p, a, nt, ns, g, eps2, tiles_per_split, st)
+                         : launch_f32<false>(t, s, m, p, a, nt, ns, g, eps2, tiles_per_split, st);
 }
 
-// hyb: `part` is [splits, nt, 3] float32 scratch, splits =
-// ceil(ceil(ns / 256) / tiles_per_split) (at least 1). MUFU.RSQ alone where
-// eps^2 is a normal float32, rsqrtf below.
 extern "C" int nbx_pairwise_hyb(const void* tgt, const void* src, void* part, void* acc, int nt, int ns, float g,
                                 float eps2, int tiles_per_split, void* stream) {
   if (nt <= 0) return static_cast<int>(cudaSuccess);

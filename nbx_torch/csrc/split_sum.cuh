@@ -1,17 +1,18 @@
 // What the direct sums that split their sources share, float32, for NVIDIA
-// Hopper (sm_90a): "fast" (pairwise_fast.cu, K1b) and "hyb"
-// (pairwise_precision.cu, K1d), and the roundings of "mxu" (pairwise_mxu.cu,
-// K1c) and "hyb".
+// Hopper (sm_90a): "f32r" (pairwise_f32r.cu, K1), "f32" and "hyb"
+// (pairwise_precision.cu, K1a, K1d) and "fast" (pairwise_fast.cu, K1b), and
+// the roundings of "mxu" (pairwise_mxu.cu, K1c) and "hyb".
 //
 // The source split: block (x, s) of a kernel sums its targets against split
 // s of the sources, a contiguous run of `tiles_per_split` whole tiles of
 // kTile sources (the last split may hold fewer), so that every tile and its
 // centroid are those of the unsplit sum. Each split writes its float32
 // partials to part[s, i, :]; `combine_splits` then adds the S partials of
-// target i in split order, part[0] + part[1] + ..., applies "fast"'s final
-// cancellation and multiplies by G. No sum uses atomics, so the same inputs
-// give the same bits run after run. The wrapper (nbx_torch/ops/pairwise.py,
-// `source_splits`) chooses S from the shapes alone.
+// target i in split order, part[0] + part[1] + ..., applies the final
+// cancellation of "f32" and "fast" and multiplies by G. No sum uses atomics,
+// so the same inputs give the same bits run after run. The wrapper
+// (nbx_torch/ops/pairwise.py, `source_splits`) chooses S from the shapes
+// alone.
 
 #pragma once
 

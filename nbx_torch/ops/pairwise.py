@@ -10,9 +10,9 @@ to its plain PyTorch version (`*_reference`):
   K1d, K1e), through `pairwise_acc_f32`, `_hyb`, `_bf16`; "fast"
   `nbx_torch/csrc/pairwise_fast.cu` and "mxu" `nbx_torch/csrc/pairwise_mxu.cu`
   (K1b, K1c, their bf16 products on the tensor cores), through
-  `pairwise_acc_fast`, `_mxu`. K1b and K1d split their sources over a second
-  grid dimension (`source_splits`) and add the splits' partials in a second
-  pass;
+  `pairwise_acc_fast`, `_mxu`. K1, K1a, K1b and K1d split their sources over
+  a second grid dimension (`source_splits`) and add the splits' partials in
+  a second pass;
 - `pairwise_acc_jerk`: `nbx_torch/csrc/pairwise_accjerk.cu` (K6);
 - `potential_per_body`: `nbx_torch/csrc/potential.cu` (K3).
 
@@ -36,11 +36,11 @@ from nbx_torch.ops import _build
 PRECISIONS = ("f32r", "f32", "fast", "hyb", "bf16", "mxu")
 TILE = 256  # the card kernels' source tile, over which "fast", "hyb" and "mxu" centre
 SPLIT_GRID = 512  # the blocks a split kernel's grid aims at (about 4 a Hopper SM)
-HYB_TARGETS = 4  # K1d's targets a thread (kTargets in csrc/pairwise_precision.cu)
-# The kernels that split their sources: K1b "fast" (a warp per 16 targets)
-# and K1d "hyb" (HYB_TARGETS a thread): targets a block, floats a target of
-# each split's partials.
-SPLIT_KERNELS = {"fast": (128, 4), "hyb": (256 * HYB_TARGETS, 3)}
+TARGETS = 4  # targets a thread of K1, K1a and K1d (kTargets in their csrc/*.cu)
+# The kernels that split their sources: K1 "f32r", K1a "f32" and K1d "hyb"
+# (256 threads of TARGETS targets) and K1b "fast" (a warp per 16 targets):
+# targets a block, floats a target of each split's partials.
+SPLIT_KERNELS = {"f32r": (256 * TARGETS, 3), "f32": (256 * TARGETS, 4), "fast": (128, 4), "hyb": (256 * TARGETS, 3)}
 
 
 def check_precision(precision: str) -> str:
@@ -69,8 +69,12 @@ def source_splits(nt: int, ns: int, rows: int, tile: int = TILE) -> int:
     return -(-tiles // (tiles // want))
 
 
-def _f32r_rows(pos, mass, eps2, tile):
-    """K1's sum: acc_i = sum_j m_j d (|d|^2 + eps^2)^-3/2, d = p_j - p_i."""
+def _f32r_rows(pos, mass, eps2, tile, splits=1):
+    """K1's sum: acc_i = sum_j m_j d (|d|^2 + eps^2)^-3/2, d = p_j - p_i, in
+    torch's order. `splits` is not read: nothing cancels in K1 (the self
+    pair adds w 0 = 0 exactly), so the kernel's order of its runs, tiles and
+    FMAs moves the sum by float32 roundings of its terms only, well inside
+    KERNEL_TOL."""
     def rows(t):
         d = pos[None, :, :] - t[:, None, :]  # [B, Ns, 3]
         r2 = (d * d).sum(-1) + eps2
@@ -129,7 +133,7 @@ def _block_centroids(pos: torch.Tensor, tile: int) -> torch.Tensor:
     return _running_sum(blocks[:, 0], blocks[:, 1:].unbind(1)) / tile
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def _fma_odd(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """a b + c rounded once to float32, as a fused multiply-add rounds it:
     the exact product in float64, the sum rounded to odd (the float64 sum
     moved one ulp towards its rounding error where that error is not 0 and
@@ -141,6 +145,70 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     err = (p - (s - back)) + (c - back)  # s + err = p + c exactly
     odd = (err != 0) & ((s.view(torch.int64) & 1) == 0)
     return torch.where(odd, torch.nextafter(s, torch.copysign(torch.full_like(s, torch.inf), err)), s).float()
+
+
+_LOW29, _MID = (1 << 29) - 1, 1 << 28  # the float64 bits below a float32's last; a float32 midpoint's
+_ABS, _MIN_NORMAL = (1 << 63) - 1, 0x3810000000000000  # |x|'s bits; FLT_MIN's as a float64
+
+
+def _ties(s: torch.Tensor) -> torch.Tensor:
+    """Where rounding the float64 s to float32 may round twice: s a float32
+    midpoint, or a nonzero below FLT_MIN (where the midpoints lie
+    elsewhere)."""
+    bits = s.view(torch.int64)
+    mag = bits & _ABS
+    return ((bits & _LOW29) == _MID) | ((mag > 0) & (mag < _MIN_NORMAL))
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a b + c rounded once to float32, as a fused multiply-add rounds it.
+    The product of two float32 values is exact in float64, so s = a b + c
+    rounded to float64 and then to float32 is the fused result wherever that
+    second rounding is no tie (`_ties`); those few elements are rounded to
+    odd (`_fma_odd`)."""
+    s = a.double() * b.double() + c.double()
+    out = s.float()
+    at = _ties(s).nonzero(as_tuple=True)
+    if at[0].numel():
+        a, b, c = torch.broadcast_tensors(a, b, c)
+        out[at] = _fma_odd(a[at], b[at], c[at])
+    return out
+
+
+_SMALL, _RUN = 4096, 16  # elements of a small chain's acc; lanes a tie check covers there
+
+
+def _fma_lanes(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """acc = fma(a[..., k, None], b[:, k], acc) for each lane k in turn (a
+    [B, T, tile], b [T, tile, C], acc [B, T, C]), as a kernel's chain of
+    FMAs over a tile's lanes: `_fma` step by step. On a small acc, whose
+    steps cost PyTorch's dispatch more than their arithmetic (at N = 128,
+    3x), the check for ties is made once for each run of _RUN lanes: a tie
+    rounds wrongly only where the float64 sum s = p + c was inexact, which
+    shows as s - p != c or s - c != p (the larger of p and c lies within a
+    factor 2 of s, or the two sum exactly), and a run that met one is summed
+    again by `_fma`. On a larger acc the stacked runs cost more memory
+    traffic than they save."""
+    if acc.numel() > _SMALL:
+        for k in range(a.shape[-1]):
+            acc = _fma(a[..., k, None], b[:, k], acc)
+        return acc
+    a64, b64 = a.double().movedim(-1, 0)[..., None], b.double().movedim(1, 0)  # lane-major
+    for k0 in range(0, a.shape[-1], _RUN):
+        lanes = range(k0, min(k0 + _RUN, a.shape[-1]))
+        start, c64, steps = acc, acc.double(), []
+        for k in lanes:
+            p = a64[k] * b64[k]
+            s = p + c64
+            acc = s.float()
+            steps.append((p, c64, s))
+            c64 = acc.double()
+        p, c, s = (torch.stack(x) for x in zip(*steps))
+        if (_ties(s) & ((s - p != c) | (s - c != p) | (s.abs() < 2.0**-126))).any():
+            acc = start
+            for k in lanes:
+                acc = _fma(a[..., k, None], b[:, k], acc)
+    return acc
 
 
 def _running_sum(zero: torch.Tensor, terms) -> torch.Tensor:
@@ -165,18 +233,22 @@ def _split_sum(parts: torch.Tensor, splits: int) -> torch.Tensor:
     return _running_sum(sums[0], sums[1:])
 
 
-def _f32_rows(pos, mass, eps2, tile):
+def _f32_rows(pos, mass, eps2, tile, splits=1):
     """"f32" (K1a): o = sum_j f_ij S_j with f = (|d|^2 + eps^2)^-3/2 and S
     mass-folded, then the cancellation o_xyz - p_i o_m over the whole source
-    range (`nbx/ops/pairwise.py:84-90`). Summed as the kernel sums: each
-    tile's lanes in turn, then the tiles in turn."""
+    range (`nbx/ops/pairwise.py:84-90`). Rounded and summed as the kernel
+    rounds and sums: r^2 = fma(dz, dz, fma(dy, dy, fma(dx, dx, eps^2))), each
+    tile's lanes in turn into o = fma(f, S_j, o), then the tiles as `splits`
+    runs (`_split_sum`)."""
     p, s = _tiles(pos, tile), _tiles(_mass_folded(pos, mass), tile)  # [T, tile, 3], [T, tile, 4]
+    e2 = pos.new_tensor(eps2)
 
     def rows(t):
-        f = _inv3(p.flatten(0, 1), t, eps2).unflatten(1, p.shape[:2])  # [B, T, tile]
-        zero = f.new_zeros((t.shape[0], p.shape[0], 4))
-        part = _running_sum(zero, (f[..., k, None] * s[:, k] for k in range(tile)))  # [B, T, 4]
-        o = _running_sum(zero[:, 0], part.unbind(1))
+        dx, dy, dz = (p.flatten(0, 1)[None] - t[:, None]).unbind(-1)  # [B, T tile]
+        inv = torch.rsqrt(_fma(dz, dz, _fma(dy, dy, _fma(dx, dx, e2))))
+        f = (inv * inv * inv).unflatten(1, p.shape[:2])  # [B, T, tile]
+        part = _fma_lanes(f, s, f.new_zeros((t.shape[0], p.shape[0], 4)))  # [B, T, 4]
+        o = _split_sum(part, splits)
         return o[:, :3] - t * o[:, 3:]
     return rows
 
@@ -235,9 +307,7 @@ def _hyb_rows(pos, mass, eps2, tile, splits=1):
         ti2 = _fma(zic, zic, _fma(xic, xic, yic * yic))
         inv = torch.rsqrt(torch.clamp_min((ti2 + tj2e) - 2.0 * cross, eps2))
         w = inv * inv * inv * m
-        s = pic.new_zeros(pic.shape)
-        for k in range(tile):
-            s = _fma(w[..., k, None], pc[:, k], s)
+        s = _fma_lanes(w, pc, pic.new_zeros(pic.shape))
         sw = _running_sum(w.new_zeros(w.shape[:2]), w.unbind(2))[..., None]
         return _split_sum(s - pic * sw, splits)
     return rows
@@ -318,8 +388,9 @@ def pairwise_acc_reference(
     "fast", "hyb" and "mxu": their sums run tile by tile, and "fast", "hyb"
     and "mxu" centre on each tile's centroid. Its default is the card kernels' 256;
     `nbx`'s tile_j compares with `nbx`. "f32r" and "bf16" do not read it.
-    `splits` is the number of runs of tiles in which "fast" and "hyb" add
-    their tiles; by default their kernels' (`source_splits` of the shapes)."""
+    `splits` is the number of runs of tiles in which "f32", "fast" and "hyb"
+    add their tiles; by default their kernels' (`source_splits` of the
+    shapes). "f32r" sums in torch's order whatever it is."""
     if target_pos is None:
         target_pos = pos
     if check_precision(precision) in SPLIT_KERNELS:
@@ -380,10 +451,10 @@ def _direct_sum(wrapper, entry: str, pos, mass, G: float, softening: float, targ
     the sources as float4 (x, y, z, m), launch csrc/<kernel>.cu's `entry` on
     (targets, sources, *extras(), acc, Nt, Ns, G, eps^2) and count it on
     `wrapper.launches`. `extras` builds the further inputs (contiguous
-    float32 tensors, or None for a null pointer) once the inputs passed. A
-    kernel that splits its sources takes `split` = (targets a block, floats
-    a target of the partials): the partials [S, Nt, width] follow the
-    extras, and the tiles a split after eps^2."""
+    float32 tensors) once the inputs passed. A kernel that splits its
+    sources takes `split` = (targets a block, floats a target of the
+    partials): the partials [S, Nt, width] follow the extras, and the tiles
+    a split after eps^2."""
     ns, nt = pos.shape[0], target_pos.shape[0]
     _check("pos", pos, (ns, 3), pos.device)
     _check("mass", mass, (ns,), pos.device)
@@ -401,7 +472,7 @@ def _direct_sum(wrapper, entry: str, pos, mass, G: float, softening: float, targ
         more += (torch.empty((splits, nt, width), dtype=torch.float32, device=pos.device),)
         ints = (split_tiles(ns, splits),)
     _launch(kernel, [_P] * (3 + len(more)) + [_I, _I, _F, _F] + [_I] * len(ints) + [_P], pos.device,
-            tgt.data_ptr(), src.data_ptr(), *(None if x is None else x.data_ptr() for x in more), acc.data_ptr(),
+            tgt.data_ptr(), src.data_ptr(), *(x.data_ptr() for x in more), acc.data_ptr(),
             nt, ns, float(G), eps2_of(softening), *ints, entry=entry)
     wrapper.launches += 1
     return acc
@@ -430,27 +501,27 @@ def pairwise_acc(
         target_pos = pos
     if not _on_card("pairwise_acc", pos, softening):
         return pairwise_acc_reference(pos, mass, G, softening, target_pos)
-    return _direct_sum(pairwise_acc, "nbx_pairwise_f32r", pos, mass, G, softening, target_pos, "pairwise_f32r")
+    return _direct_sum(pairwise_acc, "nbx_pairwise_f32r", pos, mass, G, softening, target_pos, "pairwise_f32r",
+                       split=SPLIT_KERNELS["f32r"])
 
 
 pairwise_acc.launches = 0
 
 
-# Each study precision's kernel: its source csrc/<source>.cu, whose entry
-# nbx_pairwise_<precision> takes these operands after the sources: "S" the
-# mass-folded S, None a null pointer in S's place. "mxu"'s S is the raw
-# coordinates, which the sources hold, and "hyb" centres them itself, so
-# their entries take none. "fast" and "hyb" then take their partials
-# (SPLIT_KERNELS).
-VARIANT_KERNEL = {"f32": ("pairwise_precision", ("S",)), "fast": ("pairwise_fast", ("S",)),
-                  "hyb": ("pairwise_precision", ()), "bf16": ("pairwise_precision", (None,)),
-                  "mxu": ("pairwise_mxu", ())}
+# Each study precision's kernel: its source csrc/<source>.cu, and whether
+# its entry nbx_pairwise_<precision> takes the mass-folded S after the
+# sources. "mxu"'s S is the raw coordinates, which the sources hold, "hyb"
+# centres them itself and "bf16" folds nothing, so their entries take none.
+# The split kernels then take their partials (SPLIT_KERNELS).
+VARIANT_KERNEL = {"f32": ("pairwise_precision", True), "fast": ("pairwise_fast", True),
+                  "hyb": ("pairwise_precision", False), "bf16": ("pairwise_precision", False),
+                  "mxu": ("pairwise_mxu", False)}
 
 
 def _precision_wrapper(precision: str):
     """The wrapper of one study precision's kernel (VARIANT_KERNEL), with its
     own `.launches`."""
-    kernel, operands = VARIANT_KERNEL[precision]
+    kernel, folded = VARIANT_KERNEL[precision]
 
     def wrapper(pos: torch.Tensor, mass: torch.Tensor, G: float, softening: float,
                 target_pos: torch.Tensor | None = None) -> torch.Tensor:
@@ -459,7 +530,7 @@ def _precision_wrapper(precision: str):
         if not _on_card(wrapper.__name__, pos, softening):
             return pairwise_acc_reference(pos, mass, G, softening, target_pos, precision=precision)
         return _direct_sum(wrapper, f"nbx_pairwise_{precision}", pos, mass, G, softening, target_pos, kernel,
-                           lambda: tuple(None if x is None else _mass_folded(pos, mass) for x in operands),
+                           lambda: (_mass_folded(pos, mass),) if folded else (),
                            SPLIT_KERNELS.get(precision))
 
     wrapper.__name__ = wrapper.__qualname__ = f"pairwise_acc_{precision}"

@@ -28,8 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (LADDER, SHORT_LAST_SPLIT_N, TENSOR_CORE_VARIANTS, VARIANT_TOL, VARIANTS, ladder_ratios,
-                        rand_vel, variant_tol, within_ladder)
+from chip_smoke import (BITWISE, LADDER, SHORT_LAST_SPLIT_N, TENSOR_CORE_VARIANTS, VARIANT_TOL, VARIANTS,
+                        ladder_ratios, rand_vel, variant_tol, within_ladder)
 from nbx_torch import collisions_scaled, integrators, scene, sim
 from nbx_torch.bench import drift, layoutsplit, layoutvar
 from nbx_torch.bench.granular import granular_cloud
@@ -66,7 +66,10 @@ def _rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-@pytest.mark.parametrize("nt,ns", [(4096, 4096), (1000, 4096), (777, 3001), (1, 300), (257, 255)])
+# the last two split K1's sources: 512 blocks at the drift gate's 16,384 (16 x S = 32),
+# 27 runs of 3 tiles and 1 at SHORT_LAST_SPLIT_N
+@pytest.mark.parametrize("nt,ns", [(4096, 4096), (1000, 4096), (777, 3001), (1, 300), (257, 255), (16384, 16384),
+                                   (SHORT_LAST_SPLIT_N, SHORT_LAST_SPLIT_N)])
 def test_kernel_matches_plain(dev, nt, ns):
     pos, mass = _rand(ns, ns, dev)
     tgt, _ = _rand(nt, nt + 1, dev)
@@ -735,10 +738,10 @@ def test_sharded_granular_steps_on_card_match_cpu(dev, force):
 
 # ---- the precision variants of K1: K1a "f32", K1b "fast", K1d "hyb", K1e "bf16", K1c "mxu"
 # Bars, max|kernel - plain| / max|plain| (VARIANT_TOL, shared with chip_smoke.py): 1e-6
-# for "f32" and "hyb", measured bitwise (0), and "hyb" is held bitwise: their plain
-# versions round every product and sum where the kernels round them and sum in the
-# kernels' order (a tile's lanes in turn, then the tiles; "hyb"'s runs of tiles, then
-# the runs), and torch.rsqrt on the card is rsqrtf; their cancellations (o - p_i sum f m,
+# for "f32" and "hyb", measured bitwise (0), and both are held bitwise (BITWISE): their
+# plain versions round every product and sum where the kernels round them and sum in the
+# kernels' order (a tile's lanes in turn, then the tiles of a run, then the runs), and
+# torch.rsqrt on the card is rsqrtf; their cancellations (o - p_i sum f m,
 # s - (p_i - c) sum w) would turn any other order into a few ulps of the self pair's term,
 # up to 1e-3 of max|acc|. 1e-5 for "bf16", measured at most 1.06e-6: it sums its rows in
 # torch's order, and nothing there cancels. "fast" and "mxu" sum their bf16 products on
@@ -747,8 +750,9 @@ def test_sharded_granular_steps_on_card_match_cpu(dev, force):
 # (variant_tol; PRECISION_SHAPES draw their targets apart from the sources). The ladder
 # (LADDER): against a float64 sum on tests/test_tpu_only.py's _rand(2048, seed=1), bf16's
 # error also > 0; fast's and mxu's bodies' errors at the median and the 99th percentile
-# within 1.1x of their plain version's, either way (chip_smoke.ladder_ratios). "fast" and
-# "hyb" split their sources (pairwise.source_splits); the same inputs give the same bits.
+# within 1.1x of their plain version's, either way (chip_smoke.ladder_ratios). K1 "f32r",
+# "f32", "fast" and "hyb" split their sources (pairwise.source_splits; K1 at its own bar,
+# VARIANT_TOL["f32r"] = 1e-5); the same inputs give the same bits.
 
 PRECISION_SHAPES = [(4096, 4096), (1000, 4096), (777, 3001), (1, 300), (257, 255)]
 
@@ -813,18 +817,27 @@ def test_precision_kernel_error_ladder(dev, precision):
         assert within_ladder(ladder_ratios(got, plain, want))
 
 
-# (nt, ns): one tile (S = 1), S = 16 of one tile each, hyb's 27 runs of 3 tiles and 1
-HYB_SPLIT_SHAPES = [(777, 255), (4096, 4096), (SHORT_LAST_SPLIT_N, SHORT_LAST_SPLIT_N)]
+# (nt, ns): one tile (S = 1), S = 16 of one tile each, 27 runs of 3 tiles and 1
+BITWISE_SPLIT_SHAPES = [(777, 255), (4096, 4096), (SHORT_LAST_SPLIT_N, SHORT_LAST_SPLIT_N)]
 
 
-@pytest.mark.parametrize("nt,ns", HYB_SPLIT_SHAPES)
-def test_hyb_kernel_is_bitwise_its_plain_version_at_every_split(dev, nt, ns):
+def _bitwise_at_split(dev, precision, nt, ns):
     pos, mass = _rand(ns, 11, dev)
     tgt, _ = _rand(nt, 12, dev)
-    s = pairwise.source_splits(nt, ns, pairwise.SPLIT_KERNELS["hyb"][0])
+    s = pairwise.source_splits(nt, ns, pairwise.SPLIT_KERNELS[precision][0])
     assert (s == 1) == (ns <= pairwise.TILE)
-    got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5, tgt, "hyb")
-    assert torch.equal(got, pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, tgt, precision="hyb"))
+    got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5, tgt, precision)
+    assert torch.equal(got, pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, tgt, precision=precision))
+
+
+@pytest.mark.parametrize("nt,ns", BITWISE_SPLIT_SHAPES)
+def test_hyb_kernel_is_bitwise_its_plain_version_at_every_split(dev, nt, ns):
+    _bitwise_at_split(dev, "hyb", nt, ns)
+
+
+@pytest.mark.parametrize("nt,ns", BITWISE_SPLIT_SHAPES)
+def test_f32_kernel_is_bitwise_its_plain_version_at_every_split(dev, nt, ns):
+    _bitwise_at_split(dev, "f32", nt, ns)
 
 
 @pytest.mark.parametrize("precision", list(pairwise.SPLIT_KERNELS))
@@ -849,7 +862,7 @@ def test_split_kernel_below_flt_min_takes_rsqrtf(dev, precision):
     got = pairwise.pairwise_acc(pos, mass, 0.5, 1e-20, tgt, precision)
     want = pairwise.pairwise_acc_reference(pos, mass, 0.5, 1e-20, tgt, precision=precision)
     assert torch.isfinite(got).all() and _rel_err(got, want) < variant_tol(precision, self_pairs=False)
-    assert precision != "hyb" or torch.equal(got, want)
+    assert precision not in BITWISE or torch.equal(got, want)
 
 
 @pytest.mark.parametrize("precision", list(pairwise.SPLIT_KERNELS))

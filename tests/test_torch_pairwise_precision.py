@@ -17,8 +17,11 @@ Bars, max|port - nbx| / max|nbx|, from the measured values:
 - "bf16" 1e-5 (measured at most 4.0e-7): the same bf16 and float32
   roundings at the same points; only the float32 row sums run in another
   order, and nothing cancels.
-- "f32" 2e-3 (measured at most 1.21e-3, at n = 64), "fast" 2e-3 (at most
-  1.30e-3, at n = 300), "hyb" 2e-3 (at most 1.71e-3, at n = 64; with the
+- "f32" 2e-3 (measured at most 1.21e-3, at n = 64; with the kernel's FMAs
+  in r^2 and the sums followed in its plain version: 1.213e-3, 3.988e-4,
+  2.867e-4, 1.654e-4 on n = 64, 300, 777 and "rect", the FMA-free sums'
+  values to four digits), "fast" 2e-3 (at most 1.30e-3, at n = 300), "hyb"
+  2e-3 (at most 1.71e-3, at n = 64; with the
   kernel's FMAs followed in its plain version: 1.712e-3, 4.093e-4,
   2.513e-4, 2.171e-4 on n = 64, 300, 777 and "rect", where FMA-free sums
   gave 1.712e-3, 3.366e-4, 2.513e-4, 2.171e-4). These cancel, and XLA's dot and mean and the port sum in other orders. "f32"
@@ -216,6 +219,45 @@ def test_fma_rounds_once():
     a = torch.full((3,), 1 + 2**-12)
     got = pairwise._fma(a, a, torch.tensor([2**-60, -(2**-60), 0.0])).double()
     assert ((got - 1) * 2**23).tolist() == [4097.0, 4096.0, 4096.0]
+
+
+def _tied(gen, shape):
+    """1 + j 2^-12 for odd j < 2^10: the product of two is 1 + (i + j) 2^-12
+    + i j 2^-24, a float32 midpoint, so that adding a tiny c rounds twice
+    through float64."""
+    return 1 + (torch.randint(0, 2**9, shape, generator=gen) * 2 + 1).float() * 2.0**-12
+
+
+def _tiny(gen, shape):
+    """+-k 2^e, e from -150 (float32's subnormals) to -40."""
+    return (torch.randint(-8, 9, shape, generator=gen).float()
+            * 2.0 ** torch.randint(-150, -40, shape, generator=gen).double()).float()
+
+
+def test_fma_is_the_fma_rounded_to_odd():
+    """`_fma` (the float64 sum, rounded to odd only where `_ties` finds a
+    tie) is bitwise `_fma_odd` (rounded to odd everywhere): on random
+    values, on products that tie plus a tiny c (rounded twice through
+    float64 otherwise) and on sums below FLT_MIN."""
+    gen = torch.Generator().manual_seed(0)
+    n = 20_000
+    for a, b, c in ((torch.randn(3, n, generator=gen) * 30).unbind(0),
+                    (_tied(gen, (n,)), _tied(gen, (n,)), _tiny(gen, (n,))),
+                    (_tiny(gen, (n,)) * 2.0**60, _tiny(gen, (n,)) * 2.0**30, _tiny(gen, (n,)))):
+        assert torch.equal(pairwise._fma(a, b, c).view(torch.int32), pairwise._fma_odd(a, b, c).view(torch.int32))
+
+
+@pytest.mark.parametrize("rows", [8, 1024])  # a small chain (runs of lanes checked at once) and a large one
+def test_fma_lanes_is_fma_lane_by_lane(rows):
+    """`_fma_lanes` is bitwise `_fma_odd` lane after lane, on products that
+    tie, from a tiny start (so that the first lane rounds twice through
+    float64 unless caught)."""
+    gen = torch.Generator().manual_seed(rows)
+    a, b = _tied(gen, (rows, 3, 128)), _tied(gen, (3, 128, 4))
+    acc = want = _tiny(gen, (rows, 3, 4))
+    for k in range(128):
+        want = pairwise._fma_odd(a[..., k, None], b[:, k], want)
+    assert torch.equal(pairwise._fma_lanes(a, b, acc).view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("precision", VARIANTS)

@@ -1,17 +1,22 @@
-"""The source split of the direct sums "fast" (K1b) and "hyb" (K1d): the
-split helper `source_splits`, and the plain versions that add their tiles
-as the split kernels do, against `nbx` on the CPU.
+"""The source split of the direct sums K1 "f32r", K1a "f32", K1b "fast" and
+K1d "hyb": the split helper `source_splits`, and the plain versions that add
+their tiles as the split kernels do, against `nbx` on the CPU.
 
 A split kernel sums its targets against runs of whole source tiles, one run
 a block, and a second pass adds the runs' partials in order. The plain
-versions (`_fast_rows`, `_hyb_rows`) take `splits=` and add each run's tiles
-in turn, then the runs in turn; with one run that is the sum of the tiles in
-turn. Against `nbx` (its Pallas kernels in interpret mode at tile_i=8,
-tile_j=128, compiled with `xla_allow_excess_precision` off, as
+versions of the cancelling variants (`_f32_rows`, `_fast_rows`,
+`_hyb_rows`) take `splits=` and add each run's tiles in turn, then the runs
+in turn; with one run that is the sum of the tiles in turn. Against `nbx`
+(its Pallas kernels in interpret mode at tile_i=8, tile_j=128, compiled
+with `xla_allow_excess_precision` off, as
 `tests/test_torch_pairwise_precision.py` runs them) the bars are that
-file's: 2e-3 of max|nbx| for both ("fast" and "hyb" cancel a self pair's
-term, and the two sum in other orders; measured there at most 1.30e-3 and
-1.71e-3). Splitting moves only the order of the tiles' float32 additions.
+file's: 2e-3 of max|nbx| for the three ("f32", "fast" and "hyb" cancel a
+self pair's term, and the two sides sum in other orders; measured there at
+most 1.21e-3, 1.30e-3 and 1.71e-3). Splitting moves only the order of the
+tiles' float32 additions. "f32r"'s plain version sums in torch's order
+whatever the split (nothing cancels in K1, so the kernel's order moves it
+by roundings of its terms only): against `nbx` it keeps the 1e-5 bar of
+`tests/test_torch_pairwise.py`.
 """
 
 import functools
@@ -26,7 +31,8 @@ from nbx_torch.ops import pairwise
 
 torch.set_num_threads(1)
 
-NBX_BAR = {"fast": 2e-3, "hyb": 2e-3}  # tests/test_torch_pairwise_precision.py's
+NBX_BAR = {"f32r": 1e-5, "f32": 2e-3, "fast": 2e-3, "hyb": 2e-3}  # test_torch_pairwise{,_precision}.py's
+CANCELLING = ("f32", "fast", "hyb")  # the split kernels whose plain versions follow the runs
 NO_EXCESS = {"xla_allow_excess_precision": False}
 TILE = 128  # nbx's tile_j, over which both centre
 CASES = ["300", "777", "rect"]  # 3, 7 and 3 source tiles
@@ -66,10 +72,19 @@ def _plain(precision, case, splits, tile=TILE):
     return pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, tgt, precision=precision, tile=tile, splits=splits)
 
 
-# (nt, ns) -> S of "fast" (128 targets a block) and "hyb" (1,024)
-SPLIT_SHAPES = {(16_384, 16_384): (4, 32), (262_144, 262_144): (1, 2), (1_048_576, 1_048_576): (1, 1),
-                (4_096, 4_096): (16, 16), (1_000, 4_096): (16, 16), (777, 3_001): (12, 12), (100, 255): (1, 1),
-                (5, 0): (1, 1), (25_600, 1_792): (4, 7), (204_800, 1_792): (1, 4)}
+def _splits(fast, rows_1024):
+    """S of each split kernel: "fast" (128 targets a block), and "f32r",
+    "f32" and "hyb" (1,024)."""
+    return {"f32r": rows_1024, "f32": rows_1024, "fast": fast, "hyb": rows_1024}
+
+
+# (nt, ns) -> S of each split kernel; (262,144, 1,048,576) is the 1M
+# all-gather step's shard at D = 4
+SPLIT_SHAPES = {(16_384, 16_384): _splits(4, 32), (262_144, 262_144): _splits(1, 2),
+                (1_048_576, 1_048_576): _splits(1, 1), (4_096, 4_096): _splits(16, 16),
+                (1_000, 4_096): _splits(16, 16), (777, 3_001): _splits(12, 12), (100, 255): _splits(1, 1),
+                (5, 0): _splits(1, 1), (25_600, 1_792): _splits(4, 7), (204_800, 1_792): _splits(1, 4),
+                (262_144, 1_048_576): _splits(1, 2)}
 
 
 @pytest.mark.parametrize("nt,ns", list(SPLIT_SHAPES))
@@ -79,7 +94,8 @@ def test_source_splits_cover_whole_tiles(nt, ns):
     of (25,600, 1,792) and (204,800, 1,792) one tile to the others' two),
     and the grid at SPLIT_GRID blocks or more where the tiles allow it."""
     tiles = max(1, -(-ns // pairwise.TILE))
-    for precision, want in zip(("fast", "hyb"), SPLIT_SHAPES[nt, ns]):
+    assert set(SPLIT_SHAPES[nt, ns]) == set(pairwise.SPLIT_KERNELS)
+    for precision, want in SPLIT_SHAPES[nt, ns].items():
         rows = pairwise.SPLIT_KERNELS[precision][0]
         s = pairwise.source_splits(nt, ns, rows)
         per = pairwise.split_tiles(ns, s)
@@ -90,9 +106,9 @@ def test_source_splits_cover_whole_tiles(nt, ns):
 
 
 def test_drift_gate_grid_is_four_times_wider():
-    """At the drift gate's 16,384 bodies both kernels split, and their grids
-    hold at least 4x the 64 blocks of one thread a target."""
-    for precision in ("fast", "hyb"):
+    """At the drift gate's 16,384 bodies every split kernel splits, and its
+    grid holds at least 4x the 64 blocks of one thread a target."""
+    for precision in pairwise.SPLIT_KERNELS:
         rows = pairwise.SPLIT_KERNELS[precision][0]
         s = pairwise.source_splits(16_384, 16_384, rows)
         assert s > 1 and -(-16_384 // rows) * s >= 4 * 64
@@ -103,7 +119,7 @@ def _tiles_in_turn(parts, splits):
     return pairwise._running_sum(parts.new_zeros((parts.shape[0], parts.shape[2])), parts.unbind(1))
 
 
-@pytest.mark.parametrize("precision", ["fast", "hyb"])
+@pytest.mark.parametrize("precision", CANCELLING)
 @pytest.mark.parametrize("case", CASES)
 def test_one_split_is_the_sum_of_the_tiles_in_turn(precision, case, monkeypatch):
     """splits=1 is bitwise the plain version that adds its tiles in turn,
@@ -113,12 +129,21 @@ def test_one_split_is_the_sum_of_the_tiles_in_turn(precision, case, monkeypatch)
     assert torch.equal(got, _plain(precision, case, 1, pairwise.TILE))
 
 
-@pytest.mark.parametrize("precision", ["fast", "hyb"])
+@pytest.mark.parametrize("precision", CANCELLING)
 @pytest.mark.parametrize("splits", [2, 3, None])
 @pytest.mark.parametrize("case", CASES)
 def test_split_plain_version_matches_nbx(precision, splits, case):
     """Two runs, three (7 tiles: 3, 3, 1) and the kernels' own S."""
     assert _rel(_plain(precision, case, splits).numpy(), _nbx(precision, case)) < NBX_BAR[precision]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_f32r_plain_version_at_the_kernels_splits_matches_nbx(case):
+    """"f32r" at the kernels' S (and at 1 and 3, bitwise the same: its
+    plain version sums in torch's order) within 1e-5 of `nbx`."""
+    got = _plain("f32r", case, None)
+    assert all(torch.equal(got, _plain("f32r", case, s)) for s in (1, 3))
+    assert _rel(got.numpy(), _nbx("f32r", case)) < NBX_BAR["f32r"]
 
 
 def test_split_sum_adds_each_run_then_the_runs():
