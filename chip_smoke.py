@@ -140,23 +140,25 @@ and `latency` entries with `precision`) and the layout probes
      algorithms; one pm step under set_sync_debug_mode("error"); 3 steps at
      N = 4,096 with pm and auto on the card and on the CPU
  25. the precision variants of the direct sum, K1a "f32", K1d "hyb" and K1e
-     "bf16" (csrc/pairwise_precision.cu), K1b "fast" (csrc/pairwise_fast.cu)
-     and K1c "mxu" (csrc/pairwise_mxu.cu), fast and mxu with their bf16
-     products on the tensor cores, f32, fast and hyb with their sources
-     split over a second grid dimension: each kernel against its plain version
-     (N = 4,096 random, 1,000 of its targets x 4,096, 1,000 separate
-     targets x 4,096, 777 x 3,001 ragged, 777 x 255 (one tile, one split),
-     a shape whose last split is shorter, mass-0 padding, the
-     cold-collapse disk's first 4,096 targets at 262,144; f32 and hyb
-     bitwise, f32, fast and hyb twice on the same inputs bitwise) and
-     against its ladder bar over a float64 sum (fast's and mxu's bodies'
-     errors also within 1.1x their plain version's, either way, at the
-     median and the 99th percentile); fast and mxu on 25,600 targets among
-     1,792 sources by the distance to the nearest source (not gated); the
-     split grids of K1 and the three at 16,384 and 262,144; each timed at
-     262,144 and at 16,384 in turns with K1, with its plain version;
-     `bench.sass` on K1, f32, fast, hyb and bf16 (fast's inner loop runs
-     HMMA); `bench throughput` with f32r and the five in one process;
+     "bf16" (csrc/pairwise_precision.cu, bf16 in packed bf16x2 registers),
+     K1b "fast" (csrc/pairwise_fast.cu) and K1c "mxu" (csrc/pairwise_mxu.cu),
+     fast and mxu with their bf16 products on the tensor cores, all five
+     with their sources split over a second grid dimension: each kernel
+     against its plain version (N = 4,096 random, 1,000 of its targets x
+     4,096, 1,000 separate targets x 4,096, 777 x 3,001 ragged, 777 x 255
+     (one tile, one split), a shape whose last split is shorter, softening
+     1e-20 (the rsqrtf instantiation), mass-0 padding, the cold-collapse
+     disk's first 4,096 targets at 262,144; f32 and hyb bitwise, each twice
+     on the same inputs bitwise) and against its ladder bar over a float64
+     sum (fast's and mxu's bodies' errors also within 1.1x their plain
+     version's, either way, at the median and the 99th percentile); fast
+     and mxu on 25,600 targets among 1,792 sources by the distance to the
+     nearest source (not gated); the split grids of K1 and the five at
+     16,384 and 262,144; each timed at 262,144 and at 16,384 in turns with
+     K1, with its plain version; `bench.cvt_rate`, the conversion loop
+     whose value rate the bounds use (held within 3% of it); `bench.sass` on K1 and the five
+     (fast's inner loop runs HMMA, bf16's HMUL2); `bench throughput` with
+     f32r and the five in one process;
      `bench drift` at each precision (BASELINE config 4's drift at the
      gate's step, a measurement: phase 12 keeps the gate), the variant's
      launches on that path, one 100-step chunk under
@@ -193,12 +195,14 @@ that path gives it at D = 1). The precision variants (pairwise_f32,
 pairwise_fast, pairwise_hyb, pairwise_bf16, pairwise_mxu) launch on `bench
 drift`'s path at their precision (phase 25: main's warm-up force and the
 run's 10,001) and are timed at 262,144 (ms, bound_ms) and at that path's
-16,384 (ms_drift_shape, bound_ms_drift_shape); their bounds add the
-float32-to-bf16 conversion instructions over 16 a clock an SM, and fast's
-and mxu's the tensor cores' bf16 FLOPs over 989 TFLOP/s. A call of K1, f32,
-fast or hyb launches two kernels, the split sum and `combine_splits`: their
-`launches` count calls of that pair, and `ms` and `ms_drift_shape` time
-both (phases 12 and 25 print the combine's device time on the drift path).
+16,384 (ms_drift_shape, bound_ms_drift_shape); their bounds add the values
+they convert from float32 to bf16, over the rate `bench.cvt_rate` measured
+(CVT_PEAK), fast's and mxu's the tensor cores' bf16 FLOPs over 989
+TFLOP/s, and bf16's 7 packed bf16 products a pair over 133.8 TFLOP/s on
+the lanes its FP32 operations use (BF16_PEAK). A call of K1 or of a variant launches two kernels, the split sum
+and `combine_splits`: their `launches` count calls of that pair, and `ms`
+and `ms_drift_shape` time both (phases 12 and 25 print the combine's device
+time on the drift path).
 The probes' records (collide_fused_layoutsplit, collide_fused_layoutvar)
 count K2's launches in each probe's main and are timed on the probe's
 bucket-0 launch (phase 26). A collision pass's bytes count the rows its
@@ -221,7 +225,7 @@ import numpy as np
 import torch
 
 from nbx_torch import collisions_scaled, diagnostics, integrators, scene, sim
-from nbx_torch.bench import collsplit, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
+from nbx_torch.bench import collsplit, cvt_rate, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
 from nbx_torch.bench import layoutsplit, layoutvar, sass, sharded
 from nbx_torch.bench import spatial as spatial_bench
 from nbx_torch.bench.granular import BOX, granular_cloud
@@ -242,6 +246,9 @@ DRIFT_N = 16_384  # the energy-drift gate's Plummer sphere (BASELINE config 3)
 
 # The card's peak rates for the bounds (H100 SXM data sheet, dense, 700 W).
 FP32_PEAK = 67e12  # FP32 operations per second outside the tensor cores
+# bf16 operations per second outside the tensor cores: packed bf16x2, twice
+# the FP32 rate on the same lanes (133.8 TFLOP/s on the data sheet)
+BF16_PEAK = 133.8e12
 HBM_PEAK = 3.35e12  # bytes per second
 # Special-function (MUFU) results per second: 16 per clock per SM, 132 SMs at
 # the 1.98 GHz boost clock behind the FP32 peak (132 x 128 lanes x 2 x 1.98e9).
@@ -265,31 +272,37 @@ PP_REACT_PAIR_OPS = PP_PAIR_OPS + 7
 # K7 on every source lane: K2's overlap test and the P3M law, whose
 # differences and r^2 (8) the two share; the law's three special functions.
 K7_LANE_OPS, K7_LANE_SFU = K2_LANE_OPS + PP_PAIR_OPS - 8, PP_PAIR_SFU
-# Type conversions per second: the CUDA C Programming Guide's throughput table
-# gives compute capability 9.0 16 results a clock an SM for "all other type
-# conversions" (float32 to bf16 among them), the SFU's rate, not the FP32 one.
-# Whether an F2FP that packs two values counts as one result or two is not
-# known, so a bound counts it as one: conversion instructions, not values.
-CVT_PEAK = 132 * 16 * 1.98e9
+# Float32-to-bf16 conversions per second, counted in values: the packed form
+# (cvt.rn.bf16x2.f32, one F2FP for two values), which the kernels issue,
+# measured by `python -m nbx_torch.bench.cvt_rate` (phase 25 runs it) at
+# 61.968 instructions, CVT_VALUES values, a clock an SM (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md, PR 12), at the clock behind the FP32 peak. (The
+# scalar form compiles to F2F and runs at 16 a clock an SM, the programming
+# guide's rate for conversions.) A bound counts the values a formulation
+# converts, whatever instructions a kernel issues for them.
+CVT_VALUES = 123.936
+CVT_PEAK = 132 * CVT_VALUES * 1.98e9
+CVT_VALUES_TOL = 0.03  # phase 25 holds the packed form's measured rate within 3% of CVT_VALUES
 # The precision variants of K1, per pair, counted from their sources: FP32
 # operations (an FMA counts 2, as in the peak); one rsqrt each. f32
 # (csrc/pairwise_precision.cu): 3 differences, r^2 + eps^2 (6), f^3 (2),
 # f S (8). hyb (the same source): the cross term (5, as FMAs), r^2 from it
 # (3: a sum and an FMA), the floor, w (3), the four sums (7: three FMAs and
 # a sum). bf16 (the same source): 3 differences, the float32 sums of r^2
-# (3), f^3 (2), 7 bf16 products, the row sums (3). fast
+# (3), f^3 (2), the row sums (3); and 7 bf16 products, counted apart
+# (VARIANT_PAIR_BF16) at BF16_PEAK. fast
 # (csrc/pairwise_fast.cu): 3 differences, r^2 + eps^2 (6), f^3 (2), f - hi
 # (1), the tile's sums of the chunks' MMAs (1); mxu (csrc/pairwise_mxu.cu):
 # the cross term (5), r^2 from it (4), w (3), w - hi (1), the tile's sums
 # (1). Both run their products on the tensor cores, 2 MMAs (16 x 8 x 16,
-# 4,096 FLOPs each) for a warp's 256 pairs. Float32-to-bf16 conversion
-# instructions a pair, from the SASS (`bench.sass`, PERF.md): bf16 3 F2FP
-# (d's three components and f^3); fast and mxu 1 F2FP (two values' hi, or
-# their lo, packed). The bf16 values go back to float32 by a shift on the
-# integer pipe.
+# 4,096 FLOPs each) for a warp's 256 pairs. Float32-to-bf16 conversions a
+# pair, in values, from the formulations: bf16 4 (d's three components and
+# f^3), fast and mxu 2 (the weight's hi and lo). The bf16 values go back to
+# float32 by a shift or a mask on the integer pipe.
 VARIANTS = ("f32", "fast", "hyb", "bf16", "mxu")
-VARIANT_PAIR_OPS = {"f32": 19, "fast": 13, "hyb": 19, "bf16": 18, "mxu": 14}
-VARIANT_PAIR_CVT = {"f32": 0, "fast": 1, "hyb": 0, "bf16": 3, "mxu": 1}
+VARIANT_PAIR_OPS = {"f32": 19, "fast": 13, "hyb": 19, "bf16": 11, "mxu": 14}
+VARIANT_PAIR_BF16 = {"bf16": 7}
+VARIANT_PAIR_CVT = {"f32": 0, "fast": 2, "hyb": 0, "bf16": 4, "mxu": 2}
 VARIANT_PAIR_TC_FLOPS = {"fast": 2 * 4096 / 256, "mxu": 2 * 4096 / 256}
 VARIANT_SITE = {"f32": 51, "fast": 93, "hyb": 302, "bf16": 400, "mxu": 200}  # nbx/ops/pairwise.py
 TC_PEAK = 989e12  # dense bf16 FLOP/s on the tensor cores
@@ -343,15 +356,17 @@ def within_ladder(ratios: list[float]) -> bool:
     return all(1 / LADDER_VS_PLAIN < r < LADDER_VS_PLAIN for r in ratios)
 
 
-def bound(ops: float, sfu: float, nbytes: float, cvt: float = 0.0, tc_flops: float = 0.0) -> dict:
-    """The least time the card could take: the largest of the FP32
-    operations over the FP32 peak, the special functions over the SFU rate,
-    the type conversions over their rate, the tensor cores' bf16 FLOPs over
-    their rate and the bytes over the memory rate. bound_by is "operations"
-    for any but the last; `pipe` names the term (FP32, SFU, CVT, TC or
-    HBM)."""
-    times = {"FP32": ops / FP32_PEAK * 1e3, "SFU": sfu / SFU_PEAK * 1e3, "CVT": cvt / CVT_PEAK * 1e3,
-             "TC": tc_flops / TC_PEAK * 1e3, "HBM": nbytes / HBM_PEAK * 1e3}
+def bound(ops: float, sfu: float, nbytes: float, cvt: float = 0.0, tc_flops: float = 0.0,
+          bf16_ops: float = 0.0) -> dict:
+    """The least time the card could take: the largest of the CUDA cores'
+    operations (FP32 over the FP32 peak plus bf16 over the BF16 peak: the
+    packed bf16 ones run on the same lanes), the special functions over the
+    SFU rate, the type conversions over their rate, the tensor cores' bf16
+    FLOPs over their rate and the bytes over the memory rate. bound_by is
+    "operations" for any but the last; `pipe` names the term (FP32, SFU,
+    CVT, TC or HBM)."""
+    times = {"FP32": (ops / FP32_PEAK + bf16_ops / BF16_PEAK) * 1e3, "SFU": sfu / SFU_PEAK * 1e3,
+             "CVT": cvt / CVT_PEAK * 1e3, "TC": tc_flops / TC_PEAK * 1e3, "HBM": nbytes / HBM_PEAK * 1e3}
     pipe = max(times, key=times.get)
     return dict(bound_ms=times[pipe], bound_by="bytes" if pipe == "HBM" else "operations", pipe=pipe)
 
@@ -405,8 +420,9 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, phase: int = 2, to
     return abs_err
 
 
-# N whose last split is shorter, every body a target: 79 tiles, fast's 5 runs
-# of 16, 16, 16, 16, 15; K1's, f32's and hyb's 27 of 3, ..., 3, 1
+# N whose last split is shorter, every body a target: 79 tiles, fast's 5
+# runs of 16, 16, 16, 16, 15; mxu's 8 of 10, ..., 10, 9; K1's, f32's, hyb's
+# and bf16's 27 of 3, ..., 3, 1
 SHORT_LAST_SPLIT_N = 20_000
 
 
@@ -2320,7 +2336,7 @@ def phase_sharded_granular(dev, spatial_rows, steps: int = 20, n: int = SCALED_N
     return launches
 
 
-# ---- the precision variants of K1: K1a "f32", K1b "fast", K1d "hyb", K1e "bf16" ----
+# ---- the precision variants of K1: K1a "f32", K1b "fast", K1c "mxu", K1d "hyb", K1e "bf16" ----
 
 def variant_wrapper(precision: str):
     return getattr(pairwise, f"pairwise_acc_{precision}")
@@ -2338,8 +2354,8 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
     """One variant's kernel against its plain version on the card (random,
     rectangular, ragged, one source tile, mass-0 sources, mass-0 padding
     inert, the cold-collapse disk's first 4,096 targets), one launch a call,
-    and its ladder bar against float64; "f32" and "hyb" bitwise, the split
-    kernels twice on the same inputs bitwise. Returns the largest
+    and its ladder bar against float64; "f32" and "hyb" bitwise, each
+    kernel twice on the same inputs bitwise. Returns the largest
     max|kernel - plain|."""
     G, eps, tol = 0.5, 0.5, VARIANT_TOL[precision]
     wrapper = variant_wrapper(precision)
@@ -2349,11 +2365,9 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
         got = pairwise_acc(pos, mass, G, eps, tgt, precision)
         check(wrapper.launches == before + 1, f"{precision}: one launch a call")
         want = pairwise_acc_reference(pos, mass, G, eps, tgt, precision=precision)
-        if precision in pairwise.SPLIT_KERNELS:
-            nt = pos.shape[0] if tgt is None else tgt.shape[0]
-            label += f"; {split_text(precision, nt, pos.shape[0])}"
-            again = pairwise_acc(pos, mass, G, eps, tgt, precision)
-            check(torch.equal(got, again), f"{precision}: two launches bitwise")
+        nt = pos.shape[0] if tgt is None else tgt.shape[0]
+        label += f"; {split_text(precision, nt, pos.shape[0])}"
+        check(torch.equal(got, pairwise_acc(pos, mass, G, eps, tgt, precision)), f"{precision}: two launches bitwise")
         if precision in BITWISE:
             check(torch.equal(got, want), f"{precision} {label}: bitwise its plain version")
         return compare(f"{precision} {label}", got, want, 25, variant_tol(precision, self_pairs))
@@ -2369,11 +2383,10 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
     err = max(err, both("777 targets x 255 sources (one tile: S = 1)", src[:255], m_src[:255], tgt, self_pairs=False))
     src, m_src = rand_bodies(SHORT_LAST_SPLIT_N, 4, dev)
     err = max(err, both(f"N={SHORT_LAST_SPLIT_N} random (a shorter last split)", src, m_src))
-    if precision in pairwise.SPLIT_KERNELS:
-        # eps^2 = 1e-40, below FLT_MIN: their rsqrtf instantiation, on
-        # targets 300 away in each coordinate (nothing near goes unsoftened)
-        err = max(err, both("1000 targets outside 4096 sources, softening 1e-20", pos, mass, sep + 300.0,
-                            self_pairs=False, eps=1e-20))
+    # eps^2 = 1e-40, below FLT_MIN: the rsqrtf instantiation, on targets 300
+    # away in each coordinate (nothing near goes unsoftened)
+    err = max(err, both("1000 targets outside 4096 sources, softening 1e-20", pos, mass, sep + 300.0,
+                        self_pairs=False, eps=1e-20))
     m_pad = mass.clone()
     m_pad[2048:] = 0.0
     err = max(err, both("half the sources mass 0", pos, m_pad))
@@ -2392,8 +2405,7 @@ def variant_checks(dev, precision: str, n_big: int = HEADLINE_N) -> float:
     check(all_finite(got), f"{precision} output finite at N={n_big}")
     # the plain version on the first 4,096 targets, its tiles added in the
     # runs of the kernel's grid over all n_big
-    splits = (pairwise.source_splits(n_big, n_big, pairwise.SPLIT_KERNELS[precision][0])
-              if precision in pairwise.SPLIT_KERNELS else None)
+    splits = pairwise.source_splits(n_big, n_big, pairwise.SPLIT_KERNELS[precision][0])
     want = pairwise_acc_reference(pos, mass, cfg.G, cfg.softening, pos[:4096], precision=precision, splits=splits)
     check(precision not in BITWISE or torch.equal(got, want), f"{precision} on the disk: bitwise its plain version")
     err = max(err, compare(f"{precision} N={n_big} cold_collapse_disk, first 4096 targets", got, want, 25, tol))
@@ -2440,7 +2452,7 @@ def variant_bound(p: str, n: int) -> dict:
     """Variant p's bound for N = n targets and sources."""
     nbytes = n * (12 + 16 + 12) + (16 * n if p in ("f32", "fast") else 0)
     return bound(n * n * VARIANT_PAIR_OPS[p], n * n, nbytes, n * n * VARIANT_PAIR_CVT[p],
-                 n * n * VARIANT_PAIR_TC_FLOPS.get(p, 0.0))
+                 n * n * VARIANT_PAIR_TC_FLOPS.get(p, 0.0), n * n * VARIANT_PAIR_BF16.get(p, 0))
 
 
 def turns_with_k1(args, reps: int, precisions, n: int) -> tuple[dict, list]:
@@ -2491,20 +2503,49 @@ def variant_timings(dev, n: int = HEADLINE_N, n_small: int = DRIFT_N) -> dict:
 
 
 def variant_sass() -> None:
-    """`bench.sass` on K1 and the variants' split kernels: instructions a
-    pair in their inner loops; K1b's products on the tensor cores (HMMA),
-    its FFMAs below the 12 a pair of the CUDA-core products it replaced."""
+    """`bench.sass` on K1 and the variants' kernels: instructions a pair in
+    their inner loops; K1b's and K1c's products on the tensor cores (HMMA),
+    K1b's FFMAs below the 12 a pair of the CUDA-core products it replaced;
+    K1e's products packed (HMUL2), at most 2 F2FP a pair."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rows = sass.main(("pairwise_f32r", "pairwise_fast", "pairwise_precision"))
+        rows = sass.main(("pairwise_f32r", "pairwise_fast", "pairwise_precision", "pairwise_mxu"))
     for r in rows:
         log(25, f"sass {r['function'].split('(')[0]}: {r['pairs_in_loop']} pairs in the loop, "
                 f"{r['instructions_a_pair']:.4f} instructions a pair: "
                 + ", ".join(f"{op} {n:.4g}" for op, n in r["by_opcode"].items()))
-    fast = [r for r in rows if "pairwise_fast_kernel" in r["function"]]
-    check(len(fast) == 2 and all(any(op.startswith("HMMA") for op in r["by_opcode"]) and
-                                 r["by_opcode"].get("FFMA", 0) < 12 for r in fast),
+
+    def loops(name):
+        return [r["by_opcode"] for r in rows if name in r["function"]]
+    check(len(loops("pairwise_fast_kernel")) == 2 and all(
+        any(op.startswith("HMMA") for op in ops) and ops.get("FFMA", 0) < 12 for ops in loops("pairwise_fast_kernel")),
           "K1b's inner loop runs HMMA, with fewer than 12 FFMAs a pair")
+    check(len(loops("pairwise_mxu_kernel")) == 2 and all(
+        any(op.startswith("HMMA") for op in ops) for ops in loops("pairwise_mxu_kernel")), "K1c's inner loop runs HMMA")
+    check(len(loops("pairwise_bf16_kernel")) == 2 and all(
+        any(op.startswith("HMUL2") for op in ops) and sum(n for op, n in ops.items() if op.startswith("F2FP")) <= 2
+        for ops in loops("pairwise_bf16_kernel")), "K1e's inner loop runs HMUL2, at most 2 F2FP a pair")
+
+
+def variant_cvt_rate() -> None:
+    """`bench.cvt_rate`: the conversion loop's rates a clock an SM; the
+    packed form's is held within CVT_VALUES_TOL of the CVT_VALUES that
+    CVT_PEAK holds."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = cvt_rate.main()
+    for r in rows:
+        log(25, f"cvt_rate {r['form']}: {r['instructions_a_clock_an_sm']:.3f} instructions, "
+                f"{r['values_a_clock_an_sm']:.3f} values a clock an SM (SMs {r['least']:.3f} to {r['most']:.3f} "
+                f"values) over {r['sms']} SMs; {r['ms']:.3f} ms, {r['values_per_s']:.4e} values/s, "
+                f"{r['implied_ghz']:.3f} GHz; loop: " + ", ".join(f"{op} {n:g}" for op, n in r["loop_opcodes"].items()))
+    check(all(r["values_a_clock_an_sm"] > 0 and any(op.startswith("F2F") for op in r["loop_opcodes"])
+              for r in rows), "the conversion loops run F2FP / F2F at a positive rate")
+    packed = next(r["values_a_clock_an_sm"] for r in rows if r["form"] == "bf16x2")
+    log(25, f"the bounds count conversions at CVT_VALUES = {CVT_VALUES} values a clock an SM; measured "
+            f"{packed:.3f}, {packed / CVT_VALUES - 1:+.2%} (tol {CVT_VALUES_TOL:.0%})")
+    check(abs(packed / CVT_VALUES - 1) < CVT_VALUES_TOL,
+          f"the packed form's {packed:.3f} values a clock an SM within {CVT_VALUES_TOL:.0%} of CVT_VALUES")
 
 
 def variant_throughput(dev, n: int = HEADLINE_N, reps: int = 10) -> None:
@@ -2540,16 +2581,15 @@ def variant_drift(dev, precision: str, n: int = DRIFT_N, n_steps: int = 10_000, 
         return pairwise_acc(x, mass, G, eps, precision=precision)
     # a measurement: the launches are counted exactly above (the profiler
     # once saw 99 of the 100 variant launches)
-    split = precision in pairwise.SPLIT_KERNELS
     state = integrators.PhaseState(pos, vel, force(pos))
     per_step, wall_ms, dev_ms, own_ms = launches_per_step(
-        state, force, h, diag_every, ("pairwise_", "combine_splits"), 2 if split else 1)
+        state, force, h, diag_every, ("pairwise_", "combine_splits"), 2)
     log(25, f"{precision} under torch.profiler, {diag_every} steps: {per_step:.2f} kernels per step, "
             f"{wall_ms:.4f} wall ms per step, {dev_ms:.4f} device ms per step (busy {dev_ms / wall_ms:.3f}), "
             f"its kernels {own_ms:.4f} of it")
-    if split:  # the share of the second launch, in a chunk of its own
-        *_, combine_ms = launches_per_step(state, force, h, diag_every, ("combine_splits",))
-        log(25, f"{precision}: combine_splits {combine_ms:.4f} device ms per step of the pair's {own_ms:.4f}")
+    # the share of the second launch, in a chunk of its own
+    *_, combine_ms = launches_per_step(state, force, h, diag_every, ("combine_splits",))
+    log(25, f"{precision}: combine_splits {combine_ms:.4f} device ms per step of the pair's {own_ms:.4f}")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2574,8 +2614,9 @@ def variant_steps_vs_cpu(dev, precision: str, n: int = 1024, steps: int = 10) ->
 def phase_precisions(dev, latency_ns=(DRIFT_N, HEADLINE_N)) -> dict:
     """Phase 25: the precision variants K1a, K1b, K1c, K1d, K1e. Each kernel
     against its plain version and its ladder bar; fast's and mxu's errors
-    by the nearest source; each timed at 262,144 and 16,384 beside K1;
-    `bench.sass` on K1 and the variants' kernels; `bench throughput` with
+    by the nearest source; each timed at 262,144 and 16,384 beside K1; the
+    conversion loop (`bench.cvt_rate`); `bench.sass` on K1 and the variants'
+    kernels; `bench throughput` with
     every precision; `bench drift` at each (launches on that path, a
     profiled chunk, one sync-checked chunk); `bench latency`'s step at
     16,384 and 262,144; 10 steps at 1,024 card against CPU. Returns each
@@ -2583,6 +2624,7 @@ def phase_precisions(dev, latency_ns=(DRIFT_N, HEADLINE_N)) -> dict:
     errs = {p: variant_checks(dev, p) for p in VARIANTS}
     near_pairs(dev)
     recs = variant_timings(dev)
+    variant_cvt_rate()
     variant_sass()
     variant_throughput(dev)
     for p in VARIANTS:

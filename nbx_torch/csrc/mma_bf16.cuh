@@ -1,6 +1,7 @@
 // The bf16 tensor-core pieces of the direct sums that run their products as
 // mma.sync.aligned.m16n8k16 (sm_90a): "mxu" (pairwise_mxu.cu, K1c) and
-// "fast" (pairwise_fast.cu, K1b).
+// "fast" (pairwise_fast.cu, K1b); `bits` and `bf162` also serve "bf16"'s
+// packed registers (pairwise_precision.cu, K1e).
 //
 // Fragments of m16n8k16 (a warp; lane l, grp = l / 4, quad = l % 4):
 //   A, 16 x 16 row-major: a0 (row grp, columns 2 quad, 2 quad + 1), a1 (row
@@ -22,6 +23,10 @@ namespace nbx_mma {
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 bf162(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
 }
 
 // hi = bf16(v), lo = bf16(v - hi) of two neighbouring values of an A

@@ -106,16 +106,6 @@ pairwise_f32r_kernel(const float* __restrict__ tgt,   // [nt, 3]
   }
 }
 
-template <bool kFtz>
-int launch(const float* tgt, const float4* src, float* part, float* acc, int nt, int ns, float g, float eps2,
-           int tiles_per_split, cudaStream_t stream) {
-  const int splits = nbx_sum::split_count(ns, tiles_per_split);
-  const dim3 grid((nt + kThreads * kTargets - 1) / (kThreads * kTargets), splits);
-  pairwise_f32r_kernel<kFtz><<<grid, kThreads, 0, stream>>>(tgt, src, part, nt, ns, eps2, tiles_per_split);
-  nbx_sum::combine<3>(part, tgt, acc, nt, splits, g, stream);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. `part` is [splits, nt, 3] float32
@@ -125,13 +115,6 @@ int launch(const float* tgt, const float4* src, float* part, float* acc, int nt,
 // alone where eps^2 is a normal float32, rsqrtf below.
 extern "C" int nbx_pairwise_f32r(const void* tgt, const void* src, void* part, void* acc, int nt, int ns, float g,
                                  float eps2, int tiles_per_split, void* stream) {
-  if (nt <= 0) return static_cast<int>(cudaSuccess);
-  if (tiles_per_split <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* t = static_cast<const float*>(tgt);
-  const auto* s = static_cast<const float4*>(src);
-  auto* p = static_cast<float*>(part);
-  auto* a = static_cast<float*>(acc);
-  const auto st = static_cast<cudaStream_t>(stream);
-  return eps2 >= FLT_MIN ? launch<true>(t, s, p, a, nt, ns, g, eps2, tiles_per_split, st)
-                         : launch<false>(t, s, p, a, nt, ns, g, eps2, tiles_per_split, st);
+  return nbx_sum::launch3(eps2 >= FLT_MIN ? pairwise_f32r_kernel<true> : pairwise_f32r_kernel<false>,
+                          kThreads * kTargets, tgt, src, part, acc, nt, ns, g, eps2, tiles_per_split, stream);
 }

@@ -26,19 +26,13 @@
 // - "bf16": d rounded to bf16; each of d d, f^3 m and w d a bf16 product
 //   (never fused into an FMA); r^2 and the row sums in float32.
 //
-// Design of "bf16": one thread per target, 256 threads a block, the sources
-// in tiles of 256 loaded cooperatively into shared memory, each tile summed
-// into a partial that is then added to the running total, ragged edges
-// masked here (source lanes past Ns load position 0 and mass 0, as the TPU
-// kernel's padding lanes; target threads past Nt store nothing).
-//
-// Design of "f32" and "hyb": K1's (csrc/pairwise_f32r.cu): 256 threads a
-// block, each with kTargets = 4 targets in registers, so that a source's
-// float4s in shared memory are read once for 4 targets; and a second grid
-// dimension over the sources (split_sum.cuh), so that the drift gate's
-// 16,384 targets (16 blocks of 1,024) still fill the card: 32 splits of 2
-// tiles, 512 blocks. Each rounds where its plain version rounds and sums in
-// its order, so that the two agree bitwise: a cancellation amplifies any
+// Design of all three: K1's (csrc/pairwise_f32r.cu): 256 threads a block,
+// each with kTargets = 4 targets in registers, so that a source's float4 in
+// shared memory is read once for 4 targets; and a second grid dimension
+// over the sources (split_sum.cuh), so that the drift gate's 16,384 targets
+// (16 blocks of 1,024) still fill the card: 32 splits of 2 tiles, 512
+// blocks. "f32" and "hyb" round where their plain versions round and sum in
+// their order, so that the two agree bitwise: a cancellation amplifies any
 // other rounding by |p| / |d|.
 //
 // "f32" reads a tile's positions and its mass-folded S (the wrapper builds
@@ -60,21 +54,39 @@
 // alike, so the two agree bitwise. rsqrt.approx.ftz alone replaces rsqrtf
 // where eps^2 is normal (split_sum.cuh).
 //
+// "bf16" works on its 4 targets two by two, in packed bf16x2 registers (low
+// half target t, high half t + 1): one F2FP (cvt.rn.bf16x2.f32) rounds the
+// dx of two targets, one rounds their f^3, and one HMUL2 makes two of the
+// products d d, f^3 m (m broadcast as bf16x2, formed once at the tile's
+// load and kept in the float4's fourth lane) and w d. Each value rounds to
+// nearest even as a scalar conversion or product would, so the products
+// are bitwise those of one target a thread. Each product goes back to
+// float32 by a shift (low half) or a mask (high half): r^2 = ((dx dx + dy
+// dy) + dz dz) + eps^2 and the row sums, added lane after lane into a
+// tile's partial and then into the split's totals; `combine_splits<3>` adds
+// the splits. Nothing in "bf16" cancels, so its plain version sums in
+// torch's order, within a few float32 roundings of the kernel.
+//
 // Bound: as K1, once a tile is in shared memory a pair costs no device-memory
-// traffic; FP32 operations, one rsqrt a pair on the SFU and, for "bf16",
-// float32-to-bf16 conversions (16 a clock an SM, as the SFU) bound the
-// kernels: chip_smoke.py counts each term. "f32" issues 3 differences, 3
-// FMAs for r^2, MUFU.RSQ, 2 FMULs for f and 4 FMAs for the sums, and 2 /
-// kTargets shared loads a pair. "hyb" issues an FMUL and 2 FMAs for the
-// cross term, an add and an FMA for r^2, the floor, MUFU.RSQ, 3 FMULs for
-// w, 3 FMAs and an add for the sums, and 2 / kTargets shared loads a pair
-// (which nvcc merges to about 1.25 / kTargets).
+// traffic; FP32 operations and one rsqrt a pair on the SFU bound the
+// kernels (chip_smoke.py counts each term; "bf16"'s conversions too, by
+// value, at the packed form's 124 a clock an SM that bench/cvt_rate.py
+// measured: a quarter of its FP32 term). "f32" issues 3 differences, 3 FMAs for r^2, MUFU.RSQ, 2 FMULs for
+// f and 4 FMAs for the sums, and 2 / kTargets shared loads a pair. "hyb"
+// issues an FMUL and 2 FMAs for the cross term, an add and an FMA for r^2,
+// the floor, MUFU.RSQ, 3 FMULs for w, 3 FMAs and an add for the sums, and 2
+// / kTargets shared loads a pair (which nvcc merges to about 1.25 /
+// kTargets). "bf16" issues 3 differences, 3 adds for r^2, MUFU.RSQ, 2 FMULs
+// for f^3, 3 adds for the sums, 2 F2FP (4 values), 3.5 packed products
+// (nvcc issues half as HMUL2, half as HFMA2.MMA), 6 unpacks on the integer
+// pipe and 1 / kTargets shared loads a pair.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 
+#include "mma_bf16.cuh"
 #include "split_sum.cuh"
 
 namespace {
@@ -82,56 +94,89 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = nbx_sum::kTile;
 static_assert(kTile == kThreads, "one source a thread at the tile's load");
-// targets a thread of "f32" and "hyb" (ops/pairwise.py TARGETS): 4 over 2
-// measured 10.4% faster at 262,144 and 7% at 16,384 for "hyb" (PERF.md).
+// targets a thread (ops/pairwise.py TARGETS): 4 over 2 measured 10.4%
+// faster at 262,144 and 7% at 16,384 for "hyb", 2.5% and 4% for "bf16"
+// (PERF.md).
 constexpr int kTargets = 4;
 
-// "bf16": one thread a target.
+// A half of a packed bf16x2 as float32, one integer instruction each: the
+// low half shifted up, the high half masked (__low2float and __high2float
+// spend two on the high half).
+__device__ __forceinline__ float low_f(__nv_bfloat162 v) { return __uint_as_float(nbx_mma::bits(v) << 16); }
+__device__ __forceinline__ float high_f(__nv_bfloat162 v) { return __uint_as_float(nbx_mma::bits(v) & 0xffff0000u); }
+
+// "bf16": kTargets targets a thread, block (x, s) summing its kThreads x
+// kTargets targets (target t of thread l: row x kThreads kTargets + t
+// kThreads + l) against split s of the sources, into part[s, i, 0:3];
+// targets t and t + 1 share packed registers.
+template <bool kFtz>
 __global__ void __launch_bounds__(kThreads)
 pairwise_bf16_kernel(const float* __restrict__ tgt,   // [nt, 3]
                      const float4* __restrict__ src,  // [ns] (x, y, z, m)
-                     float* __restrict__ acc,         // [nt, 3]
-                     int nt, int ns, float g, float eps2) {
-  __shared__ float4 pos_tile[kTile];       // (x, y, z, m)
-  __shared__ __nv_bfloat16 m_tile[kTile];  // bf16(m)
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  if (i < nt) {
-    xi = tgt[3 * i + 0];
-    yi = tgt[3 * i + 1];
-    zi = tgt[3 * i + 2];
+                     float* __restrict__ part,        // [splits, nt, 3]
+                     int nt, int ns, float eps2, int tiles_per_split) {
+  static_assert(kTargets % 2 == 0, "targets in pairs");
+  __shared__ float4 q_tile[kTile];  // (x, y, z, the bits of bf16x2 (m, m))
+  const int i0 = blockIdx.x * kThreads * kTargets + threadIdx.x;
+  float xi[kTargets], yi[kTargets], zi[kTargets];
+  float ox[kTargets], oy[kTargets], oz[kTargets];  // the split's totals, before G
+#pragma unroll
+  for (int t = 0; t < kTargets; ++t) {
+    const int i = i0 + t * kThreads;
+    xi[t] = i < nt ? tgt[3 * i + 0] : 0.f;
+    yi[t] = i < nt ? tgt[3 * i + 1] : 0.f;
+    zi[t] = i < nt ? tgt[3 * i + 2] : 0.f;
+    ox[t] = oy[t] = oz[t] = 0.f;
   }
-  float ox = 0.f, oy = 0.f, oz = 0.f;  // the acceleration before G
-  for (int j0 = 0; j0 < ns; j0 += kTile) {
+  const int2 range = nbx_sum::split_range(ns, tiles_per_split);
+  for (int j0 = range.x; j0 < range.y; j0 += kTile) {
     const int j = j0 + threadIdx.x;
     const float4 p = j < ns ? src[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-    pos_tile[threadIdx.x] = p;
-    m_tile[threadIdx.x] = __float2bfloat16_rn(p.w);
+    q_tile[threadIdx.x] = make_float4(p.x, p.y, p.z, __uint_as_float(nbx_mma::bits(__float2bfloat162_rn(p.w))));
     __syncthreads();
-    float tx = 0.f, ty = 0.f, tz = 0.f;
-#pragma unroll 8
+    float tx[kTargets], ty[kTargets], tz[kTargets];
+#pragma unroll
+    for (int t = 0; t < kTargets; ++t) tx[t] = ty[t] = tz[t] = 0.f;
+#pragma unroll 4
     for (int k = 0; k < kTile; ++k) {
-      const float4 q = pos_tile[k];
-      const __nv_bfloat16 dx = __float2bfloat16_rn(q.x - xi);
-      const __nv_bfloat16 dy = __float2bfloat16_rn(q.y - yi);
-      const __nv_bfloat16 dz = __float2bfloat16_rn(q.z - zi);
-      const float r2 = __bfloat162float(__hmul(dx, dx)) + __bfloat162float(__hmul(dy, dy)) +
-                       __bfloat162float(__hmul(dz, dz)) + eps2;
-      const float inv = rsqrtf(r2);
-      const __nv_bfloat16 w = __hmul(__float2bfloat16_rn(inv * inv * inv), m_tile[k]);
-      tx += __bfloat162float(__hmul(w, dx));
-      ty += __bfloat162float(__hmul(w, dy));
-      tz += __bfloat162float(__hmul(w, dz));
+      const float4 q = q_tile[k];
+      const __nv_bfloat162 m2 = nbx_mma::bf162(__float_as_uint(q.w));
+#pragma unroll
+      for (int a = 0; a < kTargets; a += 2) {
+        const int b = a + 1;
+        const __nv_bfloat162 dx = __floats2bfloat162_rn(q.x - xi[a], q.x - xi[b]);
+        const __nv_bfloat162 dy = __floats2bfloat162_rn(q.y - yi[a], q.y - yi[b]);
+        const __nv_bfloat162 dz = __floats2bfloat162_rn(q.z - zi[a], q.z - zi[b]);
+        const __nv_bfloat162 xx = __hmul2(dx, dx), yy = __hmul2(dy, dy), zz = __hmul2(dz, dz);
+        const float ia = nbx_sum::rsqrt_of<kFtz>(low_f(xx) + low_f(yy) + low_f(zz) + eps2);
+        const float ib = nbx_sum::rsqrt_of<kFtz>(high_f(xx) + high_f(yy) + high_f(zz) + eps2);
+        const __nv_bfloat162 w = __hmul2(__floats2bfloat162_rn(ia * ia * ia, ib * ib * ib), m2);
+        const __nv_bfloat162 wx = __hmul2(w, dx), wy = __hmul2(w, dy), wz = __hmul2(w, dz);
+        tx[a] += low_f(wx);
+        ty[a] += low_f(wy);
+        tz[a] += low_f(wz);
+        tx[b] += high_f(wx);
+        ty[b] += high_f(wy);
+        tz[b] += high_f(wz);
+      }
     }
-    ox += tx;
-    oy += ty;
-    oz += tz;
+#pragma unroll
+    for (int t = 0; t < kTargets; ++t) {
+      ox[t] += tx[t];
+      oy[t] += ty[t];
+      oz[t] += tz[t];
+    }
     __syncthreads();
   }
-  if (i < nt) {
-    acc[3 * i + 0] = ox * g;
-    acc[3 * i + 1] = oy * g;
-    acc[3 * i + 2] = oz * g;
+  float* out = part + static_cast<size_t>(blockIdx.y) * nt * 3;
+#pragma unroll
+  for (int t = 0; t < kTargets; ++t) {
+    const int i = i0 + t * kThreads;
+    if (i < nt) {
+      out[3 * i + 0] = ox[t];
+      out[3 * i + 1] = oy[t];
+      out[3 * i + 2] = oz[t];
+    }
   }
 }
 
@@ -292,30 +337,18 @@ pairwise_hyb_kernel(const float* __restrict__ tgt,   // [nt, 3]
   }
 }
 
-template <bool kFtz>
-int launch_hyb(const float* tgt, const float4* src, float* part, float* acc, int nt, int ns, float g, float eps2,
-               int tiles_per_split, cudaStream_t stream) {
-  const int splits = nbx_sum::split_count(ns, tiles_per_split);
-  const dim3 grid((nt + kThreads * kTargets - 1) / (kThreads * kTargets), splits);
-  pairwise_hyb_kernel<kFtz><<<grid, kThreads, 0, stream>>>(tgt, src, part, nt, ns, eps2, tiles_per_split);
-  nbx_sum::combine<3>(part, tgt, acc, nt, splits, g, stream);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Plain C entry points, loaded with ctypes, one a precision. Each launches
-// on `stream` and returns the launches' cudaError_t (0 on success); none
-// synchronises. The split sums ("f32", "hyb") take `part`, [splits, nt, 4]
-// or [splits, nt, 3] float32 scratch, splits = ceil(ceil(ns / 256) /
-// tiles_per_split) (at least 1), launch the split sum and the combine, and
-// take MUFU.RSQ alone where eps^2 is a normal float32, rsqrtf below.
-extern "C" int nbx_pairwise_bf16(const void* tgt, const void* src, void* acc, int nt, int ns, float g, float eps2,
-                                 void* stream) {
-  if (nt <= 0) return static_cast<int>(cudaSuccess);
-  pairwise_bf16_kernel<<<(nt + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(tgt), static_cast<const float4*>(src), static_cast<float*>(acc), nt, ns, g, eps2);
-  return static_cast<int>(cudaGetLastError());
+// Plain C entry points, loaded with ctypes, one a precision. Each takes
+// `part`, [splits, nt, 4] ("f32") or [splits, nt, 3] float32 scratch,
+// splits = ceil(ceil(ns / 256) / tiles_per_split) (at least 1), launches
+// the split sum and the combine on `stream` and returns the launches'
+// cudaError_t (0 on success); none synchronises. Each takes MUFU.RSQ alone
+// where eps^2 is a normal float32, rsqrtf below.
+extern "C" int nbx_pairwise_bf16(const void* tgt, const void* src, void* part, void* acc, int nt, int ns, float g,
+                                 float eps2, int tiles_per_split, void* stream) {
+  return nbx_sum::launch3(eps2 >= FLT_MIN ? pairwise_bf16_kernel<true> : pairwise_bf16_kernel<false>,
+                          kThreads * kTargets, tgt, src, part, acc, nt, ns, g, eps2, tiles_per_split, stream);
 }
 
 extern "C" int nbx_pairwise_f32(const void* tgt, const void* src, const void* smat, void* part, void* acc, int nt,
@@ -334,13 +367,6 @@ extern "C" int nbx_pairwise_f32(const void* tgt, const void* src, const void* sm
 
 extern "C" int nbx_pairwise_hyb(const void* tgt, const void* src, void* part, void* acc, int nt, int ns, float g,
                                 float eps2, int tiles_per_split, void* stream) {
-  if (nt <= 0) return static_cast<int>(cudaSuccess);
-  if (tiles_per_split <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* t = static_cast<const float*>(tgt);
-  const auto* s = static_cast<const float4*>(src);
-  auto* p = static_cast<float*>(part);
-  auto* a = static_cast<float*>(acc);
-  const auto st = static_cast<cudaStream_t>(stream);
-  return eps2 >= FLT_MIN ? launch_hyb<true>(t, s, p, a, nt, ns, g, eps2, tiles_per_split, st)
-                         : launch_hyb<false>(t, s, p, a, nt, ns, g, eps2, tiles_per_split, st);
+  return nbx_sum::launch3(eps2 >= FLT_MIN ? pairwise_hyb_kernel<true> : pairwise_hyb_kernel<false>,
+                          kThreads * kTargets, tgt, src, part, acc, nt, ns, g, eps2, tiles_per_split, stream);
 }

@@ -1,7 +1,7 @@
 // What the direct sums that split their sources share, float32, for NVIDIA
-// Hopper (sm_90a): "f32r" (pairwise_f32r.cu, K1), "f32" and "hyb"
-// (pairwise_precision.cu, K1a, K1d) and "fast" (pairwise_fast.cu, K1b), and
-// the roundings of "mxu" (pairwise_mxu.cu, K1c) and "hyb".
+// Hopper (sm_90a): "f32r" (pairwise_f32r.cu, K1), "f32", "hyb" and "bf16"
+// (pairwise_precision.cu, K1a, K1d, K1e), "fast" (pairwise_fast.cu, K1b)
+// and "mxu" (pairwise_mxu.cu, K1c), and the roundings of "mxu" and "hyb".
 //
 // The source split: block (x, s) of a kernel sums its targets against split
 // s of the sources, a contiguous run of `tiles_per_split` whole tiles of
@@ -116,6 +116,27 @@ template <int kWidth>
 void combine(const float* part, const float* tgt, float* acc, int nt, int splits, float g, cudaStream_t stream) {
   constexpr int kThreads = 256;
   combine_splits<kWidth><<<(nt + kThreads - 1) / kThreads, kThreads, 0, stream>>>(part, tgt, acc, nt, splits, g);
+}
+
+// A split sum of three partials a target: kernel(tgt [nt, 3], src [ns]
+// (x, y, z, m), part [splits, nt, 3], nt, ns, eps^2, tiles_per_split).
+using Kernel3 = void (*)(const float*, const float4*, float*, int, int, float, int);
+
+// The C entry of a Kernel3: `kernel` over the split grid (kTile threads a
+// block, `rows` targets a block), then combine_splits<3>, on `stream`;
+// returns the launches' cudaError_t (0 on success), does not synchronise.
+inline int launch3(Kernel3 kernel, int rows, const void* tgt, const void* src, void* part, void* acc, int nt, int ns,
+                   float g, float eps2, int tiles_per_split, void* stream) {
+  if (nt <= 0) return static_cast<int>(cudaSuccess);
+  if (tiles_per_split <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* t = static_cast<const float*>(tgt);
+  auto* p = static_cast<float*>(part);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int splits = split_count(ns, tiles_per_split);
+  kernel<<<dim3((nt + rows - 1) / rows, splits), kTile, 0, st>>>(t, static_cast<const float4*>(src), p, nt, ns, eps2,
+                                                                  tiles_per_split);
+  combine<3>(p, t, static_cast<float*>(acc), nt, splits, g, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace nbx_sum

@@ -10,9 +10,9 @@ to its plain PyTorch version (`*_reference`):
   K1d, K1e), through `pairwise_acc_f32`, `_hyb`, `_bf16`; "fast"
   `nbx_torch/csrc/pairwise_fast.cu` and "mxu" `nbx_torch/csrc/pairwise_mxu.cu`
   (K1b, K1c, their bf16 products on the tensor cores), through
-  `pairwise_acc_fast`, `_mxu`. K1, K1a, K1b and K1d split their sources over
-  a second grid dimension (`source_splits`) and add the splits' partials in
-  a second pass;
+  `pairwise_acc_fast`, `_mxu`. Every one splits its sources over a second
+  grid dimension (`source_splits`) and adds the splits' partials in a
+  second pass;
 - `pairwise_acc_jerk`: `nbx_torch/csrc/pairwise_accjerk.cu` (K6);
 - `potential_per_body`: `nbx_torch/csrc/potential.cu` (K3).
 
@@ -36,11 +36,13 @@ from nbx_torch.ops import _build
 PRECISIONS = ("f32r", "f32", "fast", "hyb", "bf16", "mxu")
 TILE = 256  # the card kernels' source tile, over which "fast", "hyb" and "mxu" centre
 SPLIT_GRID = 512  # the blocks a split kernel's grid aims at (about 4 a Hopper SM)
-TARGETS = 4  # targets a thread of K1, K1a and K1d (kTargets in their csrc/*.cu)
-# The kernels that split their sources: K1 "f32r", K1a "f32" and K1d "hyb"
-# (256 threads of TARGETS targets) and K1b "fast" (a warp per 16 targets):
-# targets a block, floats a target of each split's partials.
-SPLIT_KERNELS = {"f32r": (256 * TARGETS, 3), "f32": (256 * TARGETS, 4), "fast": (128, 4), "hyb": (256 * TARGETS, 3)}
+TARGETS = 4  # targets a thread of K1, K1a, K1d and K1e (kTargets in their csrc/*.cu)
+# Every direct sum of `pairwise_acc` splits its sources: K1 "f32r", K1a
+# "f32", K1d "hyb" and K1e "bf16" (256 threads of TARGETS targets), K1b
+# "fast" (a warp per 16 targets) and K1c "mxu" (a warp per 2 x 16): targets
+# a block, floats a target of each split's partials.
+SPLIT_KERNELS = {"f32r": (256 * TARGETS, 3), "f32": (256 * TARGETS, 4), "fast": (128, 4), "hyb": (256 * TARGETS, 3),
+                 "bf16": (256 * TARGETS, 3), "mxu": (256, 3)}
 
 
 def check_precision(precision: str) -> str:
@@ -313,10 +315,12 @@ def _hyb_rows(pos, mass, eps2, tile, splits=1):
     return rows
 
 
-def _bf16_rows(pos, mass, eps2, tile):
+def _bf16_rows(pos, mass, eps2, tile, splits=1):
     """"bf16" (K1e): d rounded to bf16; each d d, f^3 m and w d a bf16
     product; r^2 and the row sums in float32 (`nbx/ops/pairwise.py:422-437`).
-    Nothing here cancels, so the sums may run in torch's order."""
+    `splits` is not read: nothing here cancels, so the sums run in torch's
+    order, and the kernel's order of its lanes, tiles and runs moves them by
+    float32 roundings of their terms only, well inside its 1e-5 bar."""
     m = mass.bfloat16()
 
     def rows(t):
@@ -329,16 +333,17 @@ def _bf16_rows(pos, mass, eps2, tile):
     return rows
 
 
-def _mxu_rows(pos, mass, eps2, tile):
+def _mxu_rows(pos, mass, eps2, tile, splits=1):
     """"mxu" (K1c): per source tile, r^2 = ((|p_i - c|^2 + |p_j - c|^2) -
     2 (p_i - c).(p_j - c)) + eps^2 in float32, floored at eps^2 (not "hyb"'s
     grouping); w = m / r^3; then the accumulation over P_c = (p_j - c, 1) as
     three bf16 products with float32 sums, (w_hi P_hi + w_hi P_lo) + w_lo
     P_hi, each summed over the tile's lanes in turn, un-centred per tile as
-    tmp_xyz - (p_i - c) tmp_w (`nbx/ops/pairwise.py:231-296`). c is the
-    block-summed centroid; the squares are fma(z, z, fma(x, x, y y)) and the
-    cross term fma(z, z', fma(y, y', x x')), as XLA's CPU backend contracts
-    `nbx`'s sums and its float32 dot. A self pair's term cancels in the
+    tmp_xyz - (p_i - c) tmp_w (`nbx/ops/pairwise.py:231-296`), the tiles
+    added as `splits` runs (`_split_sum`). c is the block-summed centroid;
+    the squares are fma(z, z, fma(x, x, y y)) and the cross term fma(z, z',
+    fma(y, y', x x')), as XLA's CPU backend contracts `nbx`'s sums and its
+    float32 dot. A self pair's term cancels in the
     un-centring, and its bf16 splits follow the last bits of w_ii and of the
     centroid, so those roundings decide how close the two come. The kernel
     rounds them alike and sums its products on the tensor cores, in an
@@ -361,7 +366,7 @@ def _mxu_rows(pos, mass, eps2, tile):
         def one_pass(w, p):
             return _running_sum(zero, (w[..., k, None] * p[:, k] for k in range(tile)))
         tmp = (one_pass(w_hi, p_hi) + one_pass(w_hi, p_lo)) + one_pass(w_lo, p_hi)  # [B, T, 4]
-        return _running_sum(pic.new_zeros((t.shape[0], 3)), (tmp[..., :3] - pic * tmp[..., 3:]).unbind(1))
+        return _split_sum(tmp[..., :3] - pic * tmp[..., 3:], splits)
     return rows
 
 
@@ -388,17 +393,16 @@ def pairwise_acc_reference(
     "fast", "hyb" and "mxu": their sums run tile by tile, and "fast", "hyb"
     and "mxu" centre on each tile's centroid. Its default is the card kernels' 256;
     `nbx`'s tile_j compares with `nbx`. "f32r" and "bf16" do not read it.
-    `splits` is the number of runs of tiles in which "f32", "fast" and "hyb"
-    add their tiles; by default their kernels' (`source_splits` of the
-    shapes). "f32r" sums in torch's order whatever it is."""
+    `splits` is the number of runs of tiles in which "f32", "fast", "hyb"
+    and "mxu" add their tiles (each cancels, so the order of its sums shows);
+    by default their kernels' (`source_splits` of the shapes). "f32r" and
+    "bf16" sum in torch's order whatever it is."""
+    check_precision(precision)
     if target_pos is None:
         target_pos = pos
-    if check_precision(precision) in SPLIT_KERNELS:
-        if splits is None:
-            splits = source_splits(target_pos.shape[0], pos.shape[0], SPLIT_KERNELS[precision][0], tile)
-        rows = _ROWS[precision](pos, mass, eps2_of(softening), tile, splits)
-    else:
-        rows = _ROWS[precision](pos, mass, eps2_of(softening), tile)
+    if splits is None:
+        splits = source_splits(target_pos.shape[0], pos.shape[0], SPLIT_KERNELS[precision][0], tile)
+    rows = _ROWS[precision](pos, mass, eps2_of(softening), tile, splits)
     out = [rows(target_pos[i0 : i0 + block]) for i0 in range(0, target_pos.shape[0], block)]
     if not out:
         return target_pos.new_zeros((0, 3))
@@ -446,15 +450,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _direct_sum(wrapper, entry: str, pos, mass, G: float, softening: float, target_pos, kernel: str,
-                extras=tuple, split: tuple[int, int] | None = None) -> torch.Tensor:
+                extras, split: tuple[int, int]) -> torch.Tensor:
     """A direct-sum wrapper's launch on CUDA tensors: check the inputs, pack
     the sources as float4 (x, y, z, m), launch csrc/<kernel>.cu's `entry` on
-    (targets, sources, *extras(), acc, Nt, Ns, G, eps^2) and count it on
-    `wrapper.launches`. `extras` builds the further inputs (contiguous
-    float32 tensors) once the inputs passed. A kernel that splits its
-    sources takes `split` = (targets a block, floats a target of the
-    partials): the partials [S, Nt, width] follow the extras, and the tiles
-    a split after eps^2."""
+    (targets, sources, *extras(), partials, acc, Nt, Ns, G, eps^2, tiles a
+    split) and count it on `wrapper.launches`. `extras` builds the further
+    inputs (contiguous float32 tensors) once the inputs passed; `split` =
+    (targets a block, floats a target of the partials [S, Nt, width])."""
     ns, nt = pos.shape[0], target_pos.shape[0]
     _check("pos", pos, (ns, 3), pos.device)
     _check("mass", mass, (ns,), pos.device)
@@ -465,15 +467,12 @@ def _direct_sum(wrapper, entry: str, pos, mass, G: float, softening: float, targ
     acc = torch.empty((nt, 3), dtype=torch.float32, device=pos.device)
     if nt == 0:
         return acc
-    ints = ()
-    if split is not None:
-        rows, width = split
-        splits = source_splits(nt, ns, rows)
-        more += (torch.empty((splits, nt, width), dtype=torch.float32, device=pos.device),)
-        ints = (split_tiles(ns, splits),)
-    _launch(kernel, [_P] * (3 + len(more)) + [_I, _I, _F, _F] + [_I] * len(ints) + [_P], pos.device,
+    rows, width = split
+    splits = source_splits(nt, ns, rows)
+    more += (torch.empty((splits, nt, width), dtype=torch.float32, device=pos.device),)
+    _launch(kernel, [_P] * (3 + len(more)) + [_I, _I, _F, _F, _I, _P], pos.device,
             tgt.data_ptr(), src.data_ptr(), *(x.data_ptr() for x in more), acc.data_ptr(),
-            nt, ns, float(G), eps2_of(softening), *ints, entry=entry)
+            nt, ns, float(G), eps2_of(softening), split_tiles(ns, splits), entry=entry)
     wrapper.launches += 1
     return acc
 
@@ -502,7 +501,7 @@ def pairwise_acc(
     if not _on_card("pairwise_acc", pos, softening):
         return pairwise_acc_reference(pos, mass, G, softening, target_pos)
     return _direct_sum(pairwise_acc, "nbx_pairwise_f32r", pos, mass, G, softening, target_pos, "pairwise_f32r",
-                       split=SPLIT_KERNELS["f32r"])
+                       tuple, SPLIT_KERNELS["f32r"])
 
 
 pairwise_acc.launches = 0
@@ -512,7 +511,7 @@ pairwise_acc.launches = 0
 # its entry nbx_pairwise_<precision> takes the mass-folded S after the
 # sources. "mxu"'s S is the raw coordinates, which the sources hold, "hyb"
 # centres them itself and "bf16" folds nothing, so their entries take none.
-# The split kernels then take their partials (SPLIT_KERNELS).
+# Each then takes its partials (SPLIT_KERNELS).
 VARIANT_KERNEL = {"f32": ("pairwise_precision", True), "fast": ("pairwise_fast", True),
                   "hyb": ("pairwise_precision", False), "bf16": ("pairwise_precision", False),
                   "mxu": ("pairwise_mxu", False)}
@@ -531,7 +530,7 @@ def _precision_wrapper(precision: str):
             return pairwise_acc_reference(pos, mass, G, softening, target_pos, precision=precision)
         return _direct_sum(wrapper, f"nbx_pairwise_{precision}", pos, mass, G, softening, target_pos, kernel,
                            lambda: (_mass_folded(pos, mass),) if folded else (),
-                           SPLIT_KERNELS.get(precision))
+                           SPLIT_KERNELS[precision])
 
     wrapper.__name__ = wrapper.__qualname__ = f"pairwise_acc_{precision}"
     wrapper.__doc__ = (f"`pairwise_acc(..., precision={precision!r})`: the kernel nbx_pairwise_{precision} "

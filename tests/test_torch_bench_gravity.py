@@ -18,7 +18,7 @@ from nbx.bench import drift as jdrift
 from nbx.bench import latency as jlatency
 from nbx.bench import throughput as jthroughput
 from nbx_torch import __main__ as cli
-from nbx_torch.bench import drift, latency, throughput
+from nbx_torch.bench import cvt_rate, drift, latency, throughput
 
 torch.set_num_threads(1)
 
@@ -101,6 +101,14 @@ def test_cli_raises_without_a_card(monkeypatch, which):
     args = {"drift": ["128", "100"], "latency": ["2"], "throughput": ["128", "2"]}[which]
     with pytest.raises(RuntimeError, match="CUDA device"):
         cli.main(["bench", which, *args])
+
+
+def test_cvt_rate_raises_without_a_card(monkeypatch):
+    """The conversion loop (`python -m nbx_torch.bench.cvt_rate`) measures
+    the card: where torch sees none it raises before it builds anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        cvt_rate.main(2)
 
 
 @pytest.mark.parametrize("main", [drift.main, throughput.main])

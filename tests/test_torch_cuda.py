@@ -743,15 +743,15 @@ def test_sharded_granular_steps_on_card_match_cpu(dev, force):
 # kernels' order (a tile's lanes in turn, then the tiles of a run, then the runs), and
 # torch.rsqrt on the card is rsqrtf; their cancellations (o - p_i sum f m,
 # s - (p_i - c) sum w) would turn any other order into a few ulps of the self pair's term,
-# up to 1e-3 of max|acc|. 1e-5 for "bf16", measured at most 1.06e-6: it sums its rows in
-# torch's order, and nothing there cancels. "fast" and "mxu" sum their bf16 products on
+# up to 1e-3 of max|acc|. 1e-5 for "bf16", measured at most 1.06e-6 before its packed,
+# split kernel: its plain version sums its rows in torch's order, and nothing there cancels. "fast" and "mxu" sum their bf16 products on
 # the tensor cores, in their own order: 2e-3 where targets are sources (the self pair's
 # term cancels in o_xyz - p_i o_w, in tmp_xyz - (p_i - c) tmp_w), 1e-4 where they are not
 # (variant_tol; PRECISION_SHAPES draw their targets apart from the sources). The ladder
 # (LADDER): against a float64 sum on tests/test_tpu_only.py's _rand(2048, seed=1), bf16's
 # error also > 0; fast's and mxu's bodies' errors at the median and the 99th percentile
-# within 1.1x of their plain version's, either way (chip_smoke.ladder_ratios). K1 "f32r",
-# "f32", "fast" and "hyb" split their sources (pairwise.source_splits; K1 at its own bar,
+# within 1.1x of their plain version's, either way (chip_smoke.ladder_ratios). K1 "f32r"
+# and every variant split their sources (pairwise.source_splits; K1 at its own bar,
 # VARIANT_TOL["f32r"] = 1e-5); the same inputs give the same bits.
 
 PRECISION_SHAPES = [(4096, 4096), (1000, 4096), (777, 3001), (1, 300), (257, 255)]

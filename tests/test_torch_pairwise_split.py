@@ -1,22 +1,25 @@
-"""The source split of the direct sums K1 "f32r", K1a "f32", K1b "fast" and
-K1d "hyb": the split helper `source_splits`, and the plain versions that add
-their tiles as the split kernels do, against `nbx` on the CPU.
+"""The source split of the direct sums K1 "f32r", K1a "f32", K1b "fast",
+K1c "mxu", K1d "hyb" and K1e "bf16": the split helper `source_splits`, and
+the plain versions that add their tiles as the split kernels do, against
+`nbx` on the CPU.
 
 A split kernel sums its targets against runs of whole source tiles, one run
 a block, and a second pass adds the runs' partials in order. The plain
 versions of the cancelling variants (`_f32_rows`, `_fast_rows`,
-`_hyb_rows`) take `splits=` and add each run's tiles in turn, then the runs
-in turn; with one run that is the sum of the tiles in turn. Against `nbx`
-(its Pallas kernels in interpret mode at tile_i=8, tile_j=128, compiled
-with `xla_allow_excess_precision` off, as
+`_hyb_rows`, `_mxu_rows`) take `splits=` and add each run's tiles in turn,
+then the runs in turn; with one run that is the sum of the tiles in turn.
+Against `nbx` (its Pallas kernels in interpret mode at tile_i=8,
+tile_j=128, compiled with `xla_allow_excess_precision` off, as
 `tests/test_torch_pairwise_precision.py` runs them) the bars are that
-file's: 2e-3 of max|nbx| for the three ("f32", "fast" and "hyb" cancel a
-self pair's term, and the two sides sum in other orders; measured there at
-most 1.21e-3, 1.30e-3 and 1.71e-3). Splitting moves only the order of the
-tiles' float32 additions. "f32r"'s plain version sums in torch's order
-whatever the split (nothing cancels in K1, so the kernel's order moves it
-by roundings of its terms only): against `nbx` it keeps the 1e-5 bar of
-`tests/test_torch_pairwise.py`.
+file's: 2e-3 of max|nbx| for the four ("f32", "fast", "hyb" and "mxu"
+cancel a self pair's term, and the two sides sum in other orders; measured
+there at most 1.21e-3, 1.30e-3, 1.71e-3 and 6.90e-4), and 1e-4 for "mxu"
+where no target is a source. Splitting moves only the order of the tiles'
+float32 additions. The plain versions of "f32r" and "bf16" sum in torch's
+order whatever the split (nothing cancels in K1 or K1e, so the kernel's
+order moves them by roundings of their terms only): against `nbx` they keep
+the 1e-5 bars of `tests/test_torch_pairwise.py` and
+`tests/test_torch_pairwise_precision.py`.
 """
 
 import functools
@@ -31,11 +34,13 @@ from nbx_torch.ops import pairwise
 
 torch.set_num_threads(1)
 
-NBX_BAR = {"f32r": 1e-5, "f32": 2e-3, "fast": 2e-3, "hyb": 2e-3}  # test_torch_pairwise{,_precision}.py's
-CANCELLING = ("f32", "fast", "hyb")  # the split kernels whose plain versions follow the runs
+NBX_BAR = {"f32r": 1e-5, "f32": 2e-3, "fast": 2e-3, "hyb": 2e-3, "bf16": 1e-5, "mxu": 2e-3}  # as in
+# test_torch_pairwise{,_precision}.py
+MXU_SEPARATE_BAR = 1e-4  # "mxu" against nbx where no target is a source (test_torch_pairwise_precision.py)
+CANCELLING = ("f32", "fast", "hyb", "mxu")  # the split kernels whose plain versions follow the runs
 NO_EXCESS = {"xla_allow_excess_precision": False}
 TILE = 128  # nbx's tile_j, over which both centre
-CASES = ["300", "777", "rect"]  # 3, 7 and 3 source tiles
+CASES = ["300", "777", "rect"]  # 3, 7 and 3 source tiles; "apart": 7, no target a source
 
 
 def _rand(n, seed=0):
@@ -46,10 +51,13 @@ def _rand(n, seed=0):
 
 
 def _case(case):
-    """(pos, mass, targets or None): n bodies, or 100 targets among 300."""
+    """(pos, mass, targets or None): n bodies, 100 targets among 300, or
+    100 targets apart from 777 sources."""
     if case == "rect":
         pos, mass = _rand(300, 1)
         return pos, mass, np.ascontiguousarray(pos[37:137])
+    if case == "apart":
+        return (*_rand(777, 21), _rand(100, 22)[0])
     return (*_rand(int(case), int(case)), None)
 
 
@@ -72,19 +80,20 @@ def _plain(precision, case, splits, tile=TILE):
     return pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5, tgt, precision=precision, tile=tile, splits=splits)
 
 
-def _splits(fast, rows_1024):
-    """S of each split kernel: "fast" (128 targets a block), and "f32r",
-    "f32" and "hyb" (1,024)."""
-    return {"f32r": rows_1024, "f32": rows_1024, "fast": fast, "hyb": rows_1024}
+def _splits(rows_128, rows_256, rows_1024):
+    """S of each split kernel: "fast" (128 targets a block), "mxu" (256),
+    and "f32r", "f32", "hyb" and "bf16" (1,024)."""
+    return {"f32r": rows_1024, "f32": rows_1024, "fast": rows_128, "hyb": rows_1024, "bf16": rows_1024,
+            "mxu": rows_256}
 
 
 # (nt, ns) -> S of each split kernel; (262,144, 1,048,576) is the 1M
 # all-gather step's shard at D = 4
-SPLIT_SHAPES = {(16_384, 16_384): _splits(4, 32), (262_144, 262_144): _splits(1, 2),
-                (1_048_576, 1_048_576): _splits(1, 1), (4_096, 4_096): _splits(16, 16),
-                (1_000, 4_096): _splits(16, 16), (777, 3_001): _splits(12, 12), (100, 255): _splits(1, 1),
-                (5, 0): _splits(1, 1), (25_600, 1_792): _splits(4, 7), (204_800, 1_792): _splits(1, 4),
-                (262_144, 1_048_576): _splits(1, 2)}
+SPLIT_SHAPES = {(16_384, 16_384): _splits(4, 8, 32), (262_144, 262_144): _splits(1, 1, 2),
+                (1_048_576, 1_048_576): _splits(1, 1, 1), (4_096, 4_096): _splits(16, 16, 16),
+                (1_000, 4_096): _splits(16, 16, 16), (777, 3_001): _splits(12, 12, 12),
+                (100, 255): _splits(1, 1, 1), (5, 0): _splits(1, 1, 1), (25_600, 1_792): _splits(4, 7, 7),
+                (204_800, 1_792): _splits(1, 1, 4), (262_144, 1_048_576): _splits(1, 1, 2)}
 
 
 @pytest.mark.parametrize("nt,ns", list(SPLIT_SHAPES))
@@ -137,13 +146,33 @@ def test_split_plain_version_matches_nbx(precision, splits, case):
     assert _rel(_plain(precision, case, splits).numpy(), _nbx(precision, case)) < NBX_BAR[precision]
 
 
+def _in_torch_order(precision, case):
+    """`precision` at the kernels' S (and at 1 and 3, bitwise the same: its
+    plain version sums in torch's order) against `nbx`."""
+    got = _plain(precision, case, None)
+    assert all(torch.equal(got, _plain(precision, case, s)) for s in (1, 3))
+    return _rel(got.numpy(), _nbx(precision, case))
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_f32r_plain_version_at_the_kernels_splits_matches_nbx(case):
-    """"f32r" at the kernels' S (and at 1 and 3, bitwise the same: its
-    plain version sums in torch's order) within 1e-5 of `nbx`."""
-    got = _plain("f32r", case, None)
-    assert all(torch.equal(got, _plain("f32r", case, s)) for s in (1, 3))
-    assert _rel(got.numpy(), _nbx("f32r", case)) < NBX_BAR["f32r"]
+    """"f32r" at every S within 1e-5 of `nbx`."""
+    assert _in_torch_order("f32r", case) < NBX_BAR["f32r"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_bf16_plain_version_at_the_kernels_splits_matches_nbx(case):
+    """"bf16" at every S within 1e-5 of `nbx` (its bf16 roundings are the
+    kernel's; its float32 sums run in torch's order)."""
+    assert _in_torch_order("bf16", case) < NBX_BAR["bf16"]
+
+
+@pytest.mark.parametrize("splits", [2, 3, None])
+def test_mxu_without_self_pairs_at_the_splits_matches_nbx(splits):
+    """"mxu" where no self pair cancels (100 targets apart from 777 sources,
+    7 tiles: runs of 4 and 3, of 3, 3 and 1, and the kernels' S) within
+    1e-4 of `nbx`."""
+    assert _rel(_plain("mxu", "apart", splits).numpy(), _nbx("mxu", "apart")) < MXU_SEPARATE_BAR
 
 
 def test_split_sum_adds_each_run_then_the_runs():
