@@ -43,9 +43,10 @@ and `latency` entries with `precision`) and the layout probes
      same steps on the CPU
   8. the P3M pair kernels K4 and K5 against their plain PyTorch versions on
      the card, on the arguments each pass gives them: the small scenes of
-     tests/test_ppkernel.py, then the 1M + 30k-core scene at the production
+     tests/test_ppkernel.py (K5 also at eps = 0, its rsqrtf instantiation,
+     and twice, bitwise), then the 1M + 30k-core scene at the production
      tune at full width (main pass, residual table, residual-residual
-     block), each timed
+     block), each timed, K5 twice bitwise and its partial buffer's size
   9. p3m_acceleration at the production tune on that scene: ms per
      evaluation, launches per evaluation, n_uncorrected == 0, the median
      error against the direct sum (K1) below plain PM's in the core and the
@@ -54,15 +55,18 @@ and `latency` entries with `precision`) and the layout probes
      P3M gravity at its scene-census tune: K4 and K5 against their plain
      versions on the arguments the scene's first force evaluation gives
      them (the two-bucket main pass, the residual-residual block, the
-     residual table at its affected_cap), each timed; 1 warm-up frame and 2
+     residual table at its affected_cap), each timed, K5 twice bitwise, its
+     partial buffers' sizes; 1 warm-up frame and 2
      timed frames of 2 steps, n_overflow == n_uncorrected == 0, one frame
      under set_sync_debug_mode("error"); then 2 steps at N = 4,096 with P3M
      parameters that overflow, held against the same steps on the CPU
  11. the acc+jerk kernel K6 and the potential kernel K3 against their plain
      PyTorch versions on the card: N = 4,096 random, 1,000 targets x 4,096
      sources, 777 x 3,001 ragged, mass-0 padding, K3's self term on a target
-     slice, and the drift gate's Plummer sphere at N = 16,384 (every target,
-     as phases 12 and 13 call them) and 262,144 (the first 4,096 targets);
+     slice, K6's split grids, a shape whose last split is shorter (N =
+     20,000), softening 1e-20 (K6's rsqrtf instantiation), and the drift
+     gate's Plummer sphere at N = 16,384 (every target, as phases 12 and 13
+     call them; K6 twice, bitwise) and 262,144 (the first 4,096 targets);
      both timed at both sizes
  12. the energy-drift gate at nbx.bench.drift.main's configuration: Plummer
      N = 16,384, 10,000 Kahan-compensated KDK steps with K1, the energy
@@ -157,7 +161,8 @@ and `latency` entries with `precision`) and the layout probes
      16,384 and 262,144; each timed at 262,144 and at 16,384 in turns with
      K1, with its plain version; `bench.cvt_rate`, the conversion loop
      whose value rate the bounds use (held within 3% of it); `bench.sass` on K1 and the five
-     (fast's inner loop runs HMMA, bf16's HMUL2); `bench throughput` with
+     (fast's inner loop runs HMMA, bf16's HMUL2), and on K5, K6 and K4 (K5's
+     loops one MUFU.RSQ, MUFU.EX2 and MUFU.RCP a pair); `bench throughput` with
      f32r and the five in one process;
      `bench drift` at each precision (BASELINE config 4's drift at the
      gate's step, a measurement: phase 12 keeps the gate), the variant's
@@ -182,7 +187,9 @@ counted from this run's inputs). K1 is recorded on the frame step's path
 (phases 4-5) and timed at 262,144 (ms, bound_ms) and at the drift gate's
 16,384 (ms_drift_shape, bound_ms_drift_shape). K4 and K5 are recorded on
 the merger step's path (phase 10), K3 on the drift gate's (phase 12) and
-K6 on the Hermite path's (phase 13), both timed at its N = 16,384. The collision
+K6 on the Hermite path's (phase 13), both timed at its N = 16,384. A call
+of K5 or K6 launches two kernels (the pair kernel or split sum, and its
+combine): `launches` counts calls, and `ms` times both. The collision
 kernel has three entries: collide_fused (K2; the at-scale path, phase 7),
 collide_full_column (K8's function; launches on the layout bench's path,
 phase 17, timed on the disk's full-column configuration, phase 15) and
@@ -429,7 +436,11 @@ SHORT_LAST_SPLIT_N = 20_000
 def split_text(precision: str, nt: int, ns: int) -> str:
     """A split kernel's grid at (nt, ns): target blocks x S splits of whole
     tiles."""
-    rows = pairwise.SPLIT_KERNELS[precision][0]
+    return grid_text(pairwise.SPLIT_KERNELS[precision][0], nt, ns)
+
+
+def grid_text(rows: int, nt: int, ns: int) -> str:
+    """The grid of a split kernel with `rows` targets a block at (nt, ns)."""
     s = pairwise.source_splits(nt, ns, rows)
     per = pairwise.split_tiles(ns, s)
     return f"grid {-(-nt // rows)} x S={s} = {-(-nt // rows) * s} blocks ({per} tile{'s' * (per > 1)} a split)"
@@ -809,12 +820,16 @@ def residual_inputs(pos, mass, box, g, k, m, sort=None):
     return res_idx, res_valid, sort
 
 
-def check_pass(phase: int, name, wrapper, plain, args, reps: int = 0) -> dict:
-    """The kernel against its plain version on the same arguments; with reps,
-    the kernel's time by CUDA events (reps launches after a warm-up) and the
-    plain version's (one call)."""
+def check_pass(phase: int, name, wrapper, plain, args, reps: int = 0, twice: bool = False) -> dict:
+    """The kernel against its plain version on the same arguments (with
+    twice, a second call bitwise the first); with reps, the kernel's time
+    by CUDA events (reps launches after a warm-up) and the plain version's
+    (one call)."""
     got = wrapper(*args)
     err = compare(name, got, plain(*args), phase=phase)
+    if twice:
+        check(torch.equal(got, wrapper(*args)), f"{name}: a second call gives the same bits")
+        log(phase, f"{name}: a second call gives the same bits")
     out = dict(max_abs_err=err)
     if reps:
         out["ms"] = cuda_ms(lambda: wrapper(*args), reps)
@@ -847,8 +862,8 @@ def pp_full_width(phase: int, label: str, pos, mass, G: float, eps: float, box: 
     """K4 (the main pass and the residual-residual block) and K5 (the
     residual table) on the arguments one P3M evaluation at `tune` (the keys
     of p3m_tune_for) gives them on this scene, each against its plain
-    version and timed; every body past K gets its correction (no cell
-    dropped, n_missed 0). Returns the kernels-line entries of K4 (per
+    version and timed, K5 twice bitwise; every body past K gets its
+    correction (no cell dropped, n_missed 0). Returns the kernels-line entries of K4 (per
     evaluation: both launches) and K5, bounds included."""
     g, k = tune["n_cells"], tune["max_per_cell"]
     a = p3m.smoothing_length(box, g)
@@ -869,7 +884,13 @@ def pp_full_width(phase: int, label: str, pos, mass, G: float, eps: float, box: 
     rr = check_pass(phase, f"K4 residual-residual {label}", ppkernel.pp_short, ppkernel.pp_short_reference,
                     rr_args, reps)
     table = check_pass(phase, f"K5 residual table {label}", ppkernel.pp_react, ppkernel.pp_react_reference,
-                       table_args, reps)
+                       table_args, reps, twice=True)
+    m, a = table_args[0].shape[0], table_args[4].shape[0]
+    blocks, (fwd_bytes, react_bytes) = ppkernel.react_blocks(a, k), ppkernel.react_partial_bytes(m, a, k)
+    log(phase, f"{label} K5: grid {blocks} blocks of {ppkernel.REACT_ROWS} kept rows ({a} affected cells x "
+               f"K {k}) x {ppkernel.REACT_SPLITS} runs of the live residuals; float32 "
+               f"partials: forward [{blocks}, {m}, 3] = {fwd_bytes} bytes, reactions "
+               f"[{ppkernel.REACT_SPLITS}, {blocks * ppkernel.REACT_ROWS}, 3] = {react_bytes} bytes")
     b4, b5 = pp_bounds(phase, main_args, table_args)
     for name, r in (("K4 main pass", main), ("K4 residual-residual", rr), ("K5 residual table", table)):
         log(phase, f"{label} {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
@@ -910,7 +931,11 @@ def phase_pp_kernels(dev, n_big: int = 1_000_000, n_core: int = 30_000) -> tuple
             t_args, n_missed = ppkernel._table_pass(tp, tm, G, a, box, g, k, ri, rv, eps, cap, sort)
             missed.append(int(n_missed))
             if d == dev:
-                r = check_pass(8, f"K5 {name}", ppkernel.pp_react, ppkernel.pp_react_reference, t_args)
+                r = check_pass(8, f"K5 {name}", ppkernel.pp_react, ppkernel.pp_react_reference, t_args, twice=True)
+                err5 = max(err5, r["max_abs_err"])
+                # eps = 0: eps^2 below FLT_MIN, K5's rsqrtf instantiation
+                z_args, _ = ppkernel._table_pass(tp, tm, G, a, box, g, k, ri, rv, 0.0, cap, sort)
+                r = check_pass(8, f"K5 {name}, eps 0", ppkernel.pp_react, ppkernel.pp_react_reference, z_args)
                 err5 = max(err5, r["max_abs_err"])
                 r = check_pass(8, f"K4 residual-residual {name}", ppkernel.pp_short,
                                ppkernel.pp_short_reference, ppkernel._rr_pass(tp, tm, G, a, box, ri, rv, eps))
@@ -1172,10 +1197,43 @@ def phase_gravity_kernels(dev, n_small: int = DRIFT_N, n_big: int = HEADLINE_N) 
     err3 = max(err3, compare("K3 mass-0 padding inert", potential_per_body(pos, m_pad, G, eps)[:2048],
                              potential_per_body_reference(pos[:2048], mass[:2048], G, eps), 11))
 
+    err6 = accjerk_splits(dev, err6, n_small, n_big)
     err6, err3, k6, k3 = gravity_kernel_sizes(dev, n_small, err6, err3)
     err6, err3, _, _ = gravity_kernel_sizes(dev, n_big, err6, err3, n_targets=4096)
     k6["max_abs_err"], k3["max_abs_err"] = err6, err3
     return k6, k3
+
+
+def accjerk_splits(dev, err6: float, n_small: int, n_big: int) -> float:
+    """K6's source split: its grids at n_small and n_big; a shape whose last
+    split is shorter (SHORT_LAST_SPLIT_N) and softening 1e-20 (eps^2 below
+    FLT_MIN: the rsqrtf instantiation, targets 300 away) against the plain
+    version; the drift gate's sphere at n_small twice, bitwise. Returns the
+    largest error so far."""
+    log(11, f"K6 at {pairwise.ACCJERK_TARGETS} targets a thread: " + "; ".join(
+        f"N={n}: {grid_text(pairwise.ACCJERK_ROWS, n, n)}" for n in (n_small, SHORT_LAST_SPLIT_N, n_big)))
+    G, eps = 0.5, 0.5
+    n = SHORT_LAST_SPLIT_N
+    pos, mass = rand_bodies(n, 13, dev)
+    vel = rand_vel(n, 14, dev)
+    (ga, gj), (wa, wj) = (pairwise_acc_jerk(pos, mass, vel, G, eps),
+                          pairwise_acc_jerk_reference(pos, mass, vel, G, eps))
+    err6 = max(err6, compare(f"K6 N={n} (shorter last split) acc", ga, wa, 11),
+               compare(f"K6 N={n} (shorter last split) jerk", gj, wj, 11))
+    pos, mass = rand_bodies(4096, 15, dev)
+    tgt, _ = rand_bodies(1000, 16, dev)
+    tgt += 300.0
+    vel, tvel = rand_vel(4096, 17, dev), rand_vel(1000, 18, dev)
+    args = (pos, mass, vel, G, 1e-20, tgt, tvel)
+    (ga, gj), (wa, wj) = pairwise_acc_jerk(*args), pairwise_acc_jerk_reference(*args)
+    check(all_finite(ga, gj), "K6 at softening 1e-20 finite")
+    err6 = max(err6, compare("K6 softening 1e-20 (rsqrtf) acc", ga, wa, 11),
+               compare("K6 softening 1e-20 (rsqrtf) jerk", gj, wj, 11))
+    pos, vel, mass, G, eps, _ = drift.gate_scene(n_small, device=dev)
+    first, second = pairwise_acc_jerk(pos, mass, vel, G, eps), pairwise_acc_jerk(pos, mass, vel, G, eps)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)), f"K6 at N={n_small} twice: the same bits")
+    log(11, f"K6 Plummer N={n_small}: a second call gives the same bits")
+    return err6
 
 
 def launches_per_step(state: integrators.PhaseState, force, h: float, steps: int, names: tuple,
@@ -2502,6 +2560,12 @@ def variant_timings(dev, n: int = HEADLINE_N, n_small: int = DRIFT_N) -> dict:
     return out
 
 
+def sass_name(fn: str) -> str:
+    """A kernel function's demangled name without its parameter list,
+    template arguments kept."""
+    return fn[: fn.index(">(") + 1] if ">(" in fn else fn.split("(")[0]
+
+
 def variant_sass() -> None:
     """`bench.sass` on K1 and the variants' kernels: instructions a pair in
     their inner loops; K1b's and K1c's products on the tensor cores (HMMA),
@@ -2511,7 +2575,7 @@ def variant_sass() -> None:
     with contextlib.redirect_stdout(buf):
         rows = sass.main(("pairwise_f32r", "pairwise_fast", "pairwise_precision", "pairwise_mxu"))
     for r in rows:
-        log(25, f"sass {r['function'].split('(')[0]}: {r['pairs_in_loop']} pairs in the loop, "
+        log(25, f"sass {sass_name(r['function'])}: {r['pairs_in_loop']} pairs in the loop, "
                 f"{r['instructions_a_pair']:.4f} instructions a pair: "
                 + ", ".join(f"{op} {n:.4g}" for op, n in r["by_opcode"].items()))
 
@@ -2525,6 +2589,26 @@ def variant_sass() -> None:
     check(len(loops("pairwise_bf16_kernel")) == 2 and all(
         any(op.startswith("HMUL2") for op in ops) and sum(n for op, n in ops.items() if op.startswith("F2FP")) <= 2
         for ops in loops("pairwise_bf16_kernel")), "K1e's inner loop runs HMUL2, at most 2 F2FP a pair")
+
+
+def pair_sass() -> None:
+    """`bench.sass` on K5 (pp_react), K6 (pairwise_accjerk) and K4
+    (pp_short): instructions a pair in their inner loops. Each of K5's pair
+    kernels evaluates the law once a pair: one MUFU.RSQ, one MUFU.EX2 and
+    one MUFU.RCP a pair in its loop."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = sass.main(("pp_react", "pairwise_accjerk", "pp_short"))
+    for r in rows:
+        log(25, f"sass {r['source']} {sass_name(r['function'])}: {r['pairs_in_loop']} pairs in the loop, "
+                f"{r['instructions_a_pair']:.4f} instructions a pair: "
+                + ", ".join(f"{op} {n:.4g}" for op, n in r["by_opcode"].items()))
+    react = [r["by_opcode"] for r in rows if "pp_react_kernel" in r["function"]]
+    check(len(react) == 2 and all(
+        all(ops.get(f"MUFU.{f}", 0) == 1 for f in ("RSQ", "EX2", "RCP")) for ops in react),
+          "K5's pair loops run one MUFU.RSQ, one MUFU.EX2 and one MUFU.RCP a pair")
+    check(len([r for r in rows if "pairwise_accjerk_kernel" in r["function"] and r["pairs_in_loop"] > 0]) == 2,
+          "K6's two instantiations each have a pair loop")
 
 
 def variant_cvt_rate() -> None:
@@ -2616,7 +2700,7 @@ def phase_precisions(dev, latency_ns=(DRIFT_N, HEADLINE_N)) -> dict:
     against its plain version and its ladder bar; fast's and mxu's errors
     by the nearest source; each timed at 262,144 and 16,384 beside K1; the
     conversion loop (`bench.cvt_rate`); `bench.sass` on K1 and the variants'
-    kernels; `bench throughput` with
+    kernels, and on K5, K6 and K4; `bench throughput` with
     every precision; `bench drift` at each (launches on that path, a
     profiled chunk, one sync-checked chunk); `bench latency`'s step at
     16,384 and 262,144; 10 steps at 1,024 card against CPU. Returns each
@@ -2626,6 +2710,7 @@ def phase_precisions(dev, latency_ns=(DRIFT_N, HEADLINE_N)) -> dict:
     recs = variant_timings(dev)
     variant_cvt_rate()
     variant_sass()
+    pair_sass()
     variant_throughput(dev)
     for p in VARIANTS:
         recs[p].update(launches=variant_drift(dev, p), max_abs_err=errs[p])

@@ -1,11 +1,14 @@
-"""Instructions per pair of the direct-sum kernels, read from their SASS.
+"""Instructions per pair of the pair kernels, read from their SASS.
 
 Builds the kernels (`ops/_build.py`), disassembles each library with
-`cuobjdump -sass` and, for every kernel function, finds its innermost loop
-(the shortest span that ends in a backward branch). The loop body holds a
-whole number of pairs, one MUFU.RSQ (rsqrtf) each, so the opcode counts in
-the body over its MUFU.RSQ count are the instructions a pair: thread
-instructions, as the schedulers issue them. "mxu"'s and "fast"'s loop bodies
+`cuobjdump -sass` and, for every kernel function, finds its innermost pair
+loop (the shortest span that ends in a backward branch and holds a
+MUFU.RSQ; a kernel may have shorter loops that stage its tiles). The loop
+body holds a whole number of pairs, one MUFU.RSQ (rsqrtf) each, so the
+opcode counts in the body over its MUFU.RSQ count are the instructions a
+pair: thread instructions, as the schedulers issue them. The P3M kernels
+K5 (pp_react) and K4 (pp_short) count the same way, their law's other
+special functions (MUFU.EX2, MUFU.RCP) beside it. "mxu"'s and "fast"'s loop bodies
 are a warp's 16-source chunks, 8 pairs a lane each, and 2 MMAs (HMMA) a
 chunk, each one instruction a lane for the warp's 256 pairs: 1/4 of an HMMA
 a pair. A loop without MUFU.RSQ (the split sums' combine) is counted once
@@ -14,7 +17,7 @@ JSON line per kernel function: its name, the pairs in the loop body, and the
 instructions a pair by opcode (modifiers dropped after the first, as in
 F2FP.BF16).
 
-    python -m nbx_torch.bench.sass [kernel ...]    # default: the direct sums
+    python -m nbx_torch.bench.sass [kernel ...]    # default: the direct sums; or pp_react pp_short
 
 Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
 """
@@ -63,8 +66,13 @@ def functions(lib: Path) -> dict[str, list[tuple[int, str, str]]]:
     return dict(zip(names, out.values()))
 
 
+def _body(code, lo: int, hi: int) -> collections.Counter:
+    return collections.Counter(".".join(op.split(".")[:2]) for addr, op, _ in code if lo <= addr <= hi)
+
+
 def per_pair(code: list[tuple[int, str, str]]) -> tuple[int, dict[str, float]]:
-    """(pairs in the innermost loop body, instructions a pair by opcode)."""
+    """(pairs in the innermost loop body, instructions a pair by opcode): the
+    shortest loop that holds a MUFU.RSQ, else the shortest loop."""
     loops = []
     for addr, op, args in code:
         target = re.search(r"0x([0-9a-f]+)", args)
@@ -72,8 +80,8 @@ def per_pair(code: list[tuple[int, str, str]]) -> tuple[int, dict[str, float]]:
             loops.append((addr - int(target.group(1), 16), int(target.group(1), 16), addr))
     if not loops:
         return 0, {}
-    _, lo, hi = min(loops)
-    body = collections.Counter(".".join(op.split(".")[:2]) for addr, op, _ in code if lo <= addr <= hi)
+    _, lo, hi = min(loops, key=lambda loop: (_body(code, loop[1], loop[2]).get("MUFU.RSQ", 0) == 0, loop[0]))
+    body = _body(code, lo, hi)
     pairs = body.get("MUFU.RSQ", 0)
     return pairs, {op: n / max(pairs, 1) for op, n in sorted(body.items())}
 

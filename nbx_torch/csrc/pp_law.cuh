@@ -1,5 +1,6 @@
-// The P3M short-range pair law and the thread-block pass shared by K4
-// (pp_short.cu) and K5 (pp_react.cu), float32, for NVIDIA Hopper (sm_90a).
+// The P3M short-range pair law shared by K4 (pp_short.cu), K5 (pp_react.cu)
+// and K7 (collide_fused.cu), and the thread-block pass of K4, float32, for
+// NVIDIA Hopper (sm_90a).
 //
 //   acc_i = G sum_j w_ij d_ij,   d_ij = p_j - p_i,
 //   w_ij  = m_j [erfc(x)/s + c_a e^(-x^2)] / s^2,   s = sqrt(r^2 + eps^2),
@@ -7,10 +8,14 @@
 //
 // masked to 0 unless r^2 > 0 and m_j > 0, with erfc(x) from the Abramowitz &
 // Stegun 7.1.26 polynomial in the Horner order of the TPU kernels
-// (nbx/ops/ppkernel.py:109-115), so that the fused collision-gravity kernel
-// can later reproduce it bit for bit.
+// (nbx/ops/ppkernel.py:109-115). Two forms:
+//   pair_weight (K4, K7): rsqrtf, expf and the IEEE reciprocal __frcp_rn, so
+//   that the fused collision-gravity kernel reproduces K4 bit for bit;
+//   pair_base_approx (K5): one MUFU instruction each, rsqrt.approx.ftz
+//   where eps^2 is normal, ex2.approx.ftz and rcp.approx.ftz, and the
+//   constants folded (below).
 //
-// A pass is a list of work items. Item w is one row of `win`:
+// A pass of K4 is a list of work items. Item w is one row of `win`:
 //   win[w] = (ts, tn, s0, l0, s1, l1, ...): targets tgt[ts .. ts + tn) against
 //   the source rows src[s .. s + l) of each of its n_strips strips.
 // One thread block runs one item, one thread per target (striding when tn
@@ -68,6 +73,58 @@ __device__ __forceinline__ float pair_weight(float r2, float mj, const Law& law)
   const float erfc_x = poly * tt * ex2;
   const float w = mj * (erfc_x * inv_s + law.c_a * ex2) * (inv_s * inv_s);
   return (r2 > 0.f && mj > 0.f) ? w : 0.f;
+}
+
+// K5's law: the weight without the source mass, wbase = [erfc(x)/s +
+// c_a e^(-x^2)] / s^2, 0 where r^2 = 0 (a select, so that a coincident
+// pair's 0 * inf never enters a sum). One MUFU instruction a special
+// function:
+//   1/s: rsqrt.approx.ftz (kFtz, where eps^2 >= FLT_MIN, so s^2 is normal),
+//        or rsqrtf of s^2 guarded at 0 (eps^2 below FLT_MIN, eps = 0 too);
+//   e^(-x^2) = ex2.approx.ftz(s^2 k_ex), k_ex = -log2(e) / a^2;
+//   t = rcp.approx.ftz(1 + k_p s), k_p = p / a;
+//   wbase = ex2 (poly t / s + c_a) / s^2, poly in the Horner order above.
+// Each is within 2 ulp of its IEEE counterpart (PTX ISA), so wbase moves by a
+// few float32 roundings against pair_weight's.
+struct LawApprox {
+  float eps2, k_ex, k_p, c_a;
+};
+
+__device__ __forceinline__ LawApprox approx_of(const Law& law) {
+  return LawApprox{law.eps2, -1.44269504f * (law.inv_a * law.inv_a), kAsP * law.inv_a, law.c_a};
+}
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <bool kFtz>
+__device__ __forceinline__ float pair_base_approx(float r2, const LawApprox& law) {
+  const float s2 = r2 + law.eps2;
+  const float inv_s = kFtz ? rsqrt_approx(s2) : rsqrtf(s2 > 0.f ? s2 : 1.f);
+  const float ex2 = ex2_approx(s2 * law.k_ex);
+  const float tt = rcp_approx(__fmaf_rn(law.k_p, s2 * inv_s, 1.f));
+  float poly = kAs5;
+  poly = __fmaf_rn(poly, tt, kAs4);
+  poly = __fmaf_rn(poly, tt, kAs3);
+  poly = __fmaf_rn(poly, tt, kAs2);
+  poly = __fmaf_rn(poly, tt, kAs1);
+  const float w = (ex2 * __fmaf_rn(poly * tt, inv_s, law.c_a)) * (inv_s * inv_s);
+  return r2 > 0.f ? w : 0.f;
 }
 
 // Runs item w of pass p with the calling block. Every thread of the block

@@ -1,7 +1,8 @@
 // What the direct sums that split their sources share, float32, for NVIDIA
 // Hopper (sm_90a): "f32r" (pairwise_f32r.cu, K1), "f32", "hyb" and "bf16"
-// (pairwise_precision.cu, K1a, K1d, K1e), "fast" (pairwise_fast.cu, K1b)
-// and "mxu" (pairwise_mxu.cu, K1c), and the roundings of "mxu" and "hyb".
+// (pairwise_precision.cu, K1a, K1d, K1e), "fast" (pairwise_fast.cu, K1b),
+// "mxu" (pairwise_mxu.cu, K1c) and the acc+jerk sum (pairwise_accjerk.cu,
+// K6), and the roundings of "mxu" and "hyb".
 //
 // The source split: block (x, s) of a kernel sums its targets against split
 // s of the sources, a contiguous run of `tiles_per_split` whole tiles of
@@ -88,11 +89,13 @@ __device__ __forceinline__ int2 split_range(int ns, int tiles_per_split) {
 }
 
 // acc_i = G o_i, o_i = part[0, i] + part[1, i] + ... in split order; for
-// kWidth 4 (o_xyz, o_w) the cancellation o_xyz - p_i o_w comes first.
+// kWidth 4 (o_xyz, o_w) the cancellation o_xyz - p_i o_w comes first; for
+// kWidth 6 (K6's acc and jerk) o[0:3] goes to acc and o[3:6] to acc2.
 template <int kWidth>
 __global__ void combine_splits(const float* __restrict__ part,  // [splits, nt, kWidth]
                                const float* __restrict__ tgt,   // [nt, 3]
                                float* __restrict__ acc,         // [nt, 3]
+                               float* __restrict__ acc2,        // [nt, 3], kWidth 6 only
                                int nt, int splits, float g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nt) return;
@@ -109,13 +112,19 @@ __global__ void combine_splits(const float* __restrict__ part,  // [splits, nt, 
     const float v = kWidth == 4 ? __fsub_rn(o[c], __fmul_rn(tgt[3 * i + c], o[kWidth - 1])) : o[c];
     acc[3 * i + c] = v * g;
   }
+  if constexpr (kWidth == 6) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc2[3 * i + c] = o[3 + c] * g;
+  }
 }
 
 // Launch the combine on `stream` after the split kernel.
 template <int kWidth>
-void combine(const float* part, const float* tgt, float* acc, int nt, int splits, float g, cudaStream_t stream) {
+void combine(const float* part, const float* tgt, float* acc, int nt, int splits, float g, cudaStream_t stream,
+             float* acc2 = nullptr) {
   constexpr int kThreads = 256;
-  combine_splits<kWidth><<<(nt + kThreads - 1) / kThreads, kThreads, 0, stream>>>(part, tgt, acc, nt, splits, g);
+  combine_splits<kWidth><<<(nt + kThreads - 1) / kThreads, kThreads, 0, stream>>>(part, tgt, acc, acc2, nt, splits,
+                                                                                  g);
 }
 
 // A split sum of three partials a target: kernel(tgt [nt, 3], src [ns]

@@ -13,7 +13,8 @@ to its plain PyTorch version (`*_reference`):
   `pairwise_acc_fast`, `_mxu`. Every one splits its sources over a second
   grid dimension (`source_splits`) and adds the splits' partials in a
   second pass;
-- `pairwise_acc_jerk`: `nbx_torch/csrc/pairwise_accjerk.cu` (K6);
+- `pairwise_acc_jerk`: `nbx_torch/csrc/pairwise_accjerk.cu` (K6), its sources
+  split as K1's;
 - `potential_per_body`: `nbx_torch/csrc/potential.cu` (K3).
 
 There is no fallback from one to the other: a CUDA call launches the kernel
@@ -43,6 +44,13 @@ TARGETS = 4  # targets a thread of K1, K1a, K1d and K1e (kTargets in their csrc/
 # a block, floats a target of each split's partials.
 SPLIT_KERNELS = {"f32r": (256 * TARGETS, 3), "f32": (256 * TARGETS, 4), "fast": (128, 4), "hyb": (256 * TARGETS, 3),
                  "bf16": (256 * TARGETS, 3), "mxu": (256, 3)}
+# K6 (`pairwise_acc_jerk`) splits its sources too: 256 threads of
+# ACCJERK_TARGETS targets (kTargets in csrc/pairwise_accjerk.cu; 4 ran slower
+# at the Hermite path's 16,384), six floats a target of each split's
+# partials (acc and jerk).
+ACCJERK_TARGETS = 2
+ACCJERK_ROWS = 256 * ACCJERK_TARGETS
+ACCJERK_WIDTH = 6
 
 
 def check_precision(precision: str) -> str:
@@ -561,7 +569,9 @@ def pairwise_acc_jerk_reference(
     """Plain PyTorch version of K6's sums, in blocks of `block` targets:
     w = m_j / s^3, acc_i = G sum_j w d, jerk_i = G sum_j w (dv - 3 (d.dv)/s^2
     d), s^2 = |d|^2 + eps^2, no diagonal mask (the self pair adds 0 for
-    eps > 0)."""
+    eps > 0). In torch's order, whatever the kernel's source split: nothing
+    cancels in K6, so the kernel's order of its runs, tiles and FMAs moves
+    the sums by float32 roundings of their terms only (as `_f32r_rows`)."""
     if target_pos is None:
         target_pos, target_vel = pos, vel
     eps2 = eps2_of(softening)
@@ -595,7 +605,9 @@ def pairwise_acc_jerk(
 
     pos, vel [Ns, 3], mass [Ns] -> (acc [Nt, 3], jerk [Nt, 3]) at
     target_pos, target_vel (both or neither; they default to the sources),
-    float32. softening must be > 0."""
+    float32. softening must be > 0. On the card K6 splits the sources into
+    source_splits(Nt, Ns, ACCJERK_ROWS) runs and adds their partials in
+    order, in a second launch."""
     if (target_pos is None) != (target_vel is None):
         raise ValueError("pairwise_acc_jerk takes target_pos and target_vel together")
     if target_pos is None:
@@ -615,9 +627,11 @@ def pairwise_acc_jerk(
     jerk = torch.empty((nt, 3), dtype=torch.float32, device=dev)
     if nt == 0:
         return acc, jerk
-    _launch("pairwise_accjerk", [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P], dev,
-            tp.data_ptr(), tv.data_ptr(), src.data_ptr(), acc.data_ptr(), jerk.data_ptr(), nt, ns,
-            float(G), eps2_of(softening))
+    splits = source_splits(nt, ns, ACCJERK_ROWS)
+    part = torch.empty((splits, nt, ACCJERK_WIDTH), dtype=torch.float32, device=dev)
+    _launch("pairwise_accjerk", [_P] * 6 + [_I, _I, _F, _F, _I, _P], dev,
+            tp.data_ptr(), tv.data_ptr(), src.data_ptr(), part.data_ptr(), acc.data_ptr(), jerk.data_ptr(), nt, ns,
+            float(G), eps2_of(softening), split_tiles(ns, splits))
     pairwise_acc_jerk.launches += 1
     return acc, jerk
 

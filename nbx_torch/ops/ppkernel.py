@@ -3,7 +3,7 @@ layouts that feed them (port of `nbx/ops/ppkernel.py`).
 
 The JAX package's TPU kernels `_pp_kernel` (K4) and `_pp_react_kernel` (K5)
 take materialised [C, K8, 8] target and [C, 8, 27 K8] source blocks built by
-XLA gathers. Here the kernels read the bodies themselves: every pass is a
+XLA gathers. Here the kernels read the bodies themselves. A pass of K4 is a
 list of work items, one per thread block (`nbx_torch/csrc/pp_law.cuh`):
 
     win[w] = (ts, tn, s0, l0, s1, l1, ...)   targets tgt[ts .. ts + tn),
@@ -12,8 +12,12 @@ list of work items, one per thread block (`nbx_torch/csrc/pp_law.cuh`):
                                               strip
 
 and every target writes its row straight to body order through `tgt_out`.
-The layouts below build the items with torch ops on the device, so the CPU
-tests reach them, and keep the JAX package's contract:
+K5 takes the affected cells' kept runs gathered into one array of rows
+(`_kept_rows`), REACT_ROWS a block, against the live residuals in
+REACT_SPLITS runs, one law evaluation a pair for both directions
+(`nbx_torch/csrc/pp_react.cu`).
+The layouts below are built with torch ops on the device, so the CPU tests
+reach them, and keep the JAX package's contract:
 
   * kept set: the first K bodies of each cell in stable cell-sorted order;
   * main pass: each kept target against the kept bodies of its 27 neighbour
@@ -31,8 +35,9 @@ tests reach them, and keep the JAX package's contract:
 
 `pp_short` (K4) and `pp_react` (K5) launch the kernels on a CUDA tensor and
 run their plain PyTorch versions on a CPU tensor; a CUDA call launches the
-kernel or raises. Each counts its launches in `.launches`. `pp_buckets_for`
-is host-side numpy, once per scene.
+kernel or raises. Each counts its calls in `.launches` (a call of K5 is two
+launches, the pair kernel and its combine). `pp_buckets_for` is host-side
+numpy, once per scene.
 """
 
 from __future__ import annotations
@@ -47,7 +52,9 @@ from nbx_torch.ops import _build
 from nbx_torch.ops.p3m import _cell_coords, _dilate27, _host, _neighbors27, cell_sort, pp_law, take_rows
 
 LANE = 128  # the JAX package's lane width; only its sizing rules use it
-TILE = 128  # targets per work item, the threads of a block
+TILE = 128  # targets per work item of K4, the threads of a block
+REACT_ROWS = 1024  # kept rows a block of K5 (kRows in csrc/pp_react.cu)
+REACT_SPLITS = 16  # K5's runs of the live residuals, its grid's second dimension (kSplits)
 
 # Abramowitz & Stegun 7.1.26 erfc coefficients (x >= 0, abs err 1.5e-7)
 _AS_P = 0.3275911
@@ -287,22 +294,20 @@ def _pass_args(tgt, tgt_out, src, win, out, n_strips: int, dev) -> list:
             win.shape[0], n_strips]
 
 
-_PASS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-_LAW_ARGTYPES = [ctypes.c_int] + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LAW = [_F] * 4  # pp_law's (eps^2, 1/a, c_a, G)
 
 
-def _entry(kernel: str, symbol: str, n_passes: int):
+def _launch(symbol: str, argtypes: list, dev, *args) -> None:
+    """Launch the entry `symbol` = nbx_<kernel> of csrc/<kernel>.cu on the
+    device's current stream; raise on a refused launch."""
+    kernel = symbol.removeprefix("nbx_")
     fn = getattr(_build.load(kernel), symbol)
     if fn.argtypes is None:
-        fn.argtypes = _PASS_ARGTYPES * n_passes + _LAW_ARGTYPES
+        fn.argtypes = argtypes + [_P]
         fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(kernel: str, symbol: str, passes: list, law, dev) -> None:
     with torch.cuda.device(dev):
-        err = _entry(kernel, symbol, len(passes))(
-            *(a for p in passes for a in p), TILE, *law, torch.cuda.current_stream().cuda_stream)
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
 
@@ -324,7 +329,7 @@ def pp_short(tgt, tgt_out, src, win, n_strips: int, s_cap: int, n_out: int, law)
     args = _pass_args(tgt, tgt_out, src, win, out, n_strips, tgt.device)
     if win.shape[0] == 0:
         return out
-    _launch("pp_short", "nbx_pp_short", [args], law, tgt.device)
+    _launch("nbx_pp_short", [_P] * 5 + [_I] * 3 + _LAW, tgt.device, *args, TILE, *law)
     pp_short.launches += 1
     return out
 
@@ -365,17 +370,38 @@ def pp_react_reference(rows, row_out, feats, order, aff_start, aff_len, k: int, 
     return out[:n_out]
 
 
-def _react_items(row_out, aff_start, aff_len, k: int):
-    """K5's two passes as K4-style work items: forward (tiles of the live
-    residual rows, each against the A affected runs) and reaction (each
-    affected run's kept rows against the one strip of live residual rows)."""
-    m, a = row_out.shape[0], aff_start.shape[0]
-    n_live = (row_out >= 0).sum(dtype=torch.int32)
-    ts = torch.arange(0, m, TILE, device=row_out.device)
-    fwd = _items(ts, n_live - ts, aff_start[None, :].expand(ts.shape[0], a),
-                 aff_len[None, :].expand(ts.shape[0], a), TILE)
-    react = _items(aff_start, aff_len, torch.zeros_like(aff_start)[:, None], n_live.expand(a, 1), k)
-    return fwd, react
+def react_blocks(a: int, k: int) -> int:
+    """K5's blocks for `a` affected cells of at most k kept bodies: the kept
+    rows, a K, in blocks of REACT_ROWS."""
+    return -(-a * k // REACT_ROWS)
+
+
+def react_partial_bytes(m: int, a: int, k: int) -> tuple[int, int]:
+    """Bytes of K5's float32 partials: the forward ones [react_blocks(a, k),
+    m, 3] and the reactions' [REACT_SPLITS, react_blocks(a, k) REACT_ROWS,
+    3]."""
+    blocks = react_blocks(a, k)
+    return blocks * m * 3 * 4, REACT_SPLITS * blocks * REACT_ROWS * 3 * 4
+
+
+def _kept_rows(feats, order, aff_start, aff_len, k: int):
+    """K5's kept rows: the affected cells' kept runs feats[aff_start[c] ..
+    + aff_len[c]) one after another in cell order, then parked rows (mass 0,
+    at the origin), react_blocks(A, k) REACT_ROWS of them, a size the host
+    knows from the caps; their output rows (order[...], -1 for the parked
+    ones) and the live count [] i32. Device ops alone: no count reaches the
+    host."""
+    n_rows = react_blocks(aff_start.shape[0], k) * REACT_ROWS
+    lens = aff_len.long()
+    ends = torch.cumsum(lens, 0)
+    r = torch.arange(n_rows, device=feats.device)
+    run = torch.searchsorted(ends, r, right=True).clamp(max=max(aff_start.shape[0] - 1, 0))
+    n_live = lens.sum()
+    live = r < n_live
+    src = torch.where(live, aff_start.long()[run] + r - (ends - lens)[run], 0)
+    kept = torch.where(live[:, None], feats[src], 0.0).contiguous()
+    kept_out = torch.where(live, order[src].long(), -1).to(torch.int32).contiguous()
+    return kept, kept_out, n_live.to(torch.int32)
 
 
 def pp_react(rows, row_out, feats, order, aff_start, aff_len, k: int, n_out: int, law):
@@ -387,19 +413,28 @@ def pp_react(rows, row_out, feats, order, aff_start, aff_len, k: int, n_out: int
     in that order (aff_len <= k, 0 for unused entries). Returns [n_out, 3]:
     the forward force on each live residual's row and the reaction
     -G sum_t wbase m_t d on each kept body's row. A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel once for both directions."""
+    version; a CUDA tensor gathers the kept runs into one array
+    (`_kept_rows`) and launches the kernel, one law evaluation a pair for
+    both directions, and its combine (the forward partials in block order,
+    the reactions in split order): one call, counted once."""
     if rows.device.type == "cpu":
         return pp_react_reference(rows, row_out, feats, order, aff_start, aff_len, k, n_out, law)
     if rows.device.type != "cuda":
         raise ValueError(f"pp_react runs on CPU or CUDA tensors, got {rows.device}")
     dev = rows.device
-    fwd_win, react_win = _react_items(row_out, aff_start, aff_len, k)
+    m = rows.shape[0]
+    _check("rows", rows, torch.float32, (m, 4), dev)
+    _check("row_out", row_out, torch.int32, (m,), dev)
     out = torch.zeros((n_out, 3), dtype=torch.float32, device=dev)
-    passes = [_pass_args(rows, row_out, feats, fwd_win, out, aff_start.shape[0], dev),
-              _pass_args(feats, order, rows, react_win, out, 1, dev)]
-    if fwd_win.shape[0] + react_win.shape[0] == 0:
+    kept, kept_out, n_kept = _kept_rows(feats, order, aff_start, aff_len, k)
+    if m == 0 or kept.shape[0] == 0:
         return out
-    _launch("pp_react", "nbx_pp_react", passes, law, dev)
+    counts = torch.stack([(row_out >= 0).sum(dtype=torch.int32), n_kept])
+    part = torch.empty((react_blocks(aff_start.shape[0], k), m, 3), dtype=torch.float32, device=dev)
+    react = torch.empty((REACT_SPLITS, kept.shape[0], 3), dtype=torch.float32, device=dev)
+    _launch("nbx_pp_react", [_P] * 8 + [_I] * 2 + _LAW, dev, rows.data_ptr(), row_out.data_ptr(), kept.data_ptr(),
+            kept_out.data_ptr(), counts.data_ptr(), part.data_ptr(), react.data_ptr(), out.data_ptr(), m,
+            kept.shape[0], *law)
     pp_react.launches += 1
     return out
 

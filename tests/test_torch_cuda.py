@@ -366,8 +366,9 @@ def test_pp_short_matches_plain(dev, case):
 
 @pytest.mark.parametrize("case", list(RESIDUAL_CASES))
 def test_pp_react_and_rr_match_plain(dev, case):
-    """K5 (row sums) against its plain version (column sums) and K4 on the
-    residual-residual block; n_missed equal on the card and the CPU."""
+    """K5 (one evaluation a pair, block partials) against its plain version
+    (column sums) and K4 on the residual-residual block; n_missed equal on
+    the card and the CPU."""
     pos, mass, G, a, box, g, k, m, cap, eps = residual_case(case)
     missed = []
     for d in (dev, torch.device("cpu")):
@@ -381,6 +382,35 @@ def test_pp_react_and_rr_match_plain(dev, case):
             rr = ppkernel._rr_pass(tp, tm, G, a, box, ri, rv, eps)
             assert _rel_err(ppkernel.pp_short(*rr), ppkernel.pp_short_reference(*rr)) < TOL
     assert missed[0] == missed[1] and (missed[0] > 0) == (case == "affected_cap")
+
+
+def _table_args_on(dev, case, eps=None):
+    pos, mass, G, a, box, g, k, m, cap, case_eps = residual_case(case)
+    tp, tm = torch.from_numpy(pos).to(dev), torch.from_numpy(mass).to(dev)
+    sort = p3m.cell_sort(tp, box, g)
+    ri, rv = p3m.take_rows(p3m.overflowing(sort, k)[1], m)
+    return ppkernel._table_pass(tp, tm, G, a, box, g, k, ri, rv, case_eps if eps is None else eps, cap, sort)[0]
+
+
+@pytest.mark.parametrize("case", list(RESIDUAL_CASES))
+def test_pp_react_gives_the_same_bits_twice(dev, case):
+    """No atomics in K5's pair kernel or its combine: two calls on the same
+    inputs agree bitwise, one law evaluation a pair and one launch counted."""
+    args = _table_args_on(dev, case)
+    before = ppkernel.pp_react.launches
+    first = ppkernel.pp_react(*args)
+    assert ppkernel.pp_react.launches == before + 1
+    assert torch.equal(first, ppkernel.pp_react(*args))
+
+
+@pytest.mark.parametrize("case", list(RESIDUAL_CASES))
+def test_pp_react_at_eps_zero_takes_the_guarded_law(dev, case):
+    """eps = 0, the default of residual_table_acc_kernel: eps^2 below FLT_MIN,
+    so K5 takes rsqrtf guarded at s^2 = 0, not rsqrt.approx.ftz."""
+    args = _table_args_on(dev, case, eps=0.0)
+    assert args[-1][0] == 0.0
+    got = ppkernel.pp_react(*args)
+    assert torch.isfinite(got).all() and _rel_err(got, ppkernel.pp_react_reference(*args)) < TOL
 
 
 def test_p3m_scaled_step_makes_no_host_sync(dev):
@@ -399,7 +429,7 @@ def test_p3m_scaled_step_makes_no_host_sync(dev):
     assert torch.isfinite(st.pos).all() and int(tot["n_uncorrected"]) == 0
 
 
-# (nt, ns): square, rectangular, ragged (more than one block of 128 threads), tiny
+# (nt, ns): square, rectangular, ragged, tiny; K6 splits the sources of each but the last
 GRAVITY_SHAPES = [(4096, 4096), (1000, 4096), (777, 3001), (1, 300), (129, 127)]
 
 
@@ -414,6 +444,44 @@ def test_accjerk_kernel_matches_plain(dev, nt, ns):
     want = pairwise.pairwise_acc_jerk_reference(pos, mass, vel, 0.5, 0.5, tgt, tvel)
     for g, w in zip(got, want):
         assert _rel_err(g, w) < TOL
+
+
+def test_accjerk_with_a_shorter_last_split_matches_plain(dev):
+    """SHORT_LAST_SPLIT_N bodies: K6's runs of whole tiles end in a shorter
+    one."""
+    n = SHORT_LAST_SPLIT_N
+    s = pairwise.source_splits(n, n, pairwise.ACCJERK_ROWS)
+    assert s > 1 and s * pairwise.split_tiles(n, s) > -(-n // pairwise.TILE)
+    pos, mass = _rand(n, 13, dev)
+    vel = rand_vel(n, 14, dev)
+    got = pairwise.pairwise_acc_jerk(pos, mass, vel, 0.5, 0.5)
+    for g, w in zip(got, pairwise.pairwise_acc_jerk_reference(pos, mass, vel, 0.5, 0.5)):
+        assert _rel_err(g, w) < TOL
+
+
+def test_accjerk_below_flt_min_takes_rsqrtf(dev):
+    """softening 1e-20: eps^2 = 1e-40 is subnormal, so K6 takes rsqrtf, not
+    rsqrt.approx.ftz; the targets 300 away from the sources in each
+    coordinate, so that no near pair goes unsoftened."""
+    pos, mass = _rand(4096, 15, dev)
+    tgt, _ = _rand(1000, 16, dev)
+    tgt += 300.0
+    vel, tvel = rand_vel(4096, 17, dev), rand_vel(1000, 18, dev)
+    got = pairwise.pairwise_acc_jerk(pos, mass, vel, 0.5, 1e-20, tgt, tvel)
+    want = pairwise.pairwise_acc_jerk_reference(pos, mass, vel, 0.5, 1e-20, tgt, tvel)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and _rel_err(g, w) < TOL
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_accjerk_gives_the_same_bits_twice(dev, n):
+    """No atomics: two launches on the same inputs agree bitwise (16,384: the
+    drift gate's sphere, 16 x 32 blocks)."""
+    pos, vel, mass, G, eps, _ = drift.gate_scene(n, device=dev)
+    assert pairwise.source_splits(n, n, pairwise.ACCJERK_ROWS) > 1
+    first = pairwise.pairwise_acc_jerk(pos, mass, vel, G, eps)
+    for a, b in zip(first, pairwise.pairwise_acc_jerk(pos, mass, vel, G, eps)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("nt,ns", GRAVITY_SHAPES)

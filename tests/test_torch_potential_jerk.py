@@ -91,6 +91,38 @@ def test_acc_jerk_reference_blocks_do_not_change_the_sum():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_acc_jerk_source_split_at_the_drift_gates_size():
+    """K6 splits its sources as K1 does: at 16,384 bodies, 512 blocks of 256
+    threads of ACCJERK_TARGETS = 2 targets, 32 target blocks x 16 splits of
+    4 tiles."""
+    rows = pairwise.ACCJERK_ROWS
+    assert rows == 256 * pairwise.ACCJERK_TARGETS == 512
+    s = pairwise.source_splits(16384, 16384, rows)
+    assert (-(-16384 // rows), s, pairwise.split_tiles(16384, s)) == (32, 16, 4)
+
+
+@pytest.mark.parametrize("splits", [2, 3, None])
+def test_acc_jerk_reference_does_not_depend_on_the_split(splits):
+    """The kernel's order, each split's sources then the splits in turn (G
+    applied once), agrees with the plain version's one sum to TOL: nothing
+    cancels in K6. None: the kernel's own split at these shapes, more than
+    one run, the last shorter."""
+    pos, vel, mass = _t(*_rand(3000, 16))
+    tpos, tvel = pos[:700], vel[:700]
+    if splits is None:
+        splits = pairwise.source_splits(700, 3000, pairwise.ACCJERK_ROWS)
+        assert splits > 1 and splits * pairwise.split_tiles(3000, splits) * pairwise.TILE > 3000
+    run = pairwise.split_tiles(3000, splits) * pairwise.TILE
+    acc, jerk = torch.zeros(700, 3), torch.zeros(700, 3)
+    for j0 in range(0, 3000, run):
+        a, j = pairwise.pairwise_acc_jerk_reference(pos[j0:j0 + run], mass[j0:j0 + run], vel[j0:j0 + run], 1.0, EPS,
+                                                    tpos, tvel)
+        acc, jerk = acc + a, jerk + j
+    want = pairwise.pairwise_acc_jerk_reference(pos, mass, vel, G, EPS, tpos, tvel)
+    for got, w in zip((acc * G, jerk * G), want):
+        _assert_close(got.numpy(), w.numpy())
+
+
 def test_acc_jerk_needs_target_vel_with_target_pos():
     pos, vel, mass = _t(*_rand(16, 6))
     with pytest.raises(ValueError, match="together"):

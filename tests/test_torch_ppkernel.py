@@ -2,8 +2,9 @@
 nbx.ops.ppkernel on the CPU: the same scenes as tests/test_ppkernel.py, the
 JAX side in interpret mode, the port's side through the kernels' plain
 PyTorch versions on the work items the kernels take. Also the cell binning of
-nbx_torch.ops.p3m and the K5 layout as the card computes it (row sums)
-against its plain version (the TPU kernel's column sums).
+nbx_torch.ops.p3m and K5's layout as the card computes it (the kept runs
+as one array of rows, block partials in block order) against its plain
+version (the TPU kernel's column sums).
 
 Floats to the JAX tests' own bar, rtol 2e-5 and atol 3e-6 max|acc|; counts,
 bucket tuples and binning exactly."""
@@ -15,7 +16,7 @@ import torch
 import jax.numpy as jnp
 from nbx.ops import p3m as jp3m
 from nbx.ops import ppkernel as jpp
-from nbx_torch.bench.pp_scenes import MAIN_CASES, clustered, main_case, residual_case, uniform
+from nbx_torch.bench.pp_scenes import MAIN_CASES, RESIDUAL_CASES, clustered, main_case, residual_case, uniform
 from nbx_torch.ops import p3m, ppkernel
 
 torch.set_num_threads(1)
@@ -126,25 +127,68 @@ def test_residual_short_acc_matches(include_rr):
     _close(got.numpy(), want)
 
 
-def test_react_row_sums_match_column_sums():
-    """K5's design on the card: the reaction as a row sum (K4's law with
-    targets and sources swapped) over the work items the kernel takes, run
-    through K4's plain version, equals the TPU kernel's column-sum form, the
-    plain version of K5."""
-    pos, mass, G, a, box, g, k, m, _, eps = residual_case("core")
+def _table_args(case):
+    pos, mass, G, a, box, g, k, m, cap, eps = residual_case(case)
     tp, tm = torch.from_numpy(pos), torch.from_numpy(mass)
-    _, (ri, rv) = _residuals(pos, box, g, k, m)
-    order, starts, _ = p3m.cell_sort(tp, box, g)
-    cnt = starts[1:] - starts[:-1]
-    aff = torch.nonzero(cnt > 0)[:40, 0]  # 40 occupied cells stand in for the affected set
-    aff_start, aff_len = starts[aff], torch.clamp(cnt[aff], max=k)
-    rows, row_out = ppkernel._residual_rows(tp, tm, box, ri, rv)
-    feats = ppkernel._sorted_rows(tp, tm, order)
-    law = p3m.pp_law(eps, a, G)
-    n = pos.shape[0]
-    fwd_win, react_win = ppkernel._react_items(row_out, aff_start, aff_len, k)
-    got = (ppkernel.pp_short_reference(rows, row_out, feats, fwd_win, aff.shape[0], k, n, law)
-           + ppkernel.pp_short_reference(feats, order, rows, react_win, 1, rows.shape[0], n, law))
-    want = ppkernel.pp_react(rows, row_out, feats, order, aff_start, aff_len, k, n, law)
-    assert int(rv.sum()) > 0 and bool((want[order[aff_start.long()].long()] != 0).any())
-    _close(got.numpy(), want.numpy())
+    sort = p3m.cell_sort(tp, box, g)
+    ri, rv = p3m.take_rows(p3m.overflowing(sort, k)[1], m)
+    return ppkernel._table_pass(tp, tm, G, a, box, g, k, ri, rv, eps, cap, sort)
+
+
+def _blocked_react(block, rows, row_out, feats, order, aff_start, aff_len, k, n_out, law):
+    """K5's design on the card in plain PyTorch: the kept rows as one array
+    (`_kept_rows`), in blocks of `block` rows (REACT_ROWS on the card); each
+    block's forward partials of every live residual against its rows, added
+    in block order, times G; each kept row's reaction against every live
+    residual, from the same law evaluation."""
+    kept, kept_out, n_kept = ppkernel._kept_rows(feats, order, aff_start, aff_len, k)
+    live = rows[: int((row_out >= 0).sum())]
+    g = law[3]
+    out = torch.zeros((n_out + 1, 3))
+    fwd = torch.zeros((live.shape[0], 3))
+    for b0 in range(0, int(n_kept), block):  # the live blocks, in order
+        blk = kept[b0:b0 + block]
+        d, r2 = ppkernel._pairs(live, blk)  # d = p_kept - p_res, [T, R]
+        wb = ppkernel._law_base(r2, law)
+        mk = blk[:, 3]
+        fwd = fwd + ppkernel._row_sums(torch.where(mk > 0.0, wb * mk, 0.0), d)
+        react = torch.stack([(wb * live[:, 3:4] * dc).sum(0) for dc in d], dim=-1)
+        o = kept_out[b0:b0 + block].long()
+        out[torch.where(o >= 0, o, n_out)] = -g * react
+    out[row_out[: live.shape[0]].long()] = g * fwd
+    return out[:n_out]
+
+
+@pytest.mark.parametrize("block", [ppkernel.REACT_ROWS, 64])
+@pytest.mark.parametrize("case", list(RESIDUAL_CASES))
+def test_react_blocks_match_column_sums(case, block):
+    """K5's design on the card, the kept runs as one array of rows in blocks
+    with the forward partials added in block order, run through a plain
+    evaluation, equals the TPU kernel's column-sum form (the plain version
+    of K5) on the same scene: in the card's blocks (one live block on these
+    scenes) and in blocks of 64 rows (4 and 7 live blocks)."""
+    args, _ = _table_args(case)
+    rows, row_out, feats, order, aff_start, aff_len = args[:6]
+    want = ppkernel.pp_react(*args)
+    assert int((row_out >= 0).sum()) > 0 and bool((want[order[aff_start.long()].long()] != 0).any())
+    assert block == ppkernel.REACT_ROWS or -(-int(aff_len.sum()) // block) > 3
+    _close(_blocked_react(block, *args).numpy(), want.numpy())
+
+
+def test_kept_rows_hold_the_affected_runs_in_order():
+    """At an affected_cap that cuts (n_missed > 0): the live prefix is each
+    affected cell's kept run in turn, with its bodies' output rows; the rest
+    are parked, mass 0 and output row -1, up to whole blocks of the caps."""
+    (_, _, feats, order, aff_start, aff_len, k, _, _), missed = _table_args("affected_cap")
+    assert int(missed) > 0
+    kept, kept_out, n_kept = ppkernel._kept_rows(feats, order, aff_start, aff_len, k)
+    runs = [torch.arange(int(s), int(s) + int(n)) for s, n in zip(aff_start, aff_len)]
+    idx = torch.cat(runs)
+    assert kept.shape == (ppkernel.react_blocks(aff_start.shape[0], k) * ppkernel.REACT_ROWS, 4)
+    assert kept.shape[0] % ppkernel.REACT_ROWS == 0 and kept.shape[0] >= aff_start.shape[0] * k
+    assert n_kept.dtype == torch.int32 and int(n_kept) == idx.shape[0] > 0
+    assert torch.equal(kept[: idx.shape[0]], feats[idx])
+    assert torch.equal(kept_out[: idx.shape[0]], order[idx])
+    assert bool((kept[idx.shape[0]:, 3] == 0).all()) and bool((kept_out[idx.shape[0]:] == -1).all())
+    assert ppkernel.react_partial_bytes(512, aff_start.shape[0], k) == (
+        kept.shape[0] // ppkernel.REACT_ROWS * 512 * 12, ppkernel.REACT_SPLITS * kept.shape[0] * 12)
