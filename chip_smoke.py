@@ -43,10 +43,12 @@ and `latency` entries with `precision`) and the layout probes
      same steps on the CPU
   8. the P3M pair kernels K4 and K5 against their plain PyTorch versions on
      the card, on the arguments each pass gives them: the small scenes of
-     tests/test_ppkernel.py (K5 also at eps = 0, its rsqrtf instantiation,
-     and twice, bitwise), then the 1M + 30k-core scene at the production
-     tune at full width (main pass, residual table, residual-residual
-     block), each timed, K5 twice bitwise and its partial buffer's size
+     tests/test_ppkernel.py (K4 and K5 also at eps = 0, their rsqrtf
+     instantiations, and twice, bitwise), then the 1M + 30k-core scene at
+     the production tune at full width (main pass, residual table,
+     residual-residual block), each timed and twice bitwise; K4's grids (R
+     targets a thread, the residual-residual block's runs) and K4's and
+     K5's partial buffers' sizes
   9. p3m_acceleration at the production tune on that scene: ms per
      evaluation, launches per evaluation, n_uncorrected == 0, the median
      error against the direct sum (K1) below plain PM's in the core and the
@@ -55,19 +57,20 @@ and `latency` entries with `precision`) and the layout probes
      P3M gravity at its scene-census tune: K4 and K5 against their plain
      versions on the arguments the scene's first force evaluation gives
      them (the two-bucket main pass, the residual-residual block, the
-     residual table at its affected_cap), each timed, K5 twice bitwise, its
-     partial buffers' sizes; 1 warm-up frame and 2
+     residual table at its affected_cap), each timed and twice bitwise,
+     K4's grids, K4's and K5's partial buffers' sizes; 1 warm-up frame and 2
      timed frames of 2 steps, n_overflow == n_uncorrected == 0, one frame
      under set_sync_debug_mode("error"); then 2 steps at N = 4,096 with P3M
      parameters that overflow, held against the same steps on the CPU
  11. the acc+jerk kernel K6 and the potential kernel K3 against their plain
      PyTorch versions on the card: N = 4,096 random, 1,000 targets x 4,096
      sources, 777 x 3,001 ragged, mass-0 padding, K3's self term on a target
-     slice, K6's split grids, a shape whose last split is shorter (N =
-     20,000), softening 1e-20 (K6's rsqrtf instantiation), and the drift
-     gate's Plummer sphere at N = 16,384 (every target, as phases 12 and 13
-     call them; K6 twice, bitwise) and 262,144 (the first 4,096 targets);
-     both timed at both sizes
+     slice, both kernels' split grids, a shape whose last split is shorter
+     (N = 20,000), softening 1e-20 (their rsqrtf instantiations), and the
+     drift gate's Plummer sphere at N = 16,384 (every target, as phases 12
+     and 13 call them; each twice, bitwise; K3's error against its plain
+     version in units of the self term) and 262,144 (the first 4,096
+     targets); both timed at both sizes
  12. the energy-drift gate at nbx.bench.drift.main's configuration: Plummer
      N = 16,384, 10,000 Kahan-compensated KDK steps with K1, the energy
      through K3 every 100 steps, relative drift < 1e-4; ms/step, launches;
@@ -161,8 +164,9 @@ and `latency` entries with `precision`) and the layout probes
      16,384 and 262,144; each timed at 262,144 and at 16,384 in turns with
      K1, with its plain version; `bench.cvt_rate`, the conversion loop
      whose value rate the bounds use (held within 3% of it); `bench.sass` on K1 and the five
-     (fast's inner loop runs HMMA, bf16's HMUL2), and on K5, K6 and K4 (K5's
-     loops one MUFU.RSQ, MUFU.EX2 and MUFU.RCP a pair); `bench throughput` with
+     (fast's inner loop runs HMMA, bf16's HMUL2), and on K5, K6, K4 and K3
+     (K5's and K4's loops one MUFU.RSQ, MUFU.EX2 and MUFU.RCP a pair, K3's
+     one MUFU.RSQ and no other); `bench throughput` with
      f32r and the five in one process;
      `bench drift` at each precision (BASELINE config 4's drift at the
      gate's step, a measurement: phase 12 keeps the gate), the variant's
@@ -188,8 +192,9 @@ counted from this run's inputs). K1 is recorded on the frame step's path
 16,384 (ms_drift_shape, bound_ms_drift_shape). K4 and K5 are recorded on
 the merger step's path (phase 10), K3 on the drift gate's (phase 12) and
 K6 on the Hermite path's (phase 13), both timed at its N = 16,384. A call
-of K5 or K6 launches two kernels (the pair kernel or split sum, and its
-combine): `launches` counts calls, and `ms` times both. The collision
+of K5, K6 or K3 launches two kernels (the pair kernel or split sum, and
+its combine), as does K4's on the residual-residual block: `launches`
+counts calls, and `ms` times both. The collision
 kernel has three entries: collide_fused (K2; the at-scale path, phase 7),
 collide_full_column (K8's function; launches on the layout bench's path,
 phase 17, timed on the disk's full-column configuration, phase 15) and
@@ -837,6 +842,15 @@ def check_pass(phase: int, name, wrapper, plain, args, reps: int = 0, twice: boo
     return out
 
 
+def rr_text(rr_args) -> str:
+    """K4's residual-residual grid at these arguments: items x runs of the
+    one strip, from M alone, and the partials' bytes."""
+    m = rr_args[5]
+    s, run = ppkernel.rr_runs(m)
+    return (f"M={m}: grid {rr_args[3].shape[0]} items x S={s} runs of {run} rows = {rr_args[3].shape[0] * s} blocks, "
+            f"float32 partials [{s}, {m}, 3] = {ppkernel.rr_partial_bytes(m)} bytes")
+
+
 def pp_bounds(phase: int, main_args, table_args) -> tuple[dict, dict]:
     """(K4, K5) bounds of one evaluation's passes, counted from their
     arguments: the kept pairs of the main pass and the live ones of the
@@ -879,10 +893,12 @@ def pp_full_width(phase: int, label: str, pos, mass, G: float, eps: float, box: 
                f"n_overflow {int(n_ovf)}, n_missed {int(n_missed)}")
     check(int(n_ovf) == n_past, f"{label}: the main pass drops no cell (n_overflow {int(n_ovf)} == {n_past})")
     check(n_res == n_past and int(n_missed) == 0, f"{label}: every body past K corrected")
+    log(phase, f"{label} K4: {ppkernel.THREADS} threads of R = {ppkernel.TARGETS} targets a block; main pass "
+               f"{main_args[3].shape[0]} items of {ppkernel.ITEM}; residual-residual {rr_text(rr_args)}")
     main = check_pass(phase, f"K4 main pass {label}", ppkernel.pp_short, ppkernel.pp_short_reference,
-                      main_args, reps)
+                      main_args, reps, twice=True)
     rr = check_pass(phase, f"K4 residual-residual {label}", ppkernel.pp_short, ppkernel.pp_short_reference,
-                    rr_args, reps)
+                    rr_args, reps, twice=True)
     table = check_pass(phase, f"K5 residual table {label}", ppkernel.pp_react, ppkernel.pp_react_reference,
                        table_args, reps, twice=True)
     m, a = table_args[0].shape[0], table_args[4].shape[0]
@@ -919,7 +935,12 @@ def phase_pp_kernels(dev, n_big: int = 1_000_000, n_core: int = 30_000) -> tuple
                                 k, eps, buckets, None) for d in (dev, cpu))
         check(int(ovf) == int(ovf_cpu), f"{name}: n_overflow {int(ovf)} on the card, {int(ovf_cpu)} on the CPU")
         r = check_pass(8, f"K4 {name} (n_overflow {int(ovf)})", ppkernel.pp_short, ppkernel.pp_short_reference,
-                       args)
+                       args, twice=True)
+        err4 = max(err4, r["max_abs_err"])
+        # eps = 0: eps^2 below FLT_MIN, K4's rsqrtf instantiation
+        z_args, _ = ppkernel._main_pass(torch.from_numpy(pos).to(dev), torch.from_numpy(mass).to(dev), G, a, box, g,
+                                        k, 0.0, buckets, None)
+        r = check_pass(8, f"K4 {name}, eps 0", ppkernel.pp_short, ppkernel.pp_short_reference, z_args)
         err4 = max(err4, r["max_abs_err"])
 
     for case, name in pp_scenes.RESIDUAL_CASES.items():
@@ -937,9 +958,11 @@ def phase_pp_kernels(dev, n_big: int = 1_000_000, n_core: int = 30_000) -> tuple
                 z_args, _ = ppkernel._table_pass(tp, tm, G, a, box, g, k, ri, rv, 0.0, cap, sort)
                 r = check_pass(8, f"K5 {name}, eps 0", ppkernel.pp_react, ppkernel.pp_react_reference, z_args)
                 err5 = max(err5, r["max_abs_err"])
-                r = check_pass(8, f"K4 residual-residual {name}", ppkernel.pp_short,
-                               ppkernel.pp_short_reference, ppkernel._rr_pass(tp, tm, G, a, box, ri, rv, eps))
-                err4 = max(err4, r["max_abs_err"])
+                for e, label in ((eps, ""), (0.0, ", eps 0")):
+                    rr_args = ppkernel._rr_pass(tp, tm, G, a, box, ri, rv, e)
+                    r = check_pass(8, f"K4 residual-residual {name}{label} ({rr_text(rr_args)})", ppkernel.pp_short,
+                                   ppkernel.pp_short_reference, rr_args, twice=not label)
+                    err4 = max(err4, r["max_abs_err"])
         check(missed[0] == missed[1] and (missed[0] > 0) == (case == "affected_cap"),
               f"{name}: n_missed {missed[0]} on the card, {missed[1]} on the CPU")
 
@@ -1198,6 +1221,7 @@ def phase_gravity_kernels(dev, n_small: int = DRIFT_N, n_big: int = HEADLINE_N) 
                              potential_per_body_reference(pos[:2048], mass[:2048], G, eps), 11))
 
     err6 = accjerk_splits(dev, err6, n_small, n_big)
+    err3 = potential_splits(dev, err3, n_small, n_big)
     err6, err3, k6, k3 = gravity_kernel_sizes(dev, n_small, err6, err3)
     err6, err3, _, _ = gravity_kernel_sizes(dev, n_big, err6, err3, n_targets=4096)
     k6["max_abs_err"], k3["max_abs_err"] = err6, err3
@@ -1234,6 +1258,40 @@ def accjerk_splits(dev, err6: float, n_small: int, n_big: int) -> float:
     check(all(torch.equal(a, b) for a, b in zip(first, second)), f"K6 at N={n_small} twice: the same bits")
     log(11, f"K6 Plummer N={n_small}: a second call gives the same bits")
     return err6
+
+
+def potential_splits(dev, err3: float, n_small: int, n_big: int) -> float:
+    """K3's source split: its grids at n_small and n_big; a shape whose last
+    split is shorter (SHORT_LAST_SPLIT_N) and softening 1e-20 (eps^2 below
+    FLT_MIN: the rsqrtf instantiation, targets 300 away, target mass 0)
+    against the plain version; the drift gate's sphere at n_small twice,
+    bitwise, and its self term against the wrapper's (a body's raw sum is
+    -phi + G m / eps: its error against the plain version's, relative to
+    G m / eps). Returns the largest error so far."""
+    log(11, f"K3 at {pairwise.POTENTIAL_TARGETS} targets a thread: " + "; ".join(
+        f"N={n}: {grid_text(pairwise.POTENTIAL_ROWS, n, n)}" for n in (n_small, SHORT_LAST_SPLIT_N, n_big)))
+    G, eps = 0.5, 0.5
+    n = SHORT_LAST_SPLIT_N
+    pos, mass = rand_bodies(n, 13, dev)
+    err3 = max(err3, compare(f"K3 N={n} (shorter last split)", potential_per_body(pos, mass, G, eps),
+                             potential_per_body_reference(pos, mass, G, eps), 11))
+    pos, mass = rand_bodies(4096, 15, dev)
+    tgt, _ = rand_bodies(1000, 16, dev)
+    tgt += 300.0
+    zero = torch.zeros(1000, device=dev)
+    got = potential_per_body(pos, mass, G, 1e-20, tgt, zero)
+    check(all_finite(got), "K3 at softening 1e-20 finite")
+    err3 = max(err3, compare("K3 softening 1e-20 (rsqrtf)", got,
+                             potential_per_body_reference(pos, mass, G, 1e-20, tgt, zero), 11))
+    pos, _, mass, G, eps, _ = drift.gate_scene(n_small, device=dev)
+    first = potential_per_body(pos, mass, G, eps)
+    check(torch.equal(first, potential_per_body(pos, mass, G, eps)), f"K3 at N={n_small} twice: the same bits")
+    log(11, f"K3 Plummer N={n_small}: a second call gives the same bits")
+    self_term = G * mass / eps
+    rel = float((first - potential_per_body_reference(pos, mass, G, eps)).abs().max() / self_term.max())
+    log(11, f"K3 Plummer N={n_small}: max|kernel - plain| / max(G m / eps) = {rel:.3e} "
+            f"({rel * 2 ** 23:.2f} ulp of the largest self term)")
+    return err3
 
 
 def launches_per_step(state: integrators.PhaseState, force, h: float, steps: int, names: tuple,
@@ -2592,13 +2650,14 @@ def variant_sass() -> None:
 
 
 def pair_sass() -> None:
-    """`bench.sass` on K5 (pp_react), K6 (pairwise_accjerk) and K4
-    (pp_short): instructions a pair in their inner loops. Each of K5's pair
-    kernels evaluates the law once a pair: one MUFU.RSQ, one MUFU.EX2 and
-    one MUFU.RCP a pair in its loop."""
+    """`bench.sass` on K5 (pp_react), K6 (pairwise_accjerk), K4 (pp_short)
+    and K3 (potential): instructions a pair in their inner loops. Each of
+    K5's and K4's pair kernels evaluates the law once a pair: one MUFU.RSQ,
+    one MUFU.EX2 and one MUFU.RCP a pair in its loop; K3's one MUFU.RSQ and
+    no other special function."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rows = sass.main(("pp_react", "pairwise_accjerk", "pp_short"))
+        rows = sass.main(("pp_react", "pairwise_accjerk", "pp_short", "potential"))
     for r in rows:
         log(25, f"sass {r['source']} {sass_name(r['function'])}: {r['pairs_in_loop']} pairs in the loop, "
                 f"{r['instructions_a_pair']:.4f} instructions a pair: "
@@ -2607,6 +2666,14 @@ def pair_sass() -> None:
     check(len(react) == 2 and all(
         all(ops.get(f"MUFU.{f}", 0) == 1 for f in ("RSQ", "EX2", "RCP")) for ops in react),
           "K5's pair loops run one MUFU.RSQ, one MUFU.EX2 and one MUFU.RCP a pair")
+    short = [r["by_opcode"] for r in rows if "pp_short_kernel" in r["function"]]
+    check(len(short) == 2 and all(
+        all(ops.get(f"MUFU.{f}", 0) == 1 for f in ("RSQ", "EX2", "RCP")) for ops in short),
+          "K4's pair loops run one MUFU.RSQ, one MUFU.EX2 and one MUFU.RCP a pair")
+    pot = [r["by_opcode"] for r in rows if "potential_kernel" in r["function"]]
+    check(len(pot) == 2 and all(
+        ops.get("MUFU.RSQ", 0) == 1 and sum(n for op, n in ops.items() if op.startswith("MUFU")) == 1 for ops in pot),
+          "K3's pair loops run one MUFU.RSQ a pair and no other MUFU")
     check(len([r for r in rows if "pairwise_accjerk_kernel" in r["function"] and r["pairs_in_loop"] > 0]) == 2,
           "K6's two instantiations each have a pair loop")
 

@@ -112,16 +112,17 @@ def profile_parts(pos, mass) -> dict:
                 out[a.name] += dur
             a = a.cpu_parent
     # K4 and K5 are launched through ctypes, linked to no CPU op: charged by
-    # name, K4's first launch to the main pass and its second to the
-    # residual-residual block (their order in p3m_acceleration), K5's two
-    # (the pair kernel and its combine) to the residual table
+    # name, K4's first launch to the main pass and the rest (the split pair
+    # kernel and its combine) to the residual-residual block (their order in
+    # p3m_acceleration), K5's two (the pair kernel and its combine) to the
+    # residual table
     def launches(name):
         return sorted((e for e in prof.events() if e.device_type != cpu and name in e.name),
                       key=lambda e: e.time_range.start)
 
-    k4, k5 = launches("pp_short_kernel"), launches("pp_react")
+    k4, k5 = launches("pp_short"), launches("pp_react")
     for label, part, es in (("K4 main pass", "main pass", k4[:1]),
-                            ("K4 residual-residual", "residual-residual", k4[1:2]),
+                            ("K4 residual-residual", "residual-residual", k4[1:]),
                             ("K5 residual table", "residual table", k5)):
         us = sum(e.time_range.elapsed_us() for e in es)
         out[label] = us

@@ -57,12 +57,14 @@
 //
 // With gravity (kGrav, the TPU kernel K7): every lane of the window, not only
 // the overlapping pairs, also adds the P3M short-range pull of
-// csrc/pp_law.cuh (K4's law and Horner order) to the target,
+// csrc/pp_law.cuh (its exact form, pair_weight: rsqrtf, expf and the IEEE
+// reciprocal, in the TPU kernels' Horner order; K4 and K5 take the one-MUFU
+// form) to the target,
 //
 //   grav_i = G sum_j w_ij d_ij,  w_ij = m_j [erfc(x)/s + c_a e^(-x^2)] / s^2,
 //
 // masked to 0 unless both masses are > 0, the ids differ and r^2 > 0 (a
-// masked source lane carries mass 0), in per-chunk partial sums like K4's.
+// masked source lane carries mass 0), in per-chunk partial sums.
 // That term comes before the overlap test, so every lane pays an rsqrt, an
 // exp and a reciprocal: K7 is bound by the SFU rate on the window's lanes,
 // not by FP32 issue as K2 is. The gravity sum needs no rule on FMA

@@ -1,8 +1,9 @@
 // What the direct sums that split their sources share, float32, for NVIDIA
 // Hopper (sm_90a): "f32r" (pairwise_f32r.cu, K1), "f32", "hyb" and "bf16"
 // (pairwise_precision.cu, K1a, K1d, K1e), "fast" (pairwise_fast.cu, K1b),
-// "mxu" (pairwise_mxu.cu, K1c) and the acc+jerk sum (pairwise_accjerk.cu,
-// K6), and the roundings of "mxu" and "hyb".
+// "mxu" (pairwise_mxu.cu, K1c), the acc+jerk sum (pairwise_accjerk.cu,
+// K6) and the potential (potential.cu, K3), and the roundings of "mxu" and
+// "hyb".
 //
 // The source split: block (x, s) of a kernel sums its targets against split
 // s of the sources, a contiguous run of `tiles_per_split` whole tiles of
@@ -90,11 +91,12 @@ __device__ __forceinline__ int2 split_range(int ns, int tiles_per_split) {
 
 // acc_i = G o_i, o_i = part[0, i] + part[1, i] + ... in split order; for
 // kWidth 4 (o_xyz, o_w) the cancellation o_xyz - p_i o_w comes first; for
-// kWidth 6 (K6's acc and jerk) o[0:3] goes to acc and o[3:6] to acc2.
+// kWidth 6 (K6's acc and jerk) o[0:3] goes to acc and o[3:6] to acc2; for
+// kWidth 1 (K3's potential, acc [nt]) acc_i = G o_i alone.
 template <int kWidth>
 __global__ void combine_splits(const float* __restrict__ part,  // [splits, nt, kWidth]
                                const float* __restrict__ tgt,   // [nt, 3]
-                               float* __restrict__ acc,         // [nt, 3]
+                               float* __restrict__ acc,         // [nt, 3]; [nt] for kWidth 1
                                float* __restrict__ acc2,        // [nt, 3], kWidth 6 only
                                int nt, int splits, float g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -107,14 +109,18 @@ __global__ void combine_splits(const float* __restrict__ part,  // [splits, nt, 
 #pragma unroll
     for (int c = 0; c < kWidth; ++c) o[c] = __fadd_rn(o[c], p[c]);
   }
+  if constexpr (kWidth == 1) {
+    acc[i] = o[0] * g;
+  } else {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float v = kWidth == 4 ? __fsub_rn(o[c], __fmul_rn(tgt[3 * i + c], o[kWidth - 1])) : o[c];
-    acc[3 * i + c] = v * g;
-  }
-  if constexpr (kWidth == 6) {
+    for (int c = 0; c < 3; ++c) {
+      const float v = kWidth == 4 ? __fsub_rn(o[c], __fmul_rn(tgt[3 * i + c], o[kWidth - 1])) : o[c];
+      acc[3 * i + c] = v * g;
+    }
+    if constexpr (kWidth == 6) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) acc2[3 * i + c] = o[3 + c] * g;
+      for (int c = 0; c < 3; ++c) acc2[3 * i + c] = o[3 + c] * g;
+    }
   }
 }
 

@@ -13,9 +13,9 @@ to its plain PyTorch version (`*_reference`):
   `pairwise_acc_fast`, `_mxu`. Every one splits its sources over a second
   grid dimension (`source_splits`) and adds the splits' partials in a
   second pass;
-- `pairwise_acc_jerk`: `nbx_torch/csrc/pairwise_accjerk.cu` (K6), its sources
-  split as K1's;
-- `potential_per_body`: `nbx_torch/csrc/potential.cu` (K3).
+- `pairwise_acc_jerk`: `nbx_torch/csrc/pairwise_accjerk.cu` (K6) and
+  `potential_per_body`: `nbx_torch/csrc/potential.cu` (K3), their sources
+  split as K1's.
 
 There is no fallback from one to the other: a CUDA call launches the kernel
 or raises. Each wrapper's `.launches` counts its kernel launches. The kernels
@@ -51,6 +51,11 @@ SPLIT_KERNELS = {"f32r": (256 * TARGETS, 3), "f32": (256 * TARGETS, 4), "fast": 
 ACCJERK_TARGETS = 2
 ACCJERK_ROWS = 256 * ACCJERK_TARGETS
 ACCJERK_WIDTH = 6
+# K3 (`potential_per_body`) splits its sources too: 256 threads of
+# POTENTIAL_TARGETS targets (csrc/potential.cu; 2 ran slower), one float a
+# target of each split's partials.
+POTENTIAL_TARGETS = 4
+POTENTIAL_ROWS = 256 * POTENTIAL_TARGETS
 
 
 def check_precision(precision: str) -> str:
@@ -68,14 +73,14 @@ def split_tiles(ns: int, splits: int, tile: int = TILE) -> int:
     return -(-max(1, -(-ns // tile)) // splits)
 
 
-def source_splits(nt: int, ns: int, rows: int, tile: int = TILE) -> int:
+def source_splits(nt: int, ns: int, rows: int, tile: int = TILE, grid: int = SPLIT_GRID) -> int:
     """S, the source splits of a kernel with `rows` targets a block, from
     the shapes alone: runs of tiles // want whole tiles, want the fewest
-    splits that put SPLIT_GRID blocks in the grid, at most one a tile. So S
+    splits that put `grid` blocks in the grid, at most one a tile. So S
     >= want, every run holds a tile, and split_tiles(ns, S) gives the runs
-    back. 1 wherever the target blocks alone reach SPLIT_GRID."""
+    back. 1 wherever the target blocks alone reach `grid`."""
     tiles = max(1, -(-ns // tile))
-    want = min(tiles, -(-SPLIT_GRID // max(1, -(-nt // rows))))
+    want = min(tiles, -(-grid // max(1, -(-nt // rows))))
     return -(-tiles // (tiles // want))
 
 
@@ -655,7 +660,9 @@ def potential_per_body_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of `potential_per_body`: K3's sum
     -G sum_j m_j (|d|^2 + eps^2)^-1/2 in blocks of `block` targets, self term
-    included, then the self term removed as the wrapper removes it."""
+    included, then the self term removed as the wrapper removes it. In
+    torch's order, whatever the kernel's source split: nothing cancels in
+    K3's sum (as `_f32r_rows`)."""
     if target_pos is None:
         target_pos = pos
     if target_mass is None:
@@ -685,7 +692,9 @@ def potential_per_body(
     must appear exactly once among the sources, since the kernel's sum holds
     its self term -G m_i / eps and the wrapper subtracts it. Total potential
     energy U = 0.5 sum_i m_i phi_i (`potential_energy`). softening must be
-    > 0."""
+    > 0. On the card K3 splits the sources into source_splits(Nt, Ns,
+    POTENTIAL_ROWS) runs and adds their partials in order, times -G, in a
+    second launch."""
     if target_pos is None:
         target_pos = pos
     if target_mass is None:
@@ -703,8 +712,11 @@ def potential_per_body(
     phi = torch.empty((nt,), dtype=torch.float32, device=dev)
     if nt == 0:
         return phi
-    _launch("potential", [_P, _P, _P, _I, _I, _F, _F, _P], dev,
-            tgt.data_ptr(), src.data_ptr(), phi.data_ptr(), nt, ns, float(G), eps2_of(softening))
+    splits = source_splits(nt, ns, POTENTIAL_ROWS)
+    part = torch.empty((splits, nt), dtype=torch.float32, device=dev)
+    _launch("potential", [_P] * 4 + [_I, _I, _F, _F, _I, _I, _P], dev,
+            tgt.data_ptr(), src.data_ptr(), part.data_ptr(), phi.data_ptr(), nt, ns, float(G), eps2_of(softening),
+            POTENTIAL_ROWS, split_tiles(ns, splits))
     potential_per_body.launches += 1
     return _remove_self_term(phi, G, softening, target_mass)
 

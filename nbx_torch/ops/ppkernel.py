@@ -4,14 +4,17 @@ layouts that feed them (port of `nbx/ops/ppkernel.py`).
 The JAX package's TPU kernels `_pp_kernel` (K4) and `_pp_react_kernel` (K5)
 take materialised [C, K8, 8] target and [C, 8, 27 K8] source blocks built by
 XLA gathers. Here the kernels read the bodies themselves. A pass of K4 is a
-list of work items, one per thread block (`nbx_torch/csrc/pp_law.cuh`):
+list of work items, one per thread block (`nbx_torch/csrc/pp_short.cu`):
 
     win[w] = (ts, tn, s0, l0, s1, l1, ...)   targets tgt[ts .. ts + tn),
-                                              tn <= TILE, against the source
+                                              tn <= ITEM, against the source
                                               rows src[s .. s + l) of each
                                               strip
 
-and every target writes its row straight to body order through `tgt_out`.
+THREADS threads of TARGETS targets a block, and every target writes its row
+straight to body order through `tgt_out`. The residual-residual block's one
+strip is also split into `rr_runs` runs of whole tiles, a second grid
+dimension, whose partials a second launch adds in run order.
 K5 takes the affected cells' kept runs gathered into one array of rows
 (`_kept_rows`), REACT_ROWS a block, against the live residuals in
 REACT_SPLITS runs, one law evaluation a pair for both directions
@@ -35,8 +38,9 @@ reach them, and keep the JAX package's contract:
 
 `pp_short` (K4) and `pp_react` (K5) launch the kernels on a CUDA tensor and
 run their plain PyTorch versions on a CPU tensor; a CUDA call launches the
-kernel or raises. Each counts its calls in `.launches` (a call of K5 is two
-launches, the pair kernel and its combine). `pp_buckets_for` is host-side
+kernel or raises. Each counts its calls in `.launches` (a call of K5, and
+one of K4 that splits its strip, is two launches, the pair kernel and its
+combine). `pp_buckets_for` is host-side
 numpy, once per scene.
 """
 
@@ -50,9 +54,19 @@ import torch
 from nbx_torch.config import f32
 from nbx_torch.ops import _build
 from nbx_torch.ops.p3m import _cell_coords, _dilate27, _host, _neighbors27, cell_sort, pp_law, take_rows
+from nbx_torch.ops.pairwise import SPLIT_GRID, source_splits, split_tiles
 
 LANE = 128  # the JAX package's lane width; only its sizing rules use it
-TILE = 128  # targets per work item of K4, the threads of a block
+THREADS = 128  # threads a block of K4 (kThreads in csrc/pp_short.cu)
+TARGETS = 2  # targets a thread of K4 (kTargets; 4 ran slower, PERF.md)
+ITEM = THREADS * TARGETS  # the most targets a work item of K4 holds
+SOURCE_TILE = 256  # source rows K4 stages at a time (kTile), a run's unit
+# The residual-residual block's blocks (items x runs) aim at RR_GRID, far
+# more than the direct sums' SPLIT_GRID: its blocks have half their threads,
+# and the runs come from M, so items and runs past the live residuals (a
+# third of them at the 1M merger) exit at once. 2, 4, 8 and 16 x SPLIT_GRID
+# ran the merger's block slower (PERF.md).
+RR_GRID = 32 * SPLIT_GRID
 REACT_ROWS = 1024  # kept rows a block of K5 (kRows in csrc/pp_react.cu)
 REACT_SPLITS = 16  # K5's runs of the live residuals, its grid's second dimension (kSplits)
 
@@ -128,12 +142,12 @@ def pp_buckets_for(
 
 def _items(ts, tn, strip_start, strip_len, t_rows: int) -> torch.Tensor:
     """Work items [W ny, 2 + 2 ns] i32 from W target runs (ts, tn <= t_rows)
-    and their strips [W, ns]: each run is cut into ny = ceil(t_rows / TILE)
-    items of at most TILE targets, each with the run's strips."""
-    ny = max(1, -(-t_rows // TILE))
-    y = torch.arange(ny, device=ts.device) * TILE
+    and their strips [W, ns]: each run is cut into ny = ceil(t_rows / ITEM)
+    items of at most ITEM targets, each with the run's strips."""
+    ny = max(1, -(-t_rows // ITEM))
+    y = torch.arange(ny, device=ts.device) * ITEM
     its = (ts[:, None].long() + y).reshape(-1, 1)
-    itn = (tn[:, None].long() - y).clamp(0, TILE).reshape(-1, 1)
+    itn = (tn[:, None].long() - y).clamp(0, ITEM).reshape(-1, 1)
     w, ns = strip_start.shape
     strips = torch.stack([strip_start.long(), strip_len.long()], dim=2).reshape(w, 2 * ns)
     return torch.cat([its, itn, strips.repeat_interleave(ny, 0)], dim=1).to(torch.int32).contiguous()
@@ -240,9 +254,9 @@ def _row_sums(w, d) -> torch.Tensor:
 # ---- K4 ----------------------------------------------------------------------------
 
 def pp_short_reference(tgt, tgt_out, src, win, n_strips: int, s_cap: int, n_out: int, law):
-    """Plain PyTorch version of K4 on the same work items: [items, TILE,
+    """Plain PyTorch version of K4 on the same work items: [items, ITEM,
     n_strips s_cap] pair tensors in chunks of items (every item has at most
-    TILE targets and strips of at most s_cap rows, as the layouts here make
+    ITEM targets and strips of at most s_cap rows, as the layouts here make
     them). Returns out [n_out, 3]: G sum_j w_ij d_ij on each target's row
     tgt_out, 0 elsewhere."""
     dev = tgt.device
@@ -252,9 +266,9 @@ def pp_short_reference(tgt, tgt_out, src, win, n_strips: int, s_cap: int, n_out:
     if n_win == 0 or s_all == 0:
         return out[:n_out]
     g = law[3]
-    ar_t = torch.arange(TILE, device=dev)
+    ar_t = torch.arange(ITEM, device=dev)
     ar_s = torch.arange(s_cap, device=dev)
-    chunk = max(1, _pair_budget(dev) // (TILE * s_all))
+    chunk = max(1, _pair_budget(dev) // (ITEM * s_all))
     for w0 in range(0, n_win, chunk):
         wd = win[w0:w0 + chunk].long()
         nw = wd.shape[0]
@@ -284,16 +298,6 @@ def _check(name: str, t: torch.Tensor, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned (rows are read as float4)")
 
 
-def _pass_args(tgt, tgt_out, src, win, out, n_strips: int, dev) -> list:
-    """Checks one pass's tensors and returns its C arguments."""
-    _check("tgt", tgt, torch.float32, (tgt.shape[0], 4), dev)
-    _check("tgt_out", tgt_out, torch.int32, (tgt.shape[0],), dev)
-    _check("src", src, torch.float32, (src.shape[0], 4), dev)
-    _check("win", win, torch.int32, (win.shape[0], 2 + 2 * n_strips), dev)
-    return [tgt.data_ptr(), tgt_out.data_ptr(), src.data_ptr(), win.data_ptr(), out.data_ptr(),
-            win.shape[0], n_strips]
-
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LAW = [_F] * 4  # pp_law's (eps^2, 1/a, c_a, G)
 
@@ -312,6 +316,23 @@ def _launch(symbol: str, argtypes: list, dev, *args) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
 
 
+def rr_runs(m: int) -> tuple[int, int]:
+    """(S, run length) of K4's residual-residual block over M = m residual
+    rows, from M alone (the live count never reaches the host): S runs of
+    whole SOURCE_TILE tiles, as `source_splits` sizes a direct sum's split,
+    aimed at RR_GRID blocks of ceil(M / ITEM) items x S runs; the last run
+    holds what is left. Runs past the live residuals exit at once."""
+    s = source_splits(m, m, ITEM, SOURCE_TILE, RR_GRID)
+    return s, split_tiles(m, s, SOURCE_TILE) * SOURCE_TILE
+
+
+def rr_partial_bytes(m: int) -> int:
+    """Bytes of the residual-residual block's float32 partials [S, M, 3]
+    (none for one run)."""
+    s, _ = rr_runs(m)
+    return s * m * 3 * 4 if s > 1 else 0
+
+
 def pp_short(tgt, tgt_out, src, win, n_strips: int, s_cap: int, n_out: int, law) -> torch.Tensor:
     """K4: every work item's targets against its strips of source rows
     (module docstring). tgt [Rt, 4] and src [Rs, 4] float32 rows
@@ -319,17 +340,27 @@ def pp_short(tgt, tgt_out, src, win, n_strips: int, s_cap: int, n_out: int, law)
     a strip's length (the plain version's lane count); law = pp_law(eps, a,
     G). Returns out [n_out, 3] f32: G sum_j w_ij d_ij on row tgt_out[t] of
     each target t, 0 on rows no target maps to. A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel, one block of TILE threads per
-    item."""
+    version; a CUDA tensor launches the kernel, one block of THREADS threads
+    per item; a pass of one strip (the residual-residual block) splits it
+    into rr_runs(s_cap) runs, whose partials a second launch adds in run
+    order: one call, counted once."""
     if tgt.device.type == "cpu":
         return pp_short_reference(tgt, tgt_out, src, win, n_strips, s_cap, n_out, law)
     if tgt.device.type != "cuda":
         raise ValueError(f"pp_short runs on CPU or CUDA tensors, got {tgt.device}")
-    out = torch.zeros((n_out, 3), dtype=torch.float32, device=tgt.device)
-    args = _pass_args(tgt, tgt_out, src, win, out, n_strips, tgt.device)
+    dev = tgt.device
+    _check("tgt", tgt, torch.float32, (tgt.shape[0], 4), dev)
+    _check("tgt_out", tgt_out, torch.int32, (tgt.shape[0],), dev)
+    _check("src", src, torch.float32, (src.shape[0], 4), dev)
+    _check("win", win, torch.int32, (win.shape[0], 2 + 2 * n_strips), dev)
+    out = torch.zeros((n_out, 3), dtype=torch.float32, device=dev)
     if win.shape[0] == 0:
         return out
-    _launch("nbx_pp_short", [_P] * 5 + [_I] * 3 + _LAW, tgt.device, *args, TILE, *law)
+    runs, run_len = rr_runs(s_cap) if n_strips == 1 else (1, 0)
+    part = torch.empty((runs, tgt.shape[0], 3), dtype=torch.float32, device=dev) if runs > 1 else None
+    _launch("nbx_pp_short", [_P] * 6 + [_I] * 6 + _LAW, dev, tgt.data_ptr(), tgt_out.data_ptr(), src.data_ptr(),
+            win.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(), tgt.shape[0], win.shape[0],
+            n_strips, ITEM, runs, run_len, *law)
     pp_short.launches += 1
     return out
 
@@ -474,8 +505,8 @@ def _rr_pass(pos, mass, G, a, box_size, res_idx, res_valid, eps):
     rows, row_out = _residual_rows(pos, mass, box_size, res_idx, res_valid)
     m = rows.shape[0]
     n_live = res_valid.sum(dtype=torch.int32)
-    ts = torch.arange(0, m, TILE, device=pos.device)
-    win = _items(ts, n_live - ts, torch.zeros_like(ts)[:, None], n_live.expand(ts.shape[0], 1), TILE)
+    ts = torch.arange(0, m, ITEM, device=pos.device)
+    win = _items(ts, n_live - ts, torch.zeros_like(ts)[:, None], n_live.expand(ts.shape[0], 1), ITEM)
     return rows, row_out, rows, win, 1, m, pos.shape[0], pp_law(eps, a, G)
 
 

@@ -413,6 +413,74 @@ def test_pp_react_at_eps_zero_takes_the_guarded_law(dev, case):
     assert torch.isfinite(got).all() and _rel_err(got, ppkernel.pp_react_reference(*args)) < TOL
 
 
+def _main_args_on(dev, case, eps=None):
+    pos, mass, G, a, box, g, k, case_eps, buckets = main_case(case)
+    if buckets == "census":
+        buckets = ppkernel.pp_buckets_for(pos, box, g, k)
+    return ppkernel._main_pass(torch.from_numpy(pos).to(dev), torch.from_numpy(mass).to(dev), G, a, box, g, k,
+                               case_eps if eps is None else eps, buckets, None)[0]
+
+
+def _rr_args_on(dev, case, eps=None, n_live=None):
+    """The residual-residual block's arguments on a residual scene; n_live
+    cuts the live residuals to a prefix of that many."""
+    pos, mass, G, a, box, g, k, m, _, case_eps = residual_case(case)
+    tp, tm = torch.from_numpy(pos).to(dev), torch.from_numpy(mass).to(dev)
+    ri, rv = p3m.take_rows(p3m.overflowing(p3m.cell_sort(tp, box, g), k)[1], m)
+    if n_live is not None:
+        assert int(rv.sum()) >= n_live
+        rv = rv & (torch.arange(m, device=dev) < n_live)
+    return ppkernel._rr_pass(tp, tm, G, a, box, ri, rv, case_eps if eps is None else eps)
+
+
+K4_PASSES = [("main", c) for c in MAIN_CASES] + [("rr", c) for c in RESIDUAL_CASES]
+
+
+def _k4_args_on(dev, kind, case, eps=None):
+    return _main_args_on(dev, case, eps) if kind == "main" else _rr_args_on(dev, case, eps)
+
+
+@pytest.mark.parametrize("kind,case", K4_PASSES)
+def test_pp_short_gives_the_same_bits_twice(dev, kind, case):
+    """No atomics in K4's main pass, nor in the residual-residual block's
+    runs and their combine: two calls on the same inputs agree bitwise, one
+    launch counted a call."""
+    args = _k4_args_on(dev, kind, case)
+    if kind == "rr":
+        assert ppkernel.rr_runs(args[5])[0] > 1
+    before = ppkernel.pp_short.launches
+    first = ppkernel.pp_short(*args)
+    assert ppkernel.pp_short.launches == before + 1
+    assert torch.equal(first, ppkernel.pp_short(*args))
+
+
+@pytest.mark.parametrize("kind,case", K4_PASSES)
+def test_pp_short_at_eps_zero_takes_the_guarded_law(dev, kind, case):
+    """eps = 0, the default of short_range_acc_kernel and residual_rr_dense_kernel:
+    eps^2 below FLT_MIN, so K4 takes rsqrtf guarded at s^2 = 0, not
+    rsqrt.approx.ftz."""
+    args = _k4_args_on(dev, kind, case, eps=0.0)
+    assert args[-1][0] == 0.0
+    got = ppkernel.pp_short(*args)
+    assert torch.isfinite(got).all() and _rel_err(got, ppkernel.pp_short_reference(*args)) < TOL
+
+
+@pytest.mark.parametrize("n_live", [891, 600, 256])
+def test_pp_short_rr_with_a_ragged_live_count_matches_plain(dev, n_live):
+    """The residual-residual block at M = 1,024 (4 runs of one tile) with
+    891 live residuals (the last item and run part full), 600 (the last item
+    and run empty) and 256 (one item, one run): items and runs past the live
+    residuals exit, the combine skips them."""
+    args = _rr_args_on(dev, "affected_cap", n_live=n_live)
+    assert args[5] == 1024 and ppkernel.rr_runs(1024) == (4, 256)
+    assert int((args[1] >= 0).sum()) == n_live
+    got = ppkernel.pp_short(*args)
+    assert _rel_err(got, ppkernel.pp_short_reference(*args)) < TOL
+    idle = torch.ones(got.shape[0], dtype=torch.bool, device=dev)
+    idle[args[1][:n_live].long()] = False
+    assert bool(idle.any()) and not bool(got[idle].any())
+
+
 def test_p3m_scaled_step_makes_no_host_sync(dev):
     st, cfg, box, kw = _server_setup(dev)
     kw.update(force_impl="p3m", p3m=dict(n_cells=4, max_per_cell=64, max_residual=2048),
@@ -502,6 +570,39 @@ def test_potential_kernel_removes_the_self_term_on_a_target_slice(dev):
     assert _rel_err(whole, pairwise.potential_per_body_reference(pos, mass, 0.5, 0.5)) < TOL
     part = pairwise.potential_per_body(pos, mass, 0.5, 0.5, pos[300:1400], mass[300:1400])
     assert _rel_err(part, whole[300:1400]) < TOL
+
+
+def test_potential_with_a_shorter_last_split_matches_plain(dev):
+    """SHORT_LAST_SPLIT_N bodies: K3's runs of whole tiles end in a shorter
+    one."""
+    n = SHORT_LAST_SPLIT_N
+    s = pairwise.source_splits(n, n, pairwise.POTENTIAL_ROWS)
+    assert s > 1 and s * pairwise.split_tiles(n, s) > -(-n // pairwise.TILE)
+    pos, mass = _rand(n, 13, dev)
+    got = pairwise.potential_per_body(pos, mass, 0.5, 0.5)
+    assert _rel_err(got, pairwise.potential_per_body_reference(pos, mass, 0.5, 0.5)) < TOL
+
+
+def test_potential_below_flt_min_takes_rsqrtf(dev):
+    """softening 1e-20: eps^2 = 1e-40 is subnormal, so K3 takes rsqrtf, not
+    rsqrt.approx.ftz; the targets 300 away from the sources (target mass 0:
+    no self term), so that no near pair goes unsoftened."""
+    pos, mass = _rand(4096, 15, dev)
+    tgt, _ = _rand(1000, 16, dev)
+    tgt += 300.0
+    zero = torch.zeros(1000, device=dev)
+    got = pairwise.potential_per_body(pos, mass, 0.5, 1e-20, tgt, zero)
+    want = pairwise.potential_per_body_reference(pos, mass, 0.5, 1e-20, tgt, zero)
+    assert torch.isfinite(got).all() and _rel_err(got, want) < TOL
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_potential_gives_the_same_bits_twice(dev, n):
+    """No atomics: two launches on the same inputs agree bitwise (16,384: the
+    drift gate's sphere, 32 x 16 blocks)."""
+    pos, _, mass, G, eps, _ = drift.gate_scene(n, device=dev)
+    assert pairwise.source_splits(n, n, pairwise.POTENTIAL_ROWS) > 1
+    assert torch.equal(pairwise.potential_per_body(pos, mass, G, eps), pairwise.potential_per_body(pos, mass, G, eps))
 
 
 def test_accjerk_and_potential_mass_zero_padding_is_inert(dev):

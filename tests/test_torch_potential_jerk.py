@@ -190,3 +190,36 @@ def test_rejects_nonpositive_softening(softening):
         pairwise.potential_per_body(pos, mass, G, softening)
     with pytest.raises(ValueError, match="softening"):
         pairwise.potential_energy(pos, mass, G, softening)
+
+
+def test_potential_source_split_at_the_drift_gates_size():
+    """K3 splits its sources as K6 does: at 16,384 bodies, 512 blocks of 256
+    threads of POTENTIAL_TARGETS = 4 targets, 16 target blocks x 32 splits
+    of 2 tiles; at 262,144, 256 target blocks x 2 splits."""
+    rows = pairwise.POTENTIAL_ROWS
+    assert rows == 256 * pairwise.POTENTIAL_TARGETS == 1024
+    s = pairwise.source_splits(16384, 16384, rows)
+    assert (-(-16384 // rows), s, pairwise.split_tiles(16384, s)) == (16, 32, 2)
+    assert pairwise.source_splits(262144, 262144, rows) == 2
+
+
+@pytest.mark.parametrize("splits", [2, 3, None])
+def test_potential_reference_does_not_depend_on_the_split(splits):
+    """The kernel's order, each split's raw sum then the splits in turn,
+    times -G, then the self term removed, agrees with the plain version's
+    one sum to TOL: nothing cancels in K3. None: the kernel's own split at
+    these shapes, more than one run, the last shorter. The targets are a
+    slice of the sources, so each sum holds its self term."""
+    pos, _, mass = _t(*_rand(3000, 17))
+    tpos, tmass = pos[:700], mass[:700]
+    if splits is None:
+        splits = pairwise.source_splits(700, 3000, pairwise.POTENTIAL_ROWS)
+        assert splits > 1 and splits * pairwise.split_tiles(3000, splits) * pairwise.TILE > 3000
+    run = pairwise.split_tiles(3000, splits) * pairwise.TILE
+    none = torch.zeros(700)
+    total = torch.zeros(700)
+    for j0 in range(0, 3000, run):  # -phi of each run with no self term removed: its raw sum
+        total = total - pairwise.potential_per_body_reference(pos[j0:j0 + run], mass[j0:j0 + run], 1.0, EPS, tpos,
+                                                              none)
+    got = total * -G + G * tmass / EPS
+    _assert_close(got.numpy(), pairwise.potential_per_body_reference(pos, mass, G, EPS, tpos, tmass).numpy())

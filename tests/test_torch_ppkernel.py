@@ -2,9 +2,11 @@
 nbx.ops.ppkernel on the CPU: the same scenes as tests/test_ppkernel.py, the
 JAX side in interpret mode, the port's side through the kernels' plain
 PyTorch versions on the work items the kernels take. Also the cell binning of
-nbx_torch.ops.p3m and K5's layout as the card computes it (the kept runs
-as one array of rows, block partials in block order) against its plain
-version (the TPU kernel's column sums).
+nbx_torch.ops.p3m, K4's layout (work items of THREADS x TARGETS targets
+against those of 128; the residual-residual block's runs from M alone, their
+sums added in run order) and K5's layout as the card computes it (the kept
+runs as one array of rows, block partials in block order) against their
+plain versions (for K5 the TPU kernel's column sums).
 
 Floats to the JAX tests' own bar, rtol 2e-5 and atol 3e-6 max|acc|; counts,
 bucket tuples and binning exactly."""
@@ -17,7 +19,7 @@ import jax.numpy as jnp
 from nbx.ops import p3m as jp3m
 from nbx.ops import ppkernel as jpp
 from nbx_torch.bench.pp_scenes import MAIN_CASES, RESIDUAL_CASES, clustered, main_case, residual_case, uniform
-from nbx_torch.ops import p3m, ppkernel
+from nbx_torch.ops import p3m, pairwise, ppkernel
 
 torch.set_num_threads(1)
 
@@ -192,3 +194,100 @@ def test_kept_rows_hold_the_affected_runs_in_order():
     assert bool((kept[idx.shape[0]:, 3] == 0).all()) and bool((kept_out[idx.shape[0]:] == -1).all())
     assert ppkernel.react_partial_bytes(512, aff_start.shape[0], k) == (
         kept.shape[0] // ppkernel.REACT_ROWS * 512 * 12, ppkernel.REACT_SPLITS * kept.shape[0] * 12)
+
+
+def _item_targets(win, item):
+    """(target rows, each target's strips [T, 2 n_strips]) of a pass's work
+    items, sorted by row; every item holds at most `item` targets."""
+    w = win.long()
+    assert bool((w[:, 1] <= item).all())
+    ar = torch.arange(item)
+    live = ar[None, :] < w[:, 1:2]
+    rows = (w[:, 0:1] + ar)[live]
+    strips = w[:, 2:][live.nonzero()[:, 0]]
+    order = torch.argsort(rows)
+    return rows[order], strips[order]
+
+
+@pytest.mark.parametrize("case", list(MAIN_CASES))
+def test_main_items_cover_each_kept_body_once(case, monkeypatch):
+    """K4's work items of ITEM targets (THREADS threads of TARGETS) hold every
+    kept body of the main pass once, each with the 27 strips it had in
+    items of 128 targets (one thread a target), in every bucket: the same
+    targets and the same strips, in fewer items."""
+    pos, mass, G, a, box, g, k, eps, buckets = main_case(case)
+    if buckets == "census":
+        buckets = ppkernel.pp_buckets_for(pos, box, g, k)
+    _, starts, _ = p3m.cell_sort(torch.from_numpy(pos), box, g)
+    win, ovf = ppkernel._main_items(starts, g, k, buckets)
+    monkeypatch.setattr(ppkernel, "ITEM", 128)
+    win128, ovf128 = ppkernel._main_items(starts, g, k, buckets)
+    assert ppkernel.ITEM == 128 != ppkernel.THREADS * ppkernel.TARGETS
+    item = ppkernel.THREADS * ppkernel.TARGETS
+    rows, strips = _item_targets(win, item)
+    rows128, strips128 = _item_targets(win128, 128)
+    assert int(ovf) == int(ovf128)
+    assert torch.equal(rows, rows128) and torch.equal(strips, strips128)
+    assert rows.unique().shape == rows.shape and strips.shape[1] == 2 * 27
+    t_rows = [ppkernel._t_round(min(t, k)) for t, _, _ in buckets] if buckets else [k]
+    cells = [b for _, _, b in buckets] if buckets else [g ** 3]
+    assert win.shape[0] == sum(c * -(-t // item) for c, t in zip(cells, t_rows))
+    assert win128.shape[0] == sum(c * -(-t // 128) for c, t in zip(cells, t_rows))
+    cnt = starts[1:] - starts[:-1]
+    kept = torch.cat([torch.arange(int(s), int(s) + min(int(n), k)) for s, n in zip(starts[:-1], cnt)])
+    if case == "bucket_drop":  # the last bucket drops cells: their kept bodies are counted, not targets
+        assert rows.shape[0] < kept.shape[0] and bool(torch.isin(rows, kept).all())
+    else:
+        assert torch.equal(rows, kept)
+
+
+@pytest.mark.parametrize("m", [256, 512, 1024, 32768, 118784])
+def test_rr_runs_come_from_m_alone(m):
+    """The residual-residual block's runs, from M = max_residual alone:
+    whole tiles in order over the one strip, the last shorter (or equal), S
+    as source_splits sizes it for ceil(M / ITEM) items; at the 1M merger's
+    M (118,784) and live count (79,166) the runs past the live residuals
+    are empty."""
+    s, run = ppkernel.rr_runs(m)
+    item = ppkernel.THREADS * ppkernel.TARGETS
+    assert run % ppkernel.SOURCE_TILE == 0 and s >= 1
+    assert s == pairwise.source_splits(m, m, item, ppkernel.SOURCE_TILE, ppkernel.RR_GRID)
+    assert (s - 1) * run < m <= s * run
+    bounds = [(r * run, min(m, (r + 1) * run)) for r in range(s)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == m
+    assert all(hi == lo2 for (_, hi), (lo2, _) in zip(bounds, bounds[1:]))
+    assert bounds[-1][1] - bounds[-1][0] <= run
+    assert ppkernel.rr_partial_bytes(m) == (s * m * 12 if s > 1 else 0)
+    if m == 118784:
+        n_live = 79166
+        assert s > 1 and bounds[-1][1] - bounds[-1][0] < run
+        live = [lo < n_live for lo, _ in bounds]
+        assert live == sorted(live, reverse=True) and 1 < sum(live) < s
+        assert -(-m // item) * s >= ppkernel.RR_GRID
+
+
+@pytest.mark.parametrize("case", list(RESIDUAL_CASES))
+def test_rr_runs_summed_in_order_match_the_reference(case):
+    """The residual-residual block as the card computes it, in plain
+    PyTorch: each run's raw sums (the strip cut to the run), added in run
+    order, times G, equal pp_short_reference on the whole strip; the items
+    of ITEM targets cover the live residuals, those past them are empty."""
+    pos, mass, G, a, box, g, k, m, _, eps = residual_case(case)
+    tp, tm = torch.from_numpy(pos), torch.from_numpy(mass)
+    ri, rv = p3m.take_rows(p3m.overflowing(p3m.cell_sort(tp, box, g), k)[1], m)
+    rows, row_out, src, win, n_strips, s_cap, n_out, law = ppkernel._rr_pass(tp, tm, G, a, box, ri, rv, eps)
+    n_live = int(rv.sum())
+    item = ppkernel.THREADS * ppkernel.TARGETS
+    assert n_strips == 1 and s_cap == m and win.shape[0] == -(-m // item)
+    assert win[:, 1].tolist() == [max(0, min(item, n_live - ts)) for ts in range(0, m, item)]
+    s, run = ppkernel.rr_runs(m)
+    assert s > 1 and n_live > 0
+    total = torch.zeros((n_out, 3))
+    raw = law[:3] + (1.0,)
+    for r in range(s):
+        lo = min(n_live, r * run)
+        w = win.clone()
+        w[:, 2], w[:, 3] = lo, min(n_live, lo + run) - lo
+        total = total + ppkernel.pp_short_reference(rows, row_out, src, w, 1, run, n_out, raw)
+    want = ppkernel.pp_short_reference(rows, row_out, src, win, n_strips, s_cap, n_out, law)
+    _close((total * G).numpy(), want.numpy())
