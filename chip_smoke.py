@@ -34,7 +34,11 @@ and `latency` entries with `precision`) and the layout probes
   5. gravity only at N = 262,144: 5 frames, momentum conservation
   6. the collision kernel against its plain PyTorch version on the card: the
      clustered 192-body scene, the same under budgets that overflow, and the
-     131,072-body cloud of the live server; times both at 131,072
+     131,072-body cloud of the live server; times both at 131,072, and each
+     bucket's launch alone with its launch shape (the kernel, csrc/
+     collide_fused.cu: runs of collide.RUN lanes folded in run order, units
+     of a window's 32 R targets, one-warp teams or, in the tail, a team of
+     warps sharing a unit's runs; ops/collide.launch_shape)
   7. the at-scale granular step at the live server's configuration (131,072
      bodies, g = 40, B = 12, PM gravity on a 64^3 mesh): 50 frames of
      granular_full_kdk_scan(n_steps=1, log_events=True), buckets re-sized
@@ -166,7 +170,10 @@ and `latency` entries with `precision`) and the layout probes
      whose value rate the bounds use (held within 3% of it); `bench.sass` on K1 and the five
      (fast's inner loop runs HMMA, bf16's HMUL2), and on K5, K6, K4 and K3
      (K5's and K4's loops one MUFU.RSQ, MUFU.EX2 and MUFU.RCP a pair, K3's
-     one MUFU.RSQ and no other); `bench throughput` with
+     one MUFU.RSQ and no other), and on the collision kernel (instructions
+     a lane and a pair of its overlap loop at each instantiation: K2's,
+     which K2m, K8, the slab entry and the probes launch, with no special
+     function; K7's with the law's three a lane a target); `bench throughput` with
      f32r and the five in one process;
      `bench drift` at each precision (BASELINE config 4's drift at the
      gate's step, a measurement: phase 12 keeps the gate), the variant's
@@ -231,6 +238,7 @@ import dataclasses
 import functools
 import io
 import json
+import re
 import time
 
 import numpy as np
@@ -238,7 +246,7 @@ import torch
 
 from nbx_torch import collisions_scaled, diagnostics, integrators, scene, sim
 from nbx_torch.bench import collsplit, cvt_rate, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
-from nbx_torch.bench import layoutsplit, layoutvar, sass, sharded
+from nbx_torch.bench import collide_turns, layoutsplit, layoutvar, sass, sharded
 from nbx_torch.bench import spatial as spatial_bench
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
@@ -689,30 +697,35 @@ def phase_collide_kernel(dev, n_big: int = SCALED_N) -> dict:
     check(int(got[4]) > 0 and int(got[5]) == 0, "contacts found, nothing overflows")
 
     # time the kernel launches of one pass (every bucket) against the plain
-    # version on the same layout
-    p, v, m, r = inputs
-    order, starts, cid = collide.cell_sort(p, box, 40)
-    feats = torch.cat([p, v, m[:, None], r[:, None]], dim=1)[order.long()]
-    windows, t_ok, _ = collide._bucket_windows(starts, cid, n_big, 40, 12, buckets)
-    out_d = torch.zeros((n_big, 8), device=dev)
-    out_j = torch.full((n_big,), -1, dtype=torch.int32, device=dev)
+    # version on the same layout; collide_turns' k2 case times the same
+    # launches
+    calls = collide_turns.cloud_calls(inputs, box, 40, 12, buckets)
 
-    def run(fused):
-        for win, t_rows, s_capw in windows:
-            fused(feats, order, t_ok, win, out_d, out_j, 0.2, 0.5, t_rows, s_capw)
+    def run(fused, cs=calls):
+        for c in cs:
+            fused(*c)
 
     run(collide.collide_fused)  # warm-up
     ms = cuda_ms(lambda: run(collide.collide_fused), 5)
     plain_ms = cuda_ms(lambda: run(collide.collide_fused_reference), 1)
-    pass_ms = cuda_ms(lambda: collide.binned_collision_pass(
-        p, v, m, r, box, 40, band_cells=12, buckets=buckets), 5)
-    lanes = sum(int((w[:, 1].long() * w[:, 3::2].long().sum(1)).sum()) for w, _, _ in windows)
-    nbytes = n_big * (32 + 4 + 1 + 32 + 4) + sum(w.numel() * 4 for w, _, _ in windows)
+    pass_ms = cuda_ms(lambda: collide.binned_collision_pass(*inputs, box, 40, band_cells=12, buckets=buckets), 5)
+    lanes = sum(int((c[3][:, 1].long() * c[3][:, 3::2].long().sum(1)).sum()) for c in calls)
+    nbytes = n_big * (32 + 4 + 1 + 32 + 4) + sum(c[3].numel() * 4 for c in calls)
     b = bound(lanes * K2_LANE_OPS, 0, nbytes)
-    log(6, f"n={n_big}: kernel {ms:.3f} ms per pass ({len(windows)} launches), plain {plain_ms:.3f} ms, "
+    log(6, f"n={n_big}: kernel {ms:.4f} ms per pass ({len(calls)} launches), plain {plain_ms:.3f} ms, "
            f"plain/kernel {plain_ms / ms:.2f}x; whole binned_collision_pass with the kernel {pass_ms:.3f} ms; "
            f"{lanes} source lanes, {bound_text(b)}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **record(b), library_ms=None)
+    bucket_ms = []
+    for i, c in enumerate(calls):  # each bucket's launch alone
+        one = cuda_ms(lambda: run(collide.collide_fused, [c]), 20)
+        win, t_rows, s_capw = c[3], c[8], c[9]
+        occupied = win[:, 1] > 0
+        lanes_i = int((win[:, 1].long() * win[:, 3::2].long().sum(1)).sum())
+        log(6, f"bucket {i} (t_rows {t_rows}, s_capw {s_capw}): {one:.4f} ms a launch, {win.shape[0]} windows, "
+               f"{int(occupied.sum())} with targets ({float(win[occupied, 1].float().mean()):.1f} a window), "
+               f"{lanes_i} source lanes; {collide.launch_shape(win.shape[0], t_rows)}")
+        bucket_ms.append(one)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **record(b), library_ms=None, bucket_ms=bucket_ms)
 
 
 def server_setup(dev, n: int = SCALED_N, g: int = 40, b: int = 12, pm_grid: int = 64):
@@ -2678,6 +2691,29 @@ def pair_sass() -> None:
           "K6's two instantiations each have a pair loop")
 
 
+def collide_sass() -> None:
+    """`bench.sass` on the collision kernel (K2, K2m, K8, the slab entry and
+    the probes at each R; K7 with kGrav): instructions a lane and a pair of
+    its overlap loop. K2's loop holds no special function (its rsqrtf is on
+    the hit path); K7's evaluates the law on every lane: one MUFU.RSQ,
+    MUFU.EX2 and MUFU.RCP a lane a target."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = sass.main(("collide_fused",))
+    for r in rows:
+        log(25, f"sass {r['source']} {sass_name(r['function'])}: {r['lanes_in_loop']} lanes in the loop, "
+                f"{r['targets_a_thread']} targets a thread, {r['instructions_a_lane']:.4f} instructions a lane, "
+                f"{r['instructions_a_pair']:.4f} a pair: " + ", ".join(f"{op} {n:.4g}" for op, n in r["by_opcode"].items()))
+    check(len(rows) >= 2 and all(r["lanes_in_loop"] >= 4 for r in rows), "every collision kernel has an overlap loop")
+    for r in rows:
+        mufu = {op: n for op, n in r["by_opcode"].items() if op.startswith("MUFU")}
+        if re.search(r"\(bool\)1|\btrue\b|Lb1E", r["function"]):
+            check(all(mufu.get(f"MUFU.{f}", 0) == r["targets_a_thread"] for f in ("RSQ", "EX2", "RCP")),
+                  f"K7's overlap loop evaluates the law once a lane a target: {mufu}")
+        else:
+            check(not mufu, f"K2's overlap loop holds no special function: {mufu}")
+
+
 def variant_cvt_rate() -> None:
     """`bench.cvt_rate`: the conversion loop's rates a clock an SM; the
     packed form's is held within CVT_VALUES_TOL of the CVT_VALUES that
@@ -2778,6 +2814,7 @@ def phase_precisions(dev, latency_ns=(DRIFT_N, HEADLINE_N)) -> dict:
     variant_cvt_rate()
     variant_sass()
     pair_sass()
+    collide_sass()
     variant_throughput(dev)
     for p in VARIANTS:
         recs[p].update(launches=variant_drift(dev, p), max_abs_err=errs[p])

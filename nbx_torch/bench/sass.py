@@ -17,7 +17,20 @@ JSON line per kernel function: its name, the pairs in the loop body, and the
 instructions a pair by opcode (modifiers dropped after the first, as in
 F2FP.BF16).
 
-    python -m nbx_torch.bench.sass [kernel ...]    # default: the direct sums; or pp_react pp_short
+The collision kernel (collide_fused: K2, K2m, K8 and the probes, and K7
+with kGrav) has no MUFU.RSQ a lane: its overlap test runs in a loop of its
+own, several lanes unrolled, apart from the hit path (rsqrtf and the
+physics, taken only by overlapping pairs, in a loop over the hits). Its
+marker is the shortest loop that holds at least 4 LDS.128 (K7's: the
+shortest that holds a MUFU.EX2, its law on every lane): each lane of the
+overlap test loads its staged row's first 16 bytes (x y z vx) once, so the
+LDS.128 in that loop are its lanes; the hit loop loads whole rows, two a
+hit, and evaluates no exponential. It reports instructions a lane
+(lanes_in_loop) and, over its R targets a thread (the kernel's first
+template argument), a pair.
+
+    python -m nbx_torch.bench.sass [kernel ...]
+    # default: the direct sums; or pp_react pp_short collide_fused
 
 Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
 """
@@ -70,26 +83,63 @@ def _body(code, lo: int, hi: int) -> collections.Counter:
     return collections.Counter(".".join(op.split(".")[:2]) for addr, op, _ in code if lo <= addr <= hi)
 
 
-def per_pair(code: list[tuple[int, str, str]]) -> tuple[int, dict[str, float]]:
-    """(pairs in the innermost loop body, instructions a pair by opcode): the
-    shortest loop that holds a MUFU.RSQ, else the shortest loop."""
-    loops = []
+def _loops(code):
+    """Every loop: (first address, backward branch's address, body counts)."""
+    out = []
     for addr, op, args in code:
         target = re.search(r"0x([0-9a-f]+)", args)
         if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
-            loops.append((addr - int(target.group(1), 16), int(target.group(1), 16), addr))
+            lo = int(target.group(1), 16)
+            out.append((lo, addr, _body(code, lo, addr)))
+    return out
+
+
+def per_pair(code: list[tuple[int, str, str]]) -> tuple[int, dict[str, float]]:
+    """(pairs in the innermost loop body, instructions a pair by opcode): the
+    shortest loop that holds a MUFU.RSQ, else the shortest loop."""
+    loops = _loops(code)
     if not loops:
         return 0, {}
-    _, lo, hi = min(loops, key=lambda loop: (_body(code, loop[1], loop[2]).get("MUFU.RSQ", 0) == 0, loop[0]))
-    body = _body(code, lo, hi)
+    _, _, body = min(loops, key=lambda loop: (loop[2].get("MUFU.RSQ", 0) == 0, loop[1] - loop[0]))
     pairs = body.get("MUFU.RSQ", 0)
     return pairs, {op: n / max(pairs, 1) for op, n in sorted(body.items())}
+
+
+def per_lane(code: list[tuple[int, str, str]]) -> tuple[int, dict[str, float]]:
+    """(lanes in the overlap loop, instructions a lane by opcode) of a
+    collision kernel: the shortest loop that holds a MUFU.EX2 (K7), or else
+    the shortest that holds at least 4 LDS.128, one a lane, counted whole
+    (no branch in it)."""
+    loops = [(hi - lo, body) for lo, hi, body in _loops(code)
+             if body.get("LDS.128", 0) >= 1 and (body.get("MUFU.EX2", 0) or body["LDS.128"] >= 4)]
+    if not loops:
+        return 0, {}
+    _, body = min(loops, key=lambda loop: (loop[1].get("MUFU.EX2", 0) == 0, loop[0]))
+    lanes = body["LDS.128"]
+    return lanes, {op: n / lanes for op, n in sorted(body.items())}
+
+
+def targets_a_thread(fn: str) -> int:
+    """The first template argument of a collision kernel's name (R),
+    demangled or not."""
+    return int(re.search(r"(?:<|ILi)(?:\(int\))?(\d+)", fn).group(1))
 
 
 def main(kernels=DIRECT_SUMS) -> list[dict]:
     rows = []
     for lib, name in zip(_build.build_all(kernels), kernels):
         for fn, code in functions(lib).items():
+            if name == "collide_fused":
+                if "collide_fused_kernel" not in fn:
+                    continue
+                lanes, ops = per_lane(code)
+                r = targets_a_thread(fn)
+                a_lane = sum(ops.values())
+                rows.append({"source": f"csrc/{name}.cu", "function": fn, "lanes_in_loop": lanes,
+                             "targets_a_thread": r, "instructions_a_lane": a_lane,
+                             "instructions_a_pair": a_lane / r, "by_opcode": ops})
+                print(json.dumps(rows[-1]), flush=True)
+                continue
             pairs, ops = per_pair(code)
             rows.append({"source": f"csrc/{name}.cu", "function": fn, "pairs_in_loop": pairs,
                          "instructions_a_pair": sum(ops.values()), "by_opcode": ops})

@@ -34,6 +34,19 @@ struct Law {
   float eps2, inv_a, c_a, g;
 };
 
+// w where r^2 > 0 and m_j > 0, else 0 (K4's weight m_j wbase, and K7's
+// pair_weight): one select in PTX. Written as `?:` in C++, with m_j > 0
+// uniform across a warp (a staged source), the compiler branches around the
+// whole law instead: a branch and a move a pair.
+__device__ __forceinline__ float keep_pair(float w, float r2, float mj) {
+  float y;
+  asm("{\n\t.reg .pred p;\n\tsetp.gt.f32 p, %3, 0f00000000;\n\tsetp.gt.and.f32 p, %2, 0f00000000, p;\n\t"
+      "selp.f32 %0, %1, 0f00000000, p;\n\t}"
+      : "=f"(y)
+      : "f"(w), "f"(r2), "f"(mj));
+  return y;
+}
+
 __device__ __forceinline__ float pair_weight(float r2, float mj, const Law& law) {
   const float s2 = r2 + law.eps2;
   const float inv_s = rsqrtf(s2 > 0.f ? s2 : 1.f);
@@ -47,7 +60,7 @@ __device__ __forceinline__ float pair_weight(float r2, float mj, const Law& law)
   poly = poly * tt + kAs1;
   const float erfc_x = poly * tt * ex2;
   const float w = mj * (erfc_x * inv_s + law.c_a * ex2) * (inv_s * inv_s);
-  return (r2 > 0.f && mj > 0.f) ? w : 0.f;
+  return keep_pair(w, r2, mj);  // no branch around the law: K7's unrolled lanes interleave
 }
 
 // K4's and K5's law: the weight without the source mass, wbase = [erfc(x)/s +
@@ -108,19 +121,6 @@ template <bool kFtz>
 __device__ __forceinline__ float pair_base_approx(float r2, const LawApprox& law) {
   const float w = pair_base_unmasked<kFtz>(r2, law);
   return r2 > 0.f ? w : 0.f;
-}
-
-// w where r^2 > 0 and m_j > 0, else 0 (K4's weight m_j wbase): one select
-// in PTX. Written as `?:` in C++, with m_j > 0 uniform across a warp (a
-// staged source), the compiler branches around the whole law instead: a
-// branch and a move a pair.
-__device__ __forceinline__ float keep_pair(float w, float r2, float mj) {
-  float y;
-  asm("{\n\t.reg .pred p;\n\tsetp.gt.f32 p, %3, 0f00000000;\n\tsetp.gt.and.f32 p, %2, 0f00000000, p;\n\t"
-      "selp.f32 %0, %1, 0f00000000, p;\n\t}"
-      : "=f"(y)
-      : "f"(w), "f"(r2), "f"(mj));
-  return y;
 }
 
 }  // namespace nbx_pp

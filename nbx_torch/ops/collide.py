@@ -66,6 +66,9 @@ entry) launch the kernel of
 `nbx_torch/csrc/collide_fused.cu` on CUDA tensors and run
 `collide_fused_reference`, its plain PyTorch version, on CPU tensors; a CUDA
 call launches the kernel or raises. Each counts its launches in `.launches`.
+The kernel sums each target's pairs run by run (runs of RUN lanes of the
+window's fused lane sequence, added in run order), so every launch shape
+(`launch_shape`) gives each target the same bits.
 
 Host-side sizing (`bucketed_layout_for`, `packed_caps_for`,
 `packed_layout_for`, ...) is numpy and gives the same integers as the JAX
@@ -96,6 +99,18 @@ CONSTRUCTIONS = ("auto", "grid", "slice")  # the JAX package's strip constructio
 
 _KERNEL = "collide_fused"
 _PAIR_BUDGET = 1 << 22  # pair lanes per chunk of the plain version
+
+# The kernel's launch shape (csrc/collide_fused.cu). RUN (kRun) is the fold's
+# unit and never changes with the launch; the rest chooses how the units
+# (window, group of 32 x targets_a_thread targets) spread over warps.
+# The values are the fastest measured on an H100 (PERF.md, section 6).
+RUN = 128  # lanes a run
+WARPS = 8  # most warps a block (kMaxWarps)
+TARGETS_A_THREAD = 2  # K2's R for windows of 33 to FULL_ROWS - 1 target rows
+FULL_ROWS = 256  # from this many target rows (full columns) R = 1: more, shorter units
+TEAMS = 4  # one-warp teams a block where a launch has many units
+TAIL_UNITS = 1024  # below this many units a unit takes TAIL_WARPS warps
+TAIL_WARPS = 4  # warps a unit in the tail: its runs spread over them
 
 
 def _round_up(x: int, m: int) -> int:
@@ -646,6 +661,41 @@ def collide_fused_reference(
         out_g.copy_(g_pad[:n])
 
 
+class LaunchShape(NamedTuple):
+    targets_a_thread: int  # R
+    groups: int  # units a window: groups of 32 R targets
+    windows_per_block: int  # windows of one group a block
+    team_warps: int  # warps that share a unit, its runs spread over them
+    teams: int  # teams a block
+    blocks: int
+
+
+def launch_shape(n_win: int, t_rows: int, windows_per_block: int = 1, grav: bool = False) -> LaunchShape:
+    """How a launch of n_win windows of at most t_rows targets spreads over
+    the card: R targets a thread (TARGETS_A_THREAD; 1 where a warp's 32
+    hold every target, from FULL_ROWS target rows and for K7, grav), units
+    of (window, group of 32 R targets), a block to one group of some
+    windows. A launch of TAIL_UNITS units or more takes one-warp teams,
+    TEAMS windows a block; one of fewer (the tail bucket's few windows) one
+    team of TAIL_WARPS warps a block, one window, which spreads each unit's
+    runs over its warps. The blocks of every window's last group come
+    first, then the group before, ...: most windows leave the later groups
+    empty. K2m (windows_per_block > 1): windows_per_block windows a block,
+    a team each at once (at most WARPS teams, each then taking windows in
+    turn), one-warp teams where the launch has many units and in the tail
+    as many warps a team as WARPS leaves room for, at most TAIL_WARPS."""
+    r = 1 if grav or t_rows <= 32 or t_rows >= FULL_ROWS else TARGETS_A_THREAD
+    groups = max(1, -(-t_rows // (32 * r)))
+    wpb = windows_per_block if windows_per_block > 1 else TEAMS
+    teams = min(wpb, WARPS)
+    team_warps = 1
+    if n_win * groups < TAIL_UNITS:
+        if windows_per_block > 1:
+            team_warps = min(TAIL_WARPS, WARPS // teams)
+        else:
+            wpb, teams, team_warps = 1, 1, TAIL_WARPS
+    return LaunchShape(r, groups, wpb, team_warps, teams, -(-n_win // wpb) * groups)
+
 
 def _check(name: str, t: torch.Tensor, dtype, shape: tuple, device) -> None:
     if t.device != device:
@@ -668,15 +718,15 @@ def _entry(symbol: str, argtypes: list):
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FUSED_ARGS = [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P]  # nbx_collide_fused
-_GRAV_ARGS = [_P] * 7 + [_I] * 2 + [_F] * 6 + [_P]  # nbx_collide_fused_grav
+_FUSED_ARGS = [_P] * 6 + [_I] * 6 + [_F] * 2 + [_P]  # nbx_collide_fused
+_GRAV_ARGS = [_P] * 7 + [_I] * 6 + [_F] * 6 + [_P]  # nbx_collide_fused_grav
 
 
 def _run(name, feats, order, src_ok, win, out_d, out_j, restitution, friction, t_rows, s_capw,
          windows_per_block: int, short_gravity=None, out_g=None) -> bool:
-    """The plain version on CPU tensors, the kernel on CUDA tensors (one
-    thread block per windows_per_block windows; K7's instantiation with
-    short_gravity); True if it launched."""
+    """The plain version on CPU tensors, the kernel on CUDA tensors (at
+    launch_shape's shape; windows_per_block windows a block for K2m; K7's
+    instantiation with short_gravity); True if it launched."""
     if feats.device.type == "cpu":
         collide_fused_reference(feats, order, src_ok, win, out_d, out_j, restitution, friction, t_rows,
                                 s_capw, short_gravity, out_g)
@@ -699,20 +749,19 @@ def _run(name, feats, order, src_ok, win, out_d, out_j, restitution, friction, t
         raise ValueError(f"windows_per_block must be >= 1, got {windows_per_block}")
     if n_win == 0 or n == 0:
         return False
-    threads = min(256, _round_up(max(t_rows, 1), 32))
+    sh = launch_shape(n_win, t_rows, windows_per_block, short_gravity is not None)
+    shape = (n_win, sh.groups, sh.windows_per_block, sh.team_warps, sh.teams, sh.targets_a_thread)
     ptrs = (feats.data_ptr(), order.data_ptr(), src_ok.data_ptr(), win.data_ptr(), out_d.data_ptr(),
             out_j.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if short_gravity is None:
-            err = _entry("nbx_collide_fused", _FUSED_ARGS)(*ptrs, n_win, windows_per_block, threads,
-                                                           f32(restitution), f32(friction), stream)
+            err = _entry("nbx_collide_fused", _FUSED_ARGS)(*ptrs, *shape, f32(restitution), f32(friction), stream)
         else:
             G, a, eps = short_gravity
             eps2, inv_a, c_a, g = pp_law(eps, a, G)
-            err = _entry("nbx_collide_fused_grav", _GRAV_ARGS)(*ptrs, out_g.data_ptr(), n_win, threads,
-                                                               f32(restitution), f32(friction), g, inv_a, c_a,
-                                                               eps2, stream)
+            err = _entry("nbx_collide_fused_grav", _GRAV_ARGS)(*ptrs, out_g.data_ptr(), *shape, f32(restitution),
+                                                               f32(friction), g, inv_a, c_a, eps2, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     return True
@@ -723,8 +772,8 @@ def collide_fused(feats, order, src_ok, win, out_d, out_j, restitution: float, f
     """One window set's collision pass (see collide_fused_reference for the
     arguments): writes every target's delta row and deepest partner to body
     order in out_d / out_j. A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel, one thread block per window (the TPU kernel
-    K2's launches: the bucketed, banded, band-packed and compacted layouts)."""
+    tensor launches the kernel at launch_shape's shape (the TPU kernel K2's
+    launches: the bucketed, banded, band-packed and compacted layouts)."""
     if _run("collide_fused", feats, order, src_ok, win, out_d, out_j, restitution, friction, t_rows,
             s_capw, 1):
         collide_fused.launches += 1
@@ -743,10 +792,10 @@ def collide_full_column(feats, order, src_ok, win, out_d, out_j, restitution: fl
 
 def collide_fused_multi(feats, order, src_ok, win, out_d, out_j, restitution: float, friction: float,
                         t_rows: int, s_capw: int, windows_per_block: int) -> None:
-    """collide_fused with each thread block walking windows_per_block
-    windows in turn (the TPU kernel K2m): the same pair set and arithmetic,
-    so on the card bitwise the result of windows_per_block = 1. The plain
-    version is collide_fused's (windows are independent)."""
+    """collide_fused with windows_per_block windows a thread block, a warp
+    each, at once (the TPU kernel K2m): the same pair set, arithmetic and
+    runs, so on the card bitwise the result of windows_per_block = 1. The
+    plain version is collide_fused's (windows are independent)."""
     if _run("collide_fused_multi", feats, order, src_ok, win, out_d, out_j, restitution, friction,
             t_rows, s_capw, windows_per_block):
         collide_fused_multi.launches += 1

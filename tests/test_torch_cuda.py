@@ -302,6 +302,112 @@ def test_collide_wrapper_rejects_bad_inputs(dev):
         collide.collide_fused_multi(*args, windows_per_block=0)
 
 
+def _kernel_calls(dev, case):
+    """The collision kernel's arguments on one scene, called directly:
+    [(feats, order, src_ok, win, t_rows, s_capw)] and the body count.
+    big_windows: a dense clump in two buckets, windows of hundreds of
+    targets (not a multiple of 32 R) and more lanes than one round of the
+    widest team (8 runs); masked: the clustered scene with dead bodies and a random
+    source mask; full_column: full columns of a dense clump at K = 400,
+    columns of more than 256 targets."""
+    rng = np.random.default_rng(11)
+    if case == "masked":
+        pos, vel, mass = _clustered(9, dead=True)
+    else:
+        n = 1500
+        pos = np.clip(rng.normal(35.0, 4.0, (n, 3)), 1, 99).astype(np.float32)
+        vel = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
+        mass = rng.uniform(2.0, 8.0, n).astype(np.float32)
+    p, v, m, r = _collide_inputs(pos, vel, mass, 1.0 if case == "big_windows" else 2.0, dev)
+    n = p.shape[0]
+    if case == "full_column":
+        order, win, t_rows, s_capw, _ = collide._kept_windows(p, BOX, 4, 4, 400)
+        ok = torch.ones(n, dtype=torch.bool, device=dev)
+        return [(collide._sorted_feats(p, v, m, r, order), order, ok, win, t_rows, s_capw)], n
+    buckets = ((64, 128, 16), (500, 1200, 8)) if case == "big_windows" else ((8, 16, 64), (96, 128, 64))
+    order, starts, cid = collide.cell_sort(p, BOX, 8)
+    windows, t_ok, _ = collide._bucket_windows(starts, cid, n, 8, 4, buckets)
+    if case == "masked":
+        t_ok = t_ok & torch.tensor(rng.random(n) < 0.7, device=dev)
+    feats = collide._sorted_feats(p, v, m, r, order)
+    return [(feats, order, t_ok, w, t_rows, s_capw) for w, t_rows, s_capw in windows], n
+
+
+def _run_calls(fused, calls, n, grav=None):
+    """Every call through `fused` into fresh outputs: (out_d, out_j[, out_g])."""
+    dev = calls[0][0].device
+    out_d = torch.zeros((n, 8), device=dev)
+    out_j = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    out_g = torch.zeros((n, 3), device=dev)
+    for feats, order, ok, win, t_rows, s_capw in calls:
+        extra = () if grav is None else (grav, out_g)
+        fused(feats, order, ok, win, out_d, out_j, 0.2, 0.5, t_rows, s_capw, *extra)
+    torch.cuda.synchronize()
+    return (out_d, out_j) if grav is None else (out_d, out_j, out_g)
+
+
+# Launch shapes (ops/collide.py's launch-shape constants): R targets a thread
+# (1, or 2 also on full columns: FULL_ROWS past any window), one-warp teams
+# everywhere (TAIL_UNITS 0) or a team of TAIL_WARPS warps a unit everywhere
+# (TAIL_UNITS past any launch), TEAMS teams a block
+LAUNCH_SHAPES = {
+    "r1_warps": dict(TARGETS_A_THREAD=1, TAIL_UNITS=0),
+    "r2_warps": dict(TAIL_UNITS=0),
+    "r2_full_columns": dict(FULL_ROWS=1 << 30, TAIL_UNITS=0),
+    "r2_one_team": dict(TAIL_UNITS=0, TEAMS=1),
+    "r2_team2": dict(TAIL_UNITS=1 << 30, TAIL_WARPS=2),
+    "r2_team4": dict(TAIL_UNITS=1 << 30, TAIL_WARPS=4),
+    "r2_team8": dict(TAIL_UNITS=1 << 30, TAIL_WARPS=8, FULL_ROWS=1 << 30),
+    "r1_team4": dict(TARGETS_A_THREAD=1, TAIL_UNITS=1 << 30, TAIL_WARPS=4),
+}
+KERNEL_CASES = ["big_windows", "masked", "full_column"]
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES)
+def test_collide_kernel_direct_matches_plain(dev, case):
+    """The kernel called directly against its plain version: deltas to TOL,
+    bounce counts and partners exact; the scene really has what it is for."""
+    calls, n = _kernel_calls(dev, case)
+    got = _run_calls(collide.collide_fused, calls, n)
+    want = _run_calls(collide.collide_fused_reference, calls, n)
+    assert _rel_err(got[0][:, :7], want[0][:, :7]) < TOL
+    assert torch.equal(got[0][:, 7], want[0][:, 7]) and torch.equal(got[1], want[1])
+    assert int(got[0][:, 7].sum()) > 0
+    tn = torch.cat([c[3][:, 1] for c in calls])
+    lanes = torch.cat([c[3][:, 3::2].sum(1) for c in calls])
+    if case == "big_windows":
+        assert int(lanes.max()) > 8 * collide.RUN and bool(((tn % 64) != 0).any())
+    if case == "full_column":
+        assert int(tn.max()) > 256
+    if case == "masked":
+        assert not bool(calls[0][2].all())
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES)
+def test_collide_kernel_gives_the_same_bits_twice(dev, case):
+    calls, n = _kernel_calls(dev, case)
+    a = _run_calls(collide.collide_fused, calls, n)
+    b = _run_calls(collide.collide_fused, calls, n)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("shape", list(LAUNCH_SHAPES))
+@pytest.mark.parametrize("case", KERNEL_CASES)
+def test_collide_launch_shapes_give_the_same_bits(dev, case, shape, monkeypatch):
+    """Every launch shape folds each target's sums over the same runs in the
+    same order: K2's outputs bitwise those of the default shape, and K7's
+    collision outputs bitwise K2's, at each shape."""
+    calls, n = _kernel_calls(dev, case)
+    base = _run_calls(collide.collide_fused, calls, n)
+    for name, value in LAUNCH_SHAPES[shape].items():
+        monkeypatch.setattr(collide, name, value)
+    got = _run_calls(collide.collide_fused, calls, n)
+    assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+    k7 = _run_calls(collide.collide_fused_grav, calls, n, grav=(0.5, BOX / 8 / 3.0, 0.5))
+    assert torch.equal(k7[0], base[0]) and torch.equal(k7[1], base[1])
+    assert bool(torch.isfinite(k7[2]).all()) and float(k7[2].abs().max()) > 0
+
+
 def _server_setup(dev, n=4096, g=16, b=4, pm_grid=32):
     box = BOX * (n / 131072.0) ** (1.0 / 3.0)
     pos, vel, mass = granular_cloud(n, seed=0, box=box)
