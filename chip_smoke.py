@@ -16,8 +16,11 @@ configuration, the scan with its default full-column layout), the spatial
 halo-exchange step (`parallel.spatial`, the `bench spatial` main),
 the all-gather multi-device paths (`parallel.shard`), the gravity-only
 path at each precision of `pairwise_acc` (the `bench throughput`, `drift`
-and `latency` entries with `precision`) and the layout probes
-(`bench.layoutsplit`, `bench.layoutvar`):
+and `latency` entries with `precision`), the layout probes
+(`bench.layoutsplit`, `bench.layoutvar`), the strict-sequential frame step
+(`sim.run(collision_impl="sequential")`), the two-level P3M residual and the
+host API (`interactive.Simulation`, `checkpoint`, `profiling`, `python -m
+nbx_torch run`):
 
   0. device: name and power limit; TF32 off
   1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
@@ -186,6 +189,30 @@ and `latency` entries with `precision`) and the layout probes
      "blocks" layout (the TPU's materialised blocks) bitwise the "desc"
      layout, both launches timed; each probe's main at its defaults
      (131,072 at 32,8 and 262,144 at 40,8), its K2 launches counted
+ 27. the strict-sequential collision sweep (`csrc/collide_sequential.cu`,
+     one block a substep) against its plain version
+     (`ops.sequential.sweep_reference`) on the scenes of
+     tests/test_sequential.py in contact, a head-on fracture scene and a
+     4,096-body pile (each bitwise, or floats to 1e-5 with counters, flags
+     and materials exact; the pile twice bitwise; capacity 5,633 raises);
+     the fracture scene through `resolve_collisions_sequential` on the card
+     against the CPU with the same draws; then the reference scene at
+     capacity 300 through sim.run(collision_impl="sequential"), 300 frames
+     timed beside phase 3's Jacobi frame, one launch a substep, every 50th
+     substep's sweep held against the plain version, one frame
+     sync-checked; the sweep timed at the reference scene's shapes
+ 28. the two-level P3M residual: p3m_acceleration(residual_mode="twolevel")
+     on phase 9's 1M + 30k scene at the production tune (K4's main pass
+     and K5 a call, no residual-residual launch; submesh 96 / 24 / 128),
+     n_uncorrected 0, the core's and the field's median errors within 3x
+     phase 9's dense ones plus 1e-3, one evaluation sync-checked; the
+     `p3m_cluster` main with `dense twolevel`; 4,096 bodies on the card
+     against the CPU
+ 29. the host API: `interactive.Simulation` on phase 4's scene,
+     `run_checkpointed(40, every 10)`, `Simulation.load` and 10 more frames
+     from both, bitwise (generator included); `python -m nbx_torch run
+     --frames 50 --capacity 300`; `profiling.StepTimer` over 20 frames,
+     `profiling.trace`, `profiling.nan_guard`
 
 Every phase raises on failure, so the script exits non-zero; it needs a CUDA
 device and has no CPU fallback. The line before the last is the kernels'
@@ -226,8 +253,14 @@ The probes' records (collide_fused_layoutsplit, collide_fused_layoutvar)
 count K2's launches in each probe's main and are timed on the probe's
 bucket-0 launch (phase 26). A collision pass's bytes count the rows its
 windows read and the targets it writes, not the rows of its input (the
-"blocks" copy's padding is never read). It prints its total and the time of phases
-11-14, 15-17, 18-20, 21-24, 25 and 26 before the kernels line.
+"blocks" copy's padding is never read). The strict-sequential sweep
+(collide_sequential) replaces no TPU kernel (`nbx` runs it as a fori_loop):
+it launches on the sequential frame step's path (phase 27) and is timed at
+the reference scene's shapes; its bound counts the overlap tests this run's
+sweep made (11 FP32 operations each) and, beside the card's, gives one SM's
+(1/132 of the FP32 rate: the sweep is one block). It prints its total and the
+time of phases 11-14, 15-17, 18-20, 21-24, 25, 26, 27, 28 and 29 before the
+kernels line (18 records).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -238,20 +271,25 @@ import dataclasses
 import functools
 import io
 import json
+import os
 import re
+import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from nbx_torch import collisions_scaled, diagnostics, integrators, scene, sim
+from nbx_torch import collisions, collisions_scaled, diagnostics, integrators, profiling, scene, sim
 from nbx_torch.bench import collsplit, cvt_rate, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
 from nbx_torch.bench import collide_turns, layoutsplit, layoutvar, sass, sharded
 from nbx_torch.bench import spatial as spatial_bench
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
-from nbx_torch.config import SimConfig, body_radius, f32
-from nbx_torch.ops import _build, collide, p3m, pairwise, ppkernel
+from nbx_torch.config import SimConfig, body_radius, f32, inverse_mass
+from nbx_torch.interactive import Simulation
+from nbx_torch.ops import _build, collide, p3m, pairwise, ppkernel, sequential
 from nbx_torch.ops.pairwise import (pairwise_acc, pairwise_acc_jerk, pairwise_acc_jerk_reference,
                                    pairwise_acc_reference, potential_energy, potential_per_body,
                                    potential_per_body_reference)
@@ -540,7 +578,7 @@ def phase_kernel(dev, n_big: int = HEADLINE_N, n_small: int = DRIFT_N) -> dict:
                 bound_ms_drift_shape=b_small["bound_ms"])
 
 
-def phase_reference(dev, frames: int = 300) -> None:
+def phase_reference(dev, frames: int = 300) -> float:
     cfg = SimConfig().to(dev)
     sc = scene.reference_galaxy(seed=0)
     st = scene.make_state(cfg, sc, dev, seed=0)
@@ -575,6 +613,7 @@ def phase_reference(dev, frames: int = 300) -> None:
         err = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
         log(3, f"20 frames card vs CPU: {f} max rel err {err:.3e} (tol 1e-3)")
         check(err < 1e-3, f"{f} card vs CPU after 20 frames")
+    return dt / frames * 1e3
 
 
 def phase_full_physics(dev, capacity: int = 4096, n_disk: int = 3000, frames: int = 50) -> float:
@@ -992,7 +1031,7 @@ def reset_pp_counts() -> None:
     ppkernel.pp_react.launches = 0
 
 
-def phase_p3m(dev, n: int = 1_000_000, n_core: int = 30_000, evals: int = 5) -> float:
+def phase_p3m(dev, n: int = 1_000_000, n_core: int = 30_000, evals: int = 5) -> tuple[float, dict]:
     pos_np, mass_np, n_field = p3m_cluster.cluster_scene(n, n_core)
     pos, mass = torch.from_numpy(pos_np).to(dev), torch.from_numpy(mass_np).to(dev)
     tune, box = p3m_cluster.PRODUCTION_TUNE, p3m_cluster.BOX
@@ -1031,7 +1070,7 @@ def phase_p3m(dev, n: int = 1_000_000, n_core: int = 30_000, evals: int = 5) -> 
     torch.cuda.synchronize()
     check(int(unc) == 0 and ppkernel.pp_short.launches == 2 * evals + 2, "kernels ran in the sync-checked evaluation")
     log(9, "one evaluation ran under set_sync_debug_mode('error'): no host sync in p3m_acceleration")
-    return ms
+    return ms, errs
 
 
 MERGER_CFG = dict(G=0.5, dt=0.35, sub_steps=1, softening=0.5, merge_time=0.5,
@@ -2894,13 +2933,400 @@ def phase_probes(dev) -> dict:
     return {p: dict(recs[p], launches=launches[p], max_abs_err=err, library_ms=None) for p in PROBE_SITES}
 
 
+# ---- the strict-sequential sweep, the two-level P3M residual, the host API ----
+
+SEQ_TEST_OPS = 11  # FP32 operations of an overlap test (csrc/collide_sequential.cu)
+SMS = 132  # the H100 SXM's SMs; the one-block sweep runs on one of them
+# bytes a body the sweep must read (pos, vel, temp, mass, radius, inverse
+# mass, material, alive) and write (pos, vel, temp, removed)
+SEQ_BODY_BYTES = 12 + 12 + 4 + 4 + 4 + 4 + 4 + 1 + 12 + 12 + 4 + 1
+SEQ_FLOAT_FIELDS = ("pos", "vel", "temp", "contact", "mbuf", "fbuf")
+SEQ_EXACT_FIELDS = ("removed", "counts", "mmat", "fmat")
+
+
+def chain_pile(n: int = 5, spacing: float = 2.5, mass: float = 20.0) -> dict:
+    """The contact pile of tests/test_sequential.py: n bodies on a line at
+    `spacing` < 2 r, the outer ones converging."""
+    pos = np.zeros((n, 3), np.float32)
+    pos[:, 0] = (np.arange(n) - (n - 1) / 2) * spacing
+    pos[:, 1] = np.linspace(0.0, 0.3, n)
+    vel = np.zeros((n, 3), np.float32)
+    vel[:, 0] = -np.sign(pos[:, 0]) * 1.5
+    return dict(pos=pos, vel=vel, mass=np.full(n, mass, np.float32), mat=np.zeros(n, np.int32),
+                temp=np.zeros(n, np.float32))
+
+
+def fracture_scene() -> dict:
+    """Two violent head-on pairs (fractures), a slow pair (a merge, given a
+    running timer) and a gentle pair (a bounce), all overlapping
+    (tests/test_torch_sequential.py)."""
+    pos = [[-1.5, 0, 0], [1.5, 0, 0.5], [20, 0, 0], [22.5, 0.2, 0], [-20, 0, 0], [-18.2, 0, 0],
+           [0, 20, 0], [0, 22, 0.1]]
+    vel = [[30, 0, 0], [-30, 0, 0], [10, 0, 0], [-10, 0, 0], [0.1, 0, 0], [-0.1, 0, 0], [0, 1, 0], [0, -1, 0]]
+    return dict(pos=np.array(pos, np.float32), vel=np.array(vel, np.float32),
+                mass=np.array([100, 100, 20, 20, 5, 5, 5, 5], np.float32),
+                mat=np.array([0, 2, 0, 1, 0, 0, 2, 0], np.int32), temp=np.array([0, 50, 0, 0, 0, 0, 0, 0], np.float32))
+
+
+def lattice_pile(side: int = 16, spacing: float = 2.75, seed: int = 3) -> tuple[dict, np.ndarray]:
+    """side^3 bodies of mass 10 (radius 1.34) on a jittered lattice, about a
+    quarter of the neighbour pairs overlapping, random velocities; the timers
+    of every seventh x-neighbour pair already past merge_time. Returns
+    (scene, timers)."""
+    rng = np.random.default_rng(seed)
+    n = side**3
+    grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(n, 3)
+    pos = ((grid - (side - 1) / 2) * spacing + rng.normal(0, 0.08, (n, 3))).astype(np.float32)
+    sc = dict(pos=pos, vel=rng.normal(0, 1.0, (n, 3)).astype(np.float32), mass=np.full(n, 10.0, np.float32),
+              mat=rng.integers(0, 3, n).astype(np.int32), temp=np.zeros(n, np.float32))
+    timers = np.zeros((n, n), np.float32)
+    i = np.arange(0, n - side * side, 7)
+    timers[i, i + side * side] = timers[i + side * side, i] = 0.6
+    return sc, timers
+
+
+def _timers(c: int, pairs) -> np.ndarray:
+    t = np.zeros((c, c), np.float32)
+    for i, j, v in pairs:
+        t[i, j] = t[j, i] = v
+    return t
+
+
+def sequential_scenes() -> dict:
+    """The sweep's scenes, name -> (config, scene, timers or None), each in
+    contact at its first substep: the four of tests/test_sequential.py (the
+    isolated pair bouncing, the 5-body chain pile, the slow merge with its
+    timer past merge_time, the 6-body pile merging and bouncing), a head-on
+    fracture scene at a low fracture_threshold, and a 4,096-body pile."""
+    iso = scene.head_on_collision()
+    iso["pos"][:, 0], iso["pos"][:, 2] = [-2.5, 2.5], [0, 2]
+    slow = scene.head_on_collision()
+    slow["pos"][:, 0], slow["pos"][:, 2], slow["vel"][:, 0] = [-2.5, 2.5], [0, 0], [0.2, -0.2]
+    pile6 = chain_pile(6, 2.2, 10.0)
+    pile6["vel"][:, 0] = -0.5 * pile6["pos"][:, 0]
+    lattice, lattice_timers = lattice_pile()
+    off = dict(merge_time=1e9, fracture_threshold=1e9)
+    return {
+        "isolated pair": (SimConfig(capacity=16, **off), iso, None),
+        "5-body chain pile": (SimConfig(capacity=8, **off), chain_pile(), None),
+        "slow merge": (SimConfig(capacity=16, fracture_threshold=1e9), slow, _timers(16, [(0, 1, 0.6)])),
+        "6-body pile with merges": (SimConfig(capacity=16, merge_time=0.1, fracture_threshold=1e9), pile6,
+                                    _timers(16, [(2, 3, 0.2), (4, 5, 0.2)])),
+        "head-on fracture": (SimConfig(capacity=64, merge_time=0.1, fracture_threshold=5.0), fracture_scene(),
+                             _timers(64, [(4, 5, 0.2)])),
+        "4,096-body pile": (SimConfig(capacity=4096), lattice, lattice_timers),
+    }
+
+
+def sweep_inputs(cfg: SimConfig, sc: dict, timers, dev) -> tuple:
+    """The positional inputs of `sequential.sweep` for a scene on `dev`
+    (cfg placed there), its timers set."""
+    st = scene.make_state(cfg, sc, dev)
+    contact = st.contact if timers is None else torch.from_numpy(timers).to(dev)
+    return (st.pos, st.vel, st.temp, st.mass, st.radius(cfg), inverse_mass(st.mass), st.mat, st.alive, contact)
+
+
+def sweep_diff(got, want) -> tuple[float, bool, list]:
+    """(max|kernel - plain| over the float outputs, bitwise, the fields whose
+    relative error passes KERNEL_TOL or that differ where they must be
+    exact)."""
+    bad = [f for f in SEQ_EXACT_FIELDS if not torch.equal(getattr(got, f), getattr(want, f))]
+    err, bitwise = 0.0, not bad
+    for f in SEQ_FLOAT_FIELDS:
+        x, y = getattr(got, f), getattr(want, f)
+        bitwise = bitwise and torch.equal(x, y)
+        e = float((x - y).abs().max()) if x.numel() else 0.0
+        err = max(err, e)
+        if e > KERNEL_TOL * max(float(y.abs().max()) if y.numel() else 0.0, 1e-30):
+            bad.append(f)
+    return err, bitwise, bad
+
+
+def check_sweep(name: str, got, want) -> float:
+    err, bitwise, bad = sweep_diff(got, want)
+    c = {k: int(got.count(k)) for k in sequential.COUNTS}
+    log(27, f"{name}: {'bitwise' if bitwise else f'max|kernel-plain|={err:.3e}'}; {c}")
+    check(not bad, f"{name}: the sweep kernel against its plain version: {bad}")
+    return err
+
+
+def sweep_bound(inputs, out) -> tuple[dict, dict]:
+    """The card's bound of one sweep and one SM's (1/132 of the FP32 rate):
+    its overlap tests' operations, its bodies' bytes, the [C, C] timers
+    written once and each overlapping pair's timer read."""
+    c = inputs[0].shape[0]
+    ops = int(out.count("n_tests")) * SEQ_TEST_OPS
+    nbytes = c * SEQ_BODY_BYTES + 4 * c * c + 4 * int((out.contact > 0).sum()) // 2
+    return bound(ops, 0, nbytes), bound(ops * SMS, 0, nbytes)
+
+
+def phase_sequential(dev, jacobi_ms: float, frames: int = 300, check_every: int = 50) -> dict:
+    """Phase 27: the strict-sequential sweep kernel (csrc/collide_sequential.cu)
+    against its plain version on the card, scene by scene, twice bitwise; the
+    fracture scene through resolve_collisions_sequential on the card against
+    the CPU with the same draws; then the reference scene at the reference's
+    size through sim.run(collision_impl="sequential"), `frames` frames timed,
+    one launch a substep, every `check_every`-th substep's sweep held against
+    the plain version, one frame sync-checked. Returns the kernels line's
+    entry."""
+    err = 0.0
+    for name, (cfg, sc, timers) in sequential_scenes().items():
+        cfg = cfg.to(dev)
+        inputs = sweep_inputs(cfg, sc, timers, dev)
+        h = sim.substep_size(cfg)
+        got = sequential.sweep(*inputs, h, cfg)
+        err = max(err, check_sweep(f"{name} (C={cfg.capacity})", got, sequential.sweep_reference(*inputs, h, cfg)))
+    check(sweep_diff(got, sequential.sweep(*inputs, h, cfg))[1], "the 4,096-body pile: two launches bitwise")
+    b, b_sm = sweep_bound(inputs, got)
+    pile_ms = cuda_ms(lambda: sequential.sweep(*inputs, h, cfg), 5)
+    log(27, f"4,096-body pile: kernel {pile_ms:.4f} ms; {bound_text(b)}; one SM's {bound_text(b_sm)}")
+    with pytest_raises(ValueError):
+        big = SimConfig(capacity=sequential.MAX_CAPACITY + 1)
+        sequential.sweep(*sweep_inputs(big.to(dev), lattice_pile(2)[0], None, dev), h, big)
+    log(27, f"capacity {sequential.MAX_CAPACITY + 1}: ValueError (the kernel takes at most {sequential.MAX_CAPACITY})")
+
+    cfg, sc, timers = sequential_scenes()["head-on fracture"]
+    gen = torch.Generator().manual_seed(5)
+    draws = draw_fracture_uniforms(cfg, gen, "cpu")
+    def resolve(where):
+        c = cfg.to(where)
+        st = scene.make_state(c, sc, where).replace(contact=torch.from_numpy(timers).to(where))
+        return collisions.resolve_collisions_sequential(st, c, sim.substep_size(c), draws.to(where))
+
+    (a, ea), (b_, eb) = resolve(dev), resolve(torch.device("cpu"))
+    for f in ("n_merges", "n_fractures", "n_bounces", "n_evicted", "n_dropped"):
+        check(int(getattr(ea, f)) == int(getattr(eb, f)), f"fracture scene: {f} equal on card and CPU")
+    check(int(ea.n_fractures) > 0 and int(ea.spawn_mask.sum()) > 0, "fracture scene: fragments born")
+    check(torch.equal(a.alive.cpu(), b_.alive) and torch.equal(a.seq.cpu(), b_.seq), "fracture scene: slots equal")
+    for f in ("pos", "vel", "temp", "mass"):
+        x, y = getattr(a, f).cpu(), getattr(b_, f)
+        check(float((x - y).abs().max()) <= 1e-5 * float(y.abs().max()), f"fracture scene: {f} card vs CPU")
+    log(27, f"head-on fracture through resolve_collisions_sequential, card vs CPU with the same draws: "
+            f"{int(ea.n_fractures)} fractures, {int(ea.spawn_mask.sum())} fragments, counts and slots equal")
+
+    # the reference scene at the reference's size, the sequential path
+    cfg = SimConfig().to(dev)
+    st = scene.make_state(cfg, scene.reference_galaxy(seed=0), dev, seed=0)
+    st, _ = sim.step(st, cfg, collision_impl="sequential")  # warm-up
+    torch.cuda.synchronize()
+    kernel, recorded = sequential.sweep, []
+
+    def recording(*args):
+        # the wrapper counts its launches on `sequential.sweep`: this
+        # stand-in, while it stands in
+        out = kernel(*args)
+        if (recording.launches - 1) % check_every == 0:
+            recorded.append((tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in args), out))
+        return out
+
+    recording.launches = 0  # the sequential frame step's path starts here
+    sequential.sweep = recording
+    try:
+        t0 = time.perf_counter()
+        st, evs = sim.run(st, cfg, frames, collision_impl="sequential")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        sequential.sweep = kernel
+    launches = recording.launches
+    check(launches == frames * cfg.sub_steps, f"{launches} sweep launches in {frames} frames, one a substep")
+    check(all_finite(st.pos, st.vel, st.acc, st.mass, st.temp, st.contact), f"state finite after {frames} frames")
+    n_alive = int(st.n_alive)
+    check(1 <= n_alive <= cfg.capacity, f"1 <= n_alive={n_alive} <= {cfg.capacity}")
+    ms = dt / frames * 1e3
+    log(27, f"reference scene, capacity 300, {frames} frames sequential: {ms:.3f} ms/frame (phase 3's Jacobi "
+            f"{jacobi_ms:.3f}); {launches // frames / cfg.sub_steps:.0f} launch a substep; n_alive {n_alive}; "
+            f"merges {int(evs.n_merges.sum())} fractures {int(evs.n_fractures.sum())} "
+            f"bounces {int(evs.n_bounces.sum())} evicted {int(evs.n_evicted.sum())} dropped {int(evs.n_dropped.sum())}")
+    for k, (args, out) in enumerate(recorded):
+        want = sequential.sweep_reference(*args)
+        err = max(err, check_sweep(f"reference scene, substep {k * check_every + 1}", out, want))
+    check(len(recorded) == -(-frames * cfg.sub_steps // check_every), "every checked substep recorded")
+
+    before = kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, _ = sim.step(st, cfg, collision_impl="sequential")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(kernel.launches - before == cfg.sub_steps, "the sweep ran in the sync-checked frame")
+    log(27, "one sequential frame ran under set_sync_debug_mode('error'): no host sync in sim.step")
+
+    args, out = recorded[-1]
+    k_ms = cuda_ms(lambda: kernel(*args), 20)
+    plain_ms = cuda_ms(lambda: sequential.sweep_reference(*args), 1)
+    b, b_sm = sweep_bound(args, out)
+    # the kernel's own device time (the wrapper also fills its outputs)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        kernel(*args)
+        torch.cuda.synchronize()
+    kernel_us = [e.device_time_total / e.count for e in prof.key_averages() if "sweep_kernel" in e.key]
+    device_ms = kernel_us[0] / 1e3 if kernel_us else None  # None: the profiler saw no launch
+    log(27, f"sweep at the reference scene (C=300, {int(out.count('n_tests'))} overlap tests): a call {k_ms:.4f} ms "
+            f"(the kernel alone {device_ms} ms on the device, torch.profiler), plain {plain_ms:.3f} ms; "
+            f"{bound_text(b)}; one SM's {bound_text(b_sm)}; kernel/one SM's bound {k_ms / b_sm['bound_ms']:.1f}")
+    return dict(launches=launches, max_abs_err=err, ms=k_ms, plain_ms=plain_ms, **record(b), library_ms=None,
+                bound_ms_one_sm=b_sm["bound_ms"], kernel_device_ms=device_ms, ms_per_frame=ms,
+                jacobi_ms_per_frame=jacobi_ms, ms_pile_4096=pile_ms)
+
+
+@contextlib.contextmanager
+def pytest_raises(exc):
+    """Check that the block raises `exc`."""
+    try:
+        yield
+    except exc:
+        return
+    raise RuntimeError(f"check failed: {exc.__name__} not raised")
+
+
+# The bench's submesh (96, 24, 96) leaves 27 of the 1M scene's 29,054
+# residuals past sub_k in the submesh's densest cells (a host census of the
+# scene); phase 28 gates n_uncorrected == 0, so it keeps 128 a cell.
+TWOLEVEL_SUB_K = 128
+TWOLEVEL_SMALL = dict(g=32, n_cells=8, max_per_cell=64, eps=p3m_cluster.EPS, max_residual=2048,
+                      residual_mode="twolevel", sub_g=36, sub_cells=12, sub_k=48, pp_impl="kernel")
+
+
+def phase_twolevel(dev, dense_errs: dict, n: int = 1_000_000, n_core: int = 30_000, evals: int = 3) -> float:
+    """Phase 28: p3m_acceleration(residual_mode="twolevel") on phase 9's
+    scene at the production tune with the submesh (96, 24, TWOLEVEL_SUB_K): K4's
+    main pass and K5 a call, no residual-residual launch; n_uncorrected 0;
+    the core's and the field's median errors against the direct sum within
+    3x phase 9's dense ones plus 1e-3; one evaluation sync-checked; the
+    bench's main with `dense twolevel`; a 4,096-body evaluation on the card
+    against the CPU. Returns ms per evaluation."""
+    pos_np, mass_np, n_field = p3m_cluster.cluster_scene(n, n_core)
+    pos, mass = torch.from_numpy(pos_np).to(dev), torch.from_numpy(mass_np).to(dev)
+    tune, box = dict(p3m_cluster.mode_tune("twolevel"), sub_k=TWOLEVEL_SUB_K), p3m_cluster.BOX
+    acc, unc = p3m.p3m_acceleration(pos, mass, 1.0, box, **tune)  # warm-up
+    torch.cuda.synchronize()
+    reset_pp_counts()  # the two-level path starts here
+    uncs = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(evals):
+        acc, unc = p3m.p3m_acceleration(pos, mass, 1.0, box, **tune)
+        uncs.append(unc)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / evals
+    k4, k5 = ppkernel.pp_short.launches, ppkernel.pp_react.launches
+    check(k4 == evals and k5 == evals, f"{k4} K4 and {k5} K5 launches in {evals} evaluations, want {evals} each")
+    n_unc = int(torch.stack(uncs).max())
+    check(n_unc == 0, f"n_uncorrected {n_unc} == 0")
+    check(all_finite(acc), "accelerations finite")
+    errs = p3m_cluster.sample_errors(pos, mass, acc, n_field)
+    log(28, f"N={n} core {n_core}, twolevel at {tune}: {ms:.3f} ms per evaluation over {evals}; K4 {k4 // evals} and "
+            f"K5 {k5 // evals} launches per evaluation; n_uncorrected {n_unc}")
+    log(28, f"median relative error vs direct sum (K1): twolevel {errs}; dense (phase 9) {dense_errs}")
+    for part in ("core_median", "field_median"):
+        check(errs[part] < 3 * dense_errs[part] + 1e-3,
+              f"twolevel {part} {errs[part]:.3e} < 3 x dense {dense_errs[part]:.3e} + 1e-3")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        acc, unc = p3m.p3m_acceleration(pos, mass, 1.0, box, **tune)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(int(unc) == 0 and ppkernel.pp_short.launches == evals + 1, "kernels ran in the sync-checked evaluation")
+    log(28, "one twolevel evaluation ran under set_sync_debug_mode('error'): no host sync")
+    del pos, mass, acc
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = p3m_cluster.main([str(n), str(n_core), "dense", "twolevel"])
+    print(buf.getvalue(), end="", flush=True)
+    check([r["mode"] for r in rows] == ["dense", "twolevel"] and rows[0]["n_uncorrected"] == 0,
+          "the bench's main: a line per mode, nothing uncorrected in dense")
+    for r in rows:
+        log(28, f"bench main {r['mode']}: {r['ms_per_eval']:.3f} ms per evaluation; n_uncorrected "
+                f"{r['n_uncorrected']}; core {r['core_median']:.3e}, field {r['field_median']:.3e}")
+
+    pos_np, mass_np, _ = p3m_cluster.cluster_scene(4096, 1024)
+    (a, ua), (c, uc) = (p3m.p3m_acceleration(torch.from_numpy(pos_np).to(where), torch.from_numpy(mass_np).to(where),
+                                             1.0, box, **TWOLEVEL_SMALL) for where in (dev, torch.device("cpu")))
+    rel = float((a.cpu() - c).abs().max()) / float(c.abs().max())
+    log(28, f"4,096 bodies (core 1,024) twolevel at {TWOLEVEL_SMALL}: card vs CPU max rel err {rel:.3e} (tol 1e-4); "
+            f"n_uncorrected {int(ua)} and {int(uc)}")
+    check(int(ua) == int(uc) == 0 and rel < 1e-4, "4,096-body twolevel: card against CPU")
+    return ms
+
+
+def phase_host_api(dev, capacity: int = 4096, n_disk: int = 3000) -> None:
+    """Phase 29: the host API on the card. Simulation on phase 4's scene:
+    run_checkpointed(40, every 10), Simulation.load, 10 more frames from
+    the loaded copy and from the live one, bitwise (under
+    torch.use_deterministic_algorithms, generator included); `python -m
+    nbx_torch run --frames 50 --capacity 300`; StepTimer over 20 frames;
+    profiling.trace writes its file; nan_guard passes a clean frame and
+    raises at an injected NaN."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sim.npz")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            live = Simulation(SimConfig(capacity=capacity), scenario="galaxy", n_disk=n_disk, seed=0, device=dev)
+            t0 = time.perf_counter()
+            live.run_checkpointed(40, path, every=10)
+            dt = time.perf_counter() - t0
+            loaded = Simulation.load(path, device=dev)
+            live.step(10)
+            loaded.step(10)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for f in ("pos", "vel", "acc", "mass", "temp", "mat", "alive", "seq", "next_seq", "step_count", "contact"):
+            check(torch.equal(getattr(live.state, f), getattr(loaded.state, f)), f"resumed {f} bitwise")
+        check(torch.equal(live.state.generator.get_state(), loaded.state.generator.get_state()),
+              "resumed generator state equal")
+        log(29, f"Simulation capacity {capacity}: 40 frames checkpointed every 10 in {dt:.2f} s "
+                f"({os.path.getsize(path)} bytes a snapshot); loaded and live agree bitwise after 10 more frames")
+
+        ckpt = os.path.join(tmp, "run.npz")
+        cmd = [sys.executable, "-m", "nbx_torch", "run", "--frames", "50", "--capacity", "300", "--every", "25",
+               "--checkpoint", ckpt]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        log(29, f"{' '.join(cmd[1:])}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+                f"{proc.stdout.strip()}")
+        check(proc.returncode == 0 and "50 frames done" in proc.stdout and os.path.exists(ckpt),
+              f"python -m nbx_torch run exits 0 ({proc.stderr[-2000:]})")
+
+        s = Simulation(SimConfig(capacity=capacity), scenario="galaxy", n_disk=n_disk, seed=0, device=dev)
+        s.step(2)  # warm-up
+        timer = profiling.StepTimer()
+        for _ in range(20):
+            with timer:
+                s.step(1)
+                torch.cuda.synchronize()
+        log(29, f"StepTimer, capacity {capacity}, 20 frames: {timer.summary()}")
+        trace_dir = os.path.join(tmp, "trace")
+        with profiling.trace(trace_dir):
+            s.step(1)
+        trace = os.path.join(trace_dir, "trace.json")
+        check(os.path.getsize(trace) > 0, "profiling.trace wrote its file")
+        log(29, f"profiling.trace: {os.path.getsize(trace)} bytes for one frame")
+
+    cfg = SimConfig().to(dev)
+    st = scene.make_state(cfg, scene.reference_galaxy(seed=0), dev, seed=0)
+    with profiling.nan_guard():
+        st, _ = sim.step(st, cfg)
+    bad = st.replace(pos=st.pos.index_fill(0, torch.tensor([3], device=dev), float("nan")))
+    with pytest_raises(FloatingPointError):
+        with profiling.nan_guard():
+            sim.step(bad, cfg)
+    log(29, "nan_guard: a clean frame passes; an injected NaN raises FloatingPointError")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     name = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     k1 = phase_kernel(dev)
-    phase_reference(dev)
+    jacobi_ms = phase_reference(dev)
     phase_full_physics(dev)  # resets the launch count: the frame step's path starts here
     phase_headline(dev)
     k1_launches = pairwise_acc.launches
@@ -2909,7 +3335,7 @@ def main() -> None:
     k2_launches = collide.collide_fused.launches
     phase_scaled_vs_cpu(dev)
     err4, err5 = phase_pp_kernels(dev)
-    phase_p3m(dev)  # resets the K4/K5 counts: P3M's path
+    _, dense_errs = phase_p3m(dev)  # resets the K4/K5 counts: P3M's path
     # resets them again: the merger step's path, whose shapes the K4 and K5
     # entries' times, errors and bounds come from
     _, (_, k4_launches, k5_launches), k4, k5 = phase_merger(dev)
@@ -2941,9 +3367,16 @@ def main() -> None:
     t25 = time.perf_counter()
     probes = phase_probes(dev)  # resets K2's count before each probe's main: its path
     t26 = time.perf_counter()
-    print(f"[done] every phase passed: {t26 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
+    seq = phase_sequential(dev, jacobi_ms)  # resets the sweep's count: the sequential frame step's path
+    t27 = time.perf_counter()
+    phase_twolevel(dev, dense_errs)  # resets the K4/K5 counts: the two-level P3M path
+    t28 = time.perf_counter()
+    phase_host_api(dev)
+    t29 = time.perf_counter()
+    print(f"[done] every phase passed: {t29 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
           f"phases 15-17 {t17 - t14:.1f} s, phases 18-20 {t20 - t17:.1f} s, phases 21-24 {t24 - t20:.1f} s, "
-          f"phase 25 {t25 - t24:.1f} s, phase 26 {t26 - t25:.1f} s", flush=True)
+          f"phase 25 {t25 - t24:.1f} s, phase 26 {t26 - t25:.1f} s, phase 27 {t27 - t26:.1f} s, "
+          f"phase 28 {t28 - t27:.1f} s, phase 29 {t29 - t28:.1f} s", flush=True)
     records = [
         dict(name="pairwise_f32r", route="cuda", source="nbx_torch/csrc/pairwise_f32r.cu",
              replaces="nbx/ops/pairwise.py:168", launches=k1_launches, **k1),
@@ -2969,7 +3402,10 @@ def main() -> None:
               source=f"nbx_torch/csrc/{pairwise.VARIANT_KERNEL[p][0]}.cu",
               replaces=f"nbx/ops/pairwise.py:{VARIANT_SITE[p]}", **variants[p]) for p in VARIANTS
     ] + [dict(name=f"collide_fused_{p}", route="cuda", source="nbx_torch/csrc/collide_fused.cu",
-              replaces=site, launched_by=f"nbx_torch/bench/{p}.py", **probes[p]) for p, site in PROBE_SITES.items()]
+              replaces=site, launched_by=f"nbx_torch/bench/{p}.py", **probes[p]) for p, site in PROBE_SITES.items()
+    ] + [dict(name="collide_sequential", route="cuda", source="nbx_torch/csrc/collide_sequential.cu",
+              replaces="nbx/collisions.py:350", replaces_note="the fori_loop of resolve_collisions_sequential; "
+              "no pl.pallas_call", **seq)]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,14 +1,24 @@
-"""P3M on the clustered 1M-body scene, on the card (port of the scene and the
-error sample of `nbx/bench/p3m_cluster.py`).
+"""P3M on the clustered 1M-body scene, on the card (port of
+`nbx/bench/p3m_cluster.py`: its scene, its error sample and its mode specs).
 
-    python -m nbx_torch.bench.p3m_cluster [n_total] [n_core] [--profile]
+    python -m nbx_torch.bench.p3m_cluster [n_total] [n_core] [mode ...] [--profile]
 
-Runs `p3m_acceleration` at the production tune (g = 64, n_cells = 12,
-K = 768, eps = 0.1, max_residual = 32768, dense residuals, the kernels K4
-and K5) on `cluster_scene(n_total, n_core)` (defaults 1,000,000 and 30,000)
-and prints one JSON line: ms per evaluation (CUDA events, 5 evaluations
-after a warm-up), n_uncorrected, and the median relative error against the
-direct sum (K1) on a half-field, half-core sample. With --profile it adds the
+With no mode, runs `p3m_acceleration` at the production tune (g = 64,
+n_cells = 12, K = 768, eps = 0.1, max_residual = 32768, dense residuals, the
+kernels K4 and K5) on `cluster_scene(n_total, n_core)` (defaults 1,000,000
+and 30,000) and prints one JSON line: ms per evaluation (CUDA events, 5
+evaluations after a warm-up), n_uncorrected, and the median relative error
+against the direct sum (K1) on a half-field, half-core sample.
+
+Each mode, `dense|twolevel[@n_cells,K[,pp[,b]]]`, prints one such line (3
+evaluations after a warm-up) for its residual mode: "twolevel" with the
+submesh sub_g = 96, sub_cells = 24, sub_k = 96. n_cells and K default to the
+production tune's, and pp (the main short-range pass) to "kernel"; `nbx`'s
+names "xla" and "pallas" are taken for the port's "ops" and "kernel"; a
+trailing "b" adds the occupancy-bucketed PP layout (`pp_buckets_for`).
+(`nbx`'s bench defaults a bare mode to its round-2 tune, 25 cells of 96 on
+the tensor path; here a bare mode changes only the residual solver.) With
+--profile (no modes) it adds the
 device time of one evaluation by part, from torch.profiler: the PM deposit,
 solve and gather, the cell sort and binning, the K4 main pass, the K4
 residual-residual block, K5, and the rest of each pass (layouts and
@@ -30,6 +40,31 @@ BOX = 100.0
 EPS = 0.1
 PRODUCTION_TUNE = dict(g=64, n_cells=12, max_per_cell=768, eps=EPS, max_residual=32768,
                        residual_mode="dense", pp_impl="kernel")
+# the two-level residual's submesh, as `nbx`'s bench sizes it
+SUBMESH = dict(sub_g=96, sub_cells=24, sub_k=96)
+PP_NAMES = {"xla": "ops", "pallas": "kernel", "ops": "ops", "kernel": "kernel"}
+
+
+def mode_tune(spec: str, pos=None) -> dict:
+    """The p3m_acceleration keywords of a mode spec
+    `dense|twolevel[@n_cells,K[,pp[,b]]]` (module docstring). `pos` (numpy)
+    sizes the buckets of a trailing "b"."""
+    mode, _, rest = spec.partition("@")
+    if mode not in ("dense", "twolevel"):
+        raise ValueError(f"mode must be dense|twolevel, got {mode!r} in {spec!r}")
+    tune = dict(PRODUCTION_TUNE, residual_mode=mode, **(SUBMESH if mode == "twolevel" else {}))
+    parts = rest.split(",") if rest else []
+    if parts:
+        tune.update(n_cells=int(parts[0]), max_per_cell=int(parts[1]))
+    if len(parts) > 2:
+        if parts[2] not in PP_NAMES:
+            raise ValueError(f"pp must be one of {sorted(PP_NAMES)}, got {parts[2]!r} in {spec!r}")
+        tune["pp_impl"] = PP_NAMES[parts[2]]
+    if len(parts) > 3 and parts[3] == "b":
+        from nbx_torch.ops.ppkernel import pp_buckets_for
+
+        tune["pp_buckets"] = pp_buckets_for(pos, BOX, tune["n_cells"], tune["max_per_cell"])
+    return tune
 
 
 def cluster_scene(n_total: int, n_core: int, sigma: float = 1.5, seed: int = 0):
@@ -136,35 +171,48 @@ def profile_parts(pos, mass) -> dict:
     return {k: v / 1e3 for k, v in out.items()}
 
 
-def main(argv) -> None:
+def measure(pos, mass, n_field: int, tune: dict, reps: int) -> dict:
+    """ms per evaluation (CUDA events over `reps` evaluations after a
+    warm-up), n_uncorrected and the sample's errors, at `tune`."""
     from nbx_torch.ops.p3m import p3m_acceleration
 
+    acc, unc = p3m_acceleration(pos, mass, 1.0, BOX, **tune)  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        acc, unc = p3m_acceleration(pos, mass, 1.0, BOX, **tune)
+    end.record()
+    end.synchronize()
+    return dict(ms_per_eval=start.elapsed_time(end) / reps, n_uncorrected=int(unc),
+                **sample_errors(pos, mass, acc, n_field))
+
+
+def main(argv) -> list[dict]:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     profile = "--profile" in argv
     args = [a for a in argv if a != "--profile"]
-    n_total = int(args[0]) if args else 1_000_000
-    n_core = int(args[1]) if len(args) > 1 else 30_000
+    numbers = [a for a in args if a.isdigit()]
+    modes = [a for a in args if not a.isdigit()]
+    n_total = int(numbers[0]) if numbers else 1_000_000
+    n_core = int(numbers[1]) if len(numbers) > 1 else 30_000
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
     pos_np, mass_np, n_field = cluster_scene(n_total, n_core)
     pos, mass = torch.from_numpy(pos_np).to(dev), torch.from_numpy(mass_np).to(dev)
-    acc, unc = p3m_acceleration(pos, mass, 1.0, BOX, **PRODUCTION_TUNE)  # warm-up
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
-        acc, unc = p3m_acceleration(pos, mass, 1.0, BOX, **PRODUCTION_TUNE)
-    end.record()
-    end.synchronize()
-    result = dict(device=torch.cuda.get_device_name(0), n=n_total, n_core=n_core,
-                  tune=dict(PRODUCTION_TUNE),
-                  ms_per_eval=start.elapsed_time(end) / 5, n_uncorrected=int(unc),
-                  **sample_errors(pos, mass, acc, n_field))
-    if profile:
-        result["parts_device_ms"] = profile_parts(pos, mass)
-    print(json.dumps(result), flush=True)
+    results = []
+    for spec in modes or [None]:
+        tune = dict(PRODUCTION_TUNE) if spec is None else mode_tune(spec, pos_np)
+        result = dict(device=torch.cuda.get_device_name(0), n=n_total, n_core=n_core,
+                      **({} if spec is None else dict(mode=spec)), tune=tune,
+                      **measure(pos, mass, n_field, tune, 5 if spec is None else 3))
+        if profile and spec is None:
+            result["parts_device_ms"] = profile_parts(pos, mass)
+        print(json.dumps(result), flush=True)
+        results.append(result)
+    return results
 
 
 if __name__ == "__main__":

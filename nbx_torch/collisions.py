@@ -1,5 +1,6 @@
 """Collision resolution: contact timers, impulse bounce, merge, fracture (port
-of `nbx/collisions.py`: `resolve_collisions` and its helpers).
+of `nbx/collisions.py`: `resolve_collisions`, `resolve_collisions_sequential`
+and their helpers).
 
 The same masked data-parallel work over the fixed-capacity state as the JAX
 package: [C, C] pair matrices for the overlap test, contact timers, Jacobi
@@ -15,7 +16,10 @@ state's torch.Generator on the state's device, and a caller (a parity test)
 may pass its own.
 
 Nothing here reads a value back to the host or makes a shape depend on the
-data: no .item(), nonzero(), boolean-mask indexing or unique.
+data: no .item(), nonzero(), boolean-mask indexing or unique. (The one
+exception is the CPU path of the strict-sequential sweep, the plain version
+`ops.sequential.sweep_reference`, which reads each decision; on the card the
+sweep is one kernel launch.)
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from nbx_torch import thermal
 from nbx_torch.config import CUDA, SimConfig, f32, inverse_mass
+from nbx_torch.ops import sequential
 from nbx_torch.state import SimState, add_bodies_batch
 
 RESTITUTION = 0.2
@@ -316,6 +321,74 @@ def resolve_collisions(
         n_evicted=n_evicted,
         n_dropped=(count(merge_sel) - count(m_valid))
         + (count(fract_sel) - count(f_valid)),
+    )
+    return state, events
+
+
+def resolve_collisions_sequential(
+    state: SimState, cfg: SimConfig, h: float, draws: Draws | None = None
+) -> tuple[SimState, Events]:
+    """The strict-sequential collision sweep (port of the JAX package's
+    `resolve_collisions_sequential`): the reference's in-place (i, j) pair
+    loop, each pair seeing every earlier pair's impulses, corrections and
+    heat within the sweep, where `resolve_collisions` approximates them. The
+    sweep itself is `ops.sequential.sweep`, one kernel launch on the card
+    (at most `ops.sequential.MAX_CAPACITY` bodies); the kills and births
+    after it are tensor ops, as in `resolve_collisions`: removed bodies die,
+    the merged bodies and then the fragments are born, with FIFO eviction.
+
+    `draws` supplies the fracture uniforms; None draws them from
+    `state.generator`, as `resolve_collisions` does."""
+    mm, ff = cfg.max_merges, cfg.max_fractures
+    dev = state.device
+    s = sequential.sweep(state.pos, state.vel, state.temp, state.mass, state.radius(cfg),
+                         inverse_mass(state.mass), state.mat, state.alive, state.contact, h, cfg)
+    keep = ~s.removed
+    state = state.replace(
+        pos=s.pos, vel=torch.where(keep[:, None], s.vel, 0.0),
+        temp=torch.where(keep, s.temp, 0.0),
+        alive=state.alive & keep,
+        mass=torch.where(keep, state.mass, 0.0),
+        acc=torch.where(keep[:, None], state.acc, 0.0),
+        contact=torch.where(keep[:, None] & keep[None, :], s.contact, 0.0),
+    )
+
+    m_cnt, f_cnt = s.count("m_cnt"), s.count("f_cnt")
+    m_valid = torch.arange(mm, dtype=torch.int32, device=dev) < m_cnt
+    f_valid = torch.arange(ff, dtype=torch.int32, device=dev) < f_cnt
+    m_pos, m_vel, m_mass, m_temp = s.mbuf[:, 0:3], s.mbuf[:, 3:6], s.mbuf[:, 6], s.mbuf[:, 7]
+    f_com, f_bvel = s.fbuf[:, 0:3], s.fbuf[:, 3:6]
+    f_energy, f_tot, f_temp, f_rsum, f_mid = s.fbuf[:, 6], s.fbuf[:, 7], s.fbuf[:, 8], s.fbuf[:, 9], s.fbuf[:, 10:13]
+    if draws is None:
+        draws = draw_fracture_uniforms(cfg, state.generator, dev)
+    frag = _make_fragments(
+        draws, cfg, f_valid, f_com, f_bvel, torch.where(f_valid, f_energy, 0.0), f_tot, f_temp, s.fmat,
+        f_rsum,
+    )
+    state, n_evicted = add_bodies_batch(
+        state,
+        torch.cat([torch.where(m_valid, m_mass, 0.0), frag["mass"]]),
+        torch.cat([m_pos, frag["pos"]]),
+        torch.cat([m_vel, frag["vel"]]),
+        torch.cat([s.mmat, frag["mat"]]),
+        torch.cat([m_temp, frag["temp"]]),
+        torch.cat([m_valid, frag["mask"]]),
+    )
+    events = Events(
+        merge_pos=m_pos,
+        merge_mass=torch.where(m_valid, m_mass, 0.0),
+        merge_mask=m_valid,
+        fracture_pos=f_mid,
+        fracture_energy=torch.where(f_valid, f_energy, 0.0),
+        fracture_mask=f_valid,
+        spawn_pos=frag["pos"],
+        spawn_temp=frag["temp"],
+        spawn_mask=frag["mask"],
+        n_merges=m_cnt,
+        n_fractures=f_cnt,
+        n_bounces=s.count("n_bounces"),
+        n_evicted=n_evicted,
+        n_dropped=s.count("m_drop") + s.count("f_drop"),
     )
     return state, events
 

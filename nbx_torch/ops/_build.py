@@ -27,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 
 # Every kernel of the port, by source name (csrc/<name>.cu).
 KERNELS = ("pairwise_f32r", "collide_fused", "pp_short", "pp_react", "pairwise_accjerk", "potential",
-           "pairwise_precision", "pairwise_mxu", "pairwise_fast", "cvt_rate")
+           "pairwise_precision", "pairwise_mxu", "pairwise_fast", "cvt_rate", "collide_sequential")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

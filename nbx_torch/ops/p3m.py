@@ -26,8 +26,11 @@ The short-range passes come in two implementations (`pp_impl`):
     and K5 of `nbx_torch.ops.ppkernel` on a CUDA tensor, their plain PyTorch
     versions on a CPU tensor.
 
-What waits: `residual_mode="twolevel"` (`_residual_rr_twolevel`, the refined
-submesh for the residual-residual term) raises NotImplementedError.
+The residual-residual term is exact (`residual_mode="dense"`) or solved on a
+refined submesh over the residual set (`"twolevel"`, `_residual_rr_twolevel`),
+whose size is a device value: `cell_sort`, `cell_bin_full`, `short_range_acc`
+and PM's deposit and gather take a box given as a 0-dim tensor as well as a
+Python float, with the same bits.
 
 Every device function here returns fixed shapes sized by its static caps and
 reads nothing back to the host. `p3m_tune_for` is host-side numpy, once per
@@ -42,7 +45,10 @@ import numpy as np
 import torch
 
 from nbx_torch.config import f32
-from nbx_torch.ops.pm import _isolated_solve_r, cic_deposit, cic_gather, isolated_green_hat
+from nbx_torch.ops.pm import (
+    _cic_window, _fftfreq, _i_times, _isolated_solve_r, _scalar, cic_deposit, cic_gather,
+    isolated_green_hat, spacing,
+)
 
 _F32 = torch.float32
 
@@ -58,10 +64,11 @@ def smoothing_length(box_size: float, n_cells: int) -> float:
     return float(np.float32(cell_size(box_size, n_cells)) / np.float32(3.0))
 
 
-def cell_sort(pos: torch.Tensor, box_size: float, n_cells: int):
+def cell_sort(pos: torch.Tensor, box_size, n_cells: int):
     """Sort bodies by cell id, k (the z cell coordinate) minor within each
     (i, j) column, so any k-window of cells within a column is one contiguous
-    run of the sorted order.
+    run of the sorted order. box_size: a Python float or a 0-dim tensor (a
+    box computed on the device), the same bits either way.
 
     Returns (order [N] i32, starts [g^3 + 1] i32, cid_sorted [N] i32): bodies
     of cell c are order[starts[c] : starts[c + 1]]. The sort is stable, so
@@ -72,7 +79,7 @@ def cell_sort(pos: torch.Tensor, box_size: float, n_cells: int):
     # scalar multiplies by its reciprocal, which can move a body across a
     # cell face. Truncate toward zero, then clamp (negative coordinates
     # truncate to 0 first, as in the JAX package).
-    h = torch.full((), cell_size(box_size, g), dtype=_F32, device=pos.device)
+    h = spacing(box_size, g, pos.device)
     ijk = (pos / h).to(torch.int32).clamp(0, g - 1)
     cid = (ijk[:, 0] * g + ijk[:, 1]) * g + ijk[:, 2]
     order = torch.argsort(cid, stable=True).to(torch.int32)
@@ -102,7 +109,7 @@ def take_rows(mask: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return idx.clamp(max=n - 1), valid
 
 
-def cell_bin_full(pos: torch.Tensor, box_size: float, n_cells: int, max_per_cell: int,
+def cell_bin_full(pos: torch.Tensor, box_size, n_cells: int, max_per_cell: int,
                   sort=None):
     """Bin bodies into an [n_cells^3] grid of cubic cells.
 
@@ -135,7 +142,7 @@ def overflowing(sort, max_per_cell: int):
     return n - ok.sum(dtype=torch.int32), ~ok[inverse_permutation(order).long()]
 
 
-def cell_bin(pos: torch.Tensor, box_size: float, n_cells: int, max_per_cell: int):
+def cell_bin(pos: torch.Tensor, box_size, n_cells: int, max_per_cell: int):
     """cell_bin_full without the per-body dropped mask."""
     table, counts, n_overflow, _ = cell_bin_full(pos, box_size, n_cells, max_per_cell)
     return table, counts, n_overflow
@@ -265,12 +272,30 @@ def pp_law(eps: float, a: float, G: float) -> tuple[float, float, float, float]:
     )
 
 
-def _short_force_mag(s: torch.Tensor, a: float, G: float) -> torch.Tensor:
+# sqrt(pi) in float32, as the JAX package forms it (jnp.sqrt(jnp.pi))
+_SQRT_PI = f32(np.sqrt(np.float32(math.pi)))
+
+
+def _eps2(eps: float) -> float:
+    return f32(np.float32(eps) * np.float32(eps))
+
+
+def _short_force_mag(s: torch.Tensor, a, G: float) -> torch.Tensor:
     """|F| / m_j at softened distance s (module docstring), with erfc from
-    `torch.special`."""
-    c_a = pp_law(0.0, a, G)[2]
-    x = s / f32(a)
+    `torch.special`. a: a Python float or a 0-dim tensor on s's device (the
+    two-level submesh's scale), the same bits either way."""
+    if isinstance(a, torch.Tensor):
+        c_a, x = 2.0 / (a * _SQRT_PI), s / a
+    else:
+        c_a, x = pp_law(0.0, a, G)[2], s / _scalar(f32(a), s.device)
     return f32(G) * (torch.special.erfc(x) / (s * s) + c_a * torch.exp(-x * x) / s)
+
+
+def _far_corner(box_size, device) -> torch.Tensor:
+    """[1, 3] at 2 box, where padding bodies park (no pair reaches them)."""
+    if isinstance(box_size, torch.Tensor):
+        return (2.0 * box_size.to(device=device, dtype=_F32)).expand(1, 3)
+    return torch.full((1, 3), f32(2.0 * box_size), device=device)
 
 
 def _short_weight(d: torch.Tensor, a: float, G: float, eps2: float) -> torch.Tensor:
@@ -282,7 +307,7 @@ def _short_weight(d: torch.Tensor, a: float, G: float, eps2: float) -> torch.Ten
 
 
 def short_range_acc(
-    pos: torch.Tensor, mass: torch.Tensor, G: float, a: float, box_size: float, n_cells: int,
+    pos: torch.Tensor, mass: torch.Tensor, G: float, a, box_size, n_cells: int,
     max_per_cell: int = 16, eps: float = 0.0, chunk: int | None = None,
     table: torch.Tensor | None = None, n_overflow: torch.Tensor | None = None,
 ):
@@ -291,7 +316,9 @@ def short_range_acc(
     pair block per neighbour offset, chunk cells at a time (K-adaptive so a
     block stays near 2^28 lanes). Cell size box/n_cells must be >= 3a.
     Returns ([N, 3] acc, n_overflow); pass `table`/`n_overflow` to reuse a
-    `cell_bin`."""
+    `cell_bin`. a and box_size: Python floats or 0-dim tensors (the
+    two-level submesh passes its device-valued scale and box), the same bits
+    either way."""
     n = pos.shape[0]
     g = n_cells
     k = max_per_cell
@@ -301,11 +328,11 @@ def short_range_acc(
     if table is None:
         table, _, n_overflow = cell_bin(pos, box_size, g, k)
     c_total = g * g * g
-    pos_p = torch.cat([pos, torch.full((1, 3), f32(2.0 * box_size), device=dev)])
+    pos_p = torch.cat([pos, _far_corner(box_size, dev)])
     mass_p = torch.cat([mass, mass.new_zeros(1)])
     table = table.long()
     neigh, on_grid = _neighbors27(_cell_coords(g, dev), g)  # clamped duplicates masked out
-    eps2 = pp_law(eps, a, G)[0]
+    eps2 = _eps2(eps)
 
     acc = torch.zeros((n + 1, 3), dtype=_F32, device=dev)
     for c0 in range(0, c_total, chunk):
@@ -393,6 +420,136 @@ def _residual_short_acc(
     return acc[:n]
 
 
+def _check_submesh(sub_g: int, sub_cells: int) -> None:
+    """The two-level submesh's resolution rules (the JAX package's checks)."""
+    if sub_cells < 4:
+        # the size factor's margin sub_cells / (sub_cells - 2.5) assumes at
+        # least ~1.25 cells of boundary padding
+        raise ValueError(f"sub_cells must be >= 4, got {sub_cells}")
+    if sub_g < 3 * sub_cells:
+        # a1 = l1 / sub_cells / 3 must be resolved by the submesh (h1 = l1 /
+        # sub_g <= a1), the level-0 rule g >= 3 n_cells
+        raise ValueError(
+            f"sub_g={sub_g} under-resolves a1: need sub_g >= 3*sub_cells "
+            f"(= {3 * sub_cells}) so the submesh band term is accurate"
+        )
+
+
+def _over(x: torch.Tensor, k: float) -> torch.Tensor:
+    """x / k, divided on x's device (a CUDA division by a host scalar
+    multiplies by its reciprocal)."""
+    return x / _scalar(f32(k), x.device)
+
+
+def _residual_rr_twolevel(
+    pos: torch.Tensor, mass: torch.Tensor, G: float, eps: float, a0: float, res_idx: torch.Tensor,
+    res_valid: torch.Tensor, sub_g: int = 64, sub_cells: int = 16, sub_k: int = 64, out_cap: int = 1024,
+):
+    """The residual-residual short-range term on a refined submesh, the
+    two-level P3M that replaces the dense [M, M] block for large overflows
+    (port of the JAX package's `_residual_rr_twolevel`). The level-0 short
+    kernel splits once more at the submesh scale a1:
+
+        erfc(r/a0)/r = [erf(r/a1) - erf(r/a0)]/r   (band: submesh FFT)
+                     + erfc(r/a1)/r                (short1: fine binned PP)
+
+    The submesh is a cube on the residuals' per-axis median, its half-width
+    6 interquartile half-widths (at least 1e-3), widened by sub_cells /
+    (sub_cells - 2.5) so real rows stay a cell from its faces. Its size is a
+    device value: the deposit, the binning and the pair pass take it as a
+    0-dim tensor, and the vacuum Hockney solve scales its wave numbers by the
+    device-valued spacing h1, so nothing is read back to the host. Residuals
+    outside the submesh (up to out_cap of them) get the exact level-0 term
+    against every residual row, with reactions on the in-submesh rows only;
+    rows past out_cap and rows the fine binning drops are counted.
+
+    The level-1 pair pass is always `short_range_acc`, the tensor path.
+    Returns ([N, 3] delta, n_sub_uncorrected [] i32)."""
+    _check_submesh(sub_g, sub_cells)
+    n = pos.shape[0]
+    m = res_idx.shape[0]
+    dev = pos.device
+    pos_p = torch.cat([pos, pos.new_zeros((1, 3))])
+    mass_p = torch.cat([mass, mass.new_zeros(1)])
+    ridx_p = torch.where(res_valid, res_idx, n).long()
+    pr = pos_p[ridx_p]  # [M, 3]
+    mr = torch.where(res_valid, mass_p[ridx_p], 0.0)
+
+    # robust extent: per-axis median +- 6 interquartile half-widths of the
+    # live rows (dead rows sort last behind +BIG)
+    n_live = res_valid.sum(dtype=torch.int32)
+    live_f = torch.clamp(n_live.to(_F32), min=1.0)
+    qs = torch.sort(torch.where(res_valid[:, None], pr, 3.0e38), dim=0).values
+
+    def at(f):
+        return qs.gather(0, (f * live_f).to(torch.int64).clamp(0, m - 1).expand(1, 3))[0]
+
+    q25, c, q75 = at(0.25), at(0.50), at(0.75)
+    half = torch.clamp((3.0 * (q75 - q25)).max(), min=1e-3)
+    l1 = 2.0 * half * (sub_cells / (sub_cells - 2.5))
+    half_in = 0.5 * l1 - _over(l1, sub_cells)  # in-submesh: at least a cell from the faces
+    in_sub = res_valid & ((pr - c).abs() <= half_in).all(1)
+    mr_sub = torch.where(in_sub, mr, 0.0)
+    q = pr - c + 0.5 * l1
+    # park dead and out-of-box rows spread over the (real-free) far x face
+    t = torch.arange(m, dtype=_F32, device=dev)
+    park = torch.stack([torch.full_like(t, 0.9995) * l1, torch.remainder(t * 0.6180339887, 1.0) * l1,
+                        torch.remainder(t * 0.3819660113, 1.0) * l1], dim=1)
+    q = torch.where(in_sub[:, None], q, park)
+    a1 = _over(_over(l1, sub_cells), 3.0)  # a = cell / 3, as at level 0
+
+    # band term on the submesh: vacuum Hockney solve, device-valued size
+    rho = cic_deposit(q, mr_sub, l1, sub_g, periodic=False)
+    gp = 2 * sub_g
+    h1 = spacing(l1, sub_g, dev)
+    rho_p = torch.zeros((gp, gp, gp), dtype=_F32, device=dev)
+    rho_p[:sub_g, :sub_g, :sub_g] = rho
+    idx = torch.arange(gp, device=dev)
+    d1 = torch.minimum(idx, gp - idx).to(_F32) * h1
+    r = torch.sqrt(d1[:, None, None] ** 2 + d1[None, :, None] ** 2 + d1[None, None, :] ** 2)
+    safe_r = torch.where(r > 0, r, 1.0)
+    a0_t = _scalar(f32(a0), dev)
+    band0 = (float(np.float32(2.0) / np.float32(_SQRT_PI))
+             * (1.0 / a1 - float(np.float32(1.0) / np.float32(a0))))
+    green = torch.where(r > 0, -(torch.special.erf(r / a1) - torch.special.erf(r / a0_t)) / safe_r, -band0)
+    phi_hat = torch.fft.fftn(rho_p) * torch.fft.fftn(green) * f32(G)
+    k1 = (2.0 * math.pi * _fftfreq(gp, 1.0, dev)) / h1  # the unit frequencies over the device spacing
+    phi_hat = phi_hat / _cic_window(gp, dev) ** 2
+    ks = (k1[:, None, None], k1[None, :, None], k1[None, None, :])
+    acc_grid = -torch.stack([torch.fft.ifftn(_i_times(k, phi_hat)).real for k in ks], dim=-1)
+    acc_band = cic_gather(acc_grid[:sub_g, :sub_g, :sub_g], q, l1, sub_g, periodic=False)
+
+    # short1: fine binned PP among the in-submesh rows (always the tensor path)
+    table1, _, _, dropped1 = cell_bin_full(q, l1, sub_cells, sub_k)
+    acc_s1, _ = short_range_acc(q, mr_sub, G, a1, l1, sub_cells, sub_k, eps, table=table1,
+                                n_overflow=torch.zeros((), dtype=torch.int32, device=dev))
+    n_sub = (dropped1 & in_sub).sum(dtype=torch.int32)
+
+    # outlier rows: the exact level-0 term against every residual row;
+    # reactions on in-submesh rows only (out-out pairs appear once per
+    # ordered copy across the block's rows)
+    out = res_valid & ~in_sub
+    oi, o_valid = take_rows(out, out_cap)
+    oi = oi.long()
+    po = pr[oi]
+    mo = torch.where(o_valid, mr[oi], 0.0)
+    eps2 = _eps2(eps)
+    d_o = pr[None, :, :] - po[:, None, :]  # [out_cap, M, 3]
+    r2o = (d_o * d_o).sum(-1)
+    s_o = torch.sqrt(torch.where(r2o + eps2 > 0, r2o + eps2, 1.0))
+    w_o = torch.where((r2o > 0) & o_valid[:, None], _short_force_mag(s_o, a0, G) / s_o, 0.0)
+    acc_out = torch.einsum("om,omd->od", w_o * mr[None, :], d_o)
+    w_in = w_o * torch.where(in_sub[None, :], 1.0, 0.0)
+    acc_react = -torch.einsum("om,omd->md", w_in * mo[:, None], d_o)
+    n_sub = n_sub + out.sum(dtype=torch.int32) - o_valid.sum(dtype=torch.int32)
+
+    total = torch.where(in_sub[:, None], acc_band + acc_s1, 0.0) + acc_react
+    total = total.index_add(0, oi, torch.where(o_valid[:, None], acc_out, 0.0))
+    acc = torch.zeros((n + 1, 3), dtype=_F32, device=dev)
+    acc.index_add_(0, ridx_p, torch.where(res_valid[:, None], total, 0.0))
+    return acc[:n], n_sub
+
+
 def p3m_acceleration(
     pos: torch.Tensor,  # [N, 3] in [0, box/2)^3 (isolated convention)
     mass: torch.Tensor,
@@ -405,6 +562,9 @@ def p3m_acceleration(
     max_residual: int = 2048,
     deconvolve: bool = True,
     residual_mode: str = "dense",
+    sub_g: int = 64,
+    sub_cells: int = 16,
+    sub_k: int = 64,
     pp_impl: str = "ops",
     affected_cap: int = 256,
     green_hat: torch.Tensor | None = None,
@@ -433,16 +593,22 @@ def p3m_acceleration(
                           (`residual_table_acc_kernel`, a superset of the
                           tensor path's per-residual neighbourhoods).
 
-    residual_mode: "dense" (the exact [M, M] residual-residual block);
-    "twolevel" is not ported yet. Pass green_hat =
+    residual_mode picks the residual-residual solver: "dense", the exact
+    [M, M] block (K4's residual-residual launch with "kernel"); or
+    "twolevel", a refined submesh over the residual set
+    (`_residual_rr_twolevel`: a band FFT and a fine binned pair pass, O(M)),
+    sized by sub_g (its mesh), sub_cells (its cells a side, >= 4, with
+    sub_g >= 3 sub_cells, else ValueError) and sub_k (its kept bodies a
+    cell); n_uncorrected then also counts the residuals its fine binning
+    drops and the out-of-submesh residuals past its outlier block. With
+    "kernel", "twolevel" runs K4's main pass and K5's residual table and no
+    residual-residual launch. Pass green_hat =
     isolated_green_hat(box, g, smoothing_length(box, n_cells), smoothed=True)
     from a frame loop to build the Green's function once."""
-    if residual_mode == "twolevel":
-        raise NotImplementedError(
-            "residual_mode='twolevel' (_residual_rr_twolevel) is not ported yet"
-            " (ROADMAP.md Queue 1: the two-level P3M residual)")
-    if residual_mode != "dense":
+    if residual_mode not in ("dense", "twolevel"):
         raise ValueError(f"residual_mode must be dense|twolevel, got {residual_mode!r}")
+    if residual_mode == "twolevel":
+        _check_submesh(sub_g, sub_cells)
     if pp_impl not in ("ops", "kernel"):
         raise ValueError(f"pp_impl must be ops|kernel, got {pp_impl!r}")
     a = smoothing_length(box_size, n_cells)
@@ -464,23 +630,28 @@ def p3m_acceleration(
         acc_short, _ = short_range_acc(pos, mass, G, a, box_size, n_cells, max_per_cell, eps,
                                        table=table, n_overflow=n_overflow)
         acc_res = _residual_short_acc(pos, mass, G, a, eps, box_size, n_cells, table,
-                                      res_idx, res_valid, sort=sort)
-        return acc_long + acc_short + acc_res, n_uncorrected
+                                      res_idx, res_valid, include_rr=residual_mode == "dense", sort=sort)
+    else:
+        from nbx_torch.ops.ppkernel import (
+            residual_rr_dense_kernel, residual_table_acc_kernel, short_range_acc_kernel,
+        )
 
-    from nbx_torch.ops.ppkernel import (
-        residual_rr_dense_kernel, residual_table_acc_kernel, short_range_acc_kernel,
-    )
-
-    acc_short, pp_ovf = short_range_acc_kernel(pos, mass, G, a, box_size, n_cells, max_per_cell,
-                                               eps, buckets=pp_buckets, sort=sort)
-    if pp_buckets is not None:
-        # bodies the bucketed main pass dropped have no residual backstop
-        n_uncorrected = n_uncorrected + torch.clamp(pp_ovf - n_overflow, min=0)
-    acc_res, n_missed = residual_table_acc_kernel(
-        pos, mass, G, a, box_size, n_cells, max_per_cell, res_idx, res_valid, eps,
-        affected_cap=affected_cap, sort=sort)
-    acc_res = acc_res + residual_rr_dense_kernel(pos, mass, G, a, box_size, res_idx, res_valid, eps)
-    return acc_long + acc_short + acc_res, n_uncorrected + n_missed
+        acc_short, pp_ovf = short_range_acc_kernel(pos, mass, G, a, box_size, n_cells, max_per_cell,
+                                                   eps, buckets=pp_buckets, sort=sort)
+        if pp_buckets is not None:
+            # bodies the bucketed main pass dropped have no residual backstop
+            n_uncorrected = n_uncorrected + torch.clamp(pp_ovf - n_overflow, min=0)
+        acc_res, n_missed = residual_table_acc_kernel(
+            pos, mass, G, a, box_size, n_cells, max_per_cell, res_idx, res_valid, eps,
+            affected_cap=affected_cap, sort=sort)
+        n_uncorrected = n_uncorrected + n_missed
+        if residual_mode == "dense":
+            acc_res = acc_res + residual_rr_dense_kernel(pos, mass, G, a, box_size, res_idx, res_valid, eps)
+    if residual_mode == "twolevel":
+        acc_rr, n_sub = _residual_rr_twolevel(pos, mass, G, eps, a, res_idx, res_valid, sub_g, sub_cells, sub_k)
+        acc_res = acc_res + acc_rr
+        n_uncorrected = n_uncorrected + n_sub
+    return acc_long + acc_short + acc_res, n_uncorrected
 
 
 def p3m_kdk_scan(

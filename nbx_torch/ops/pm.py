@@ -34,9 +34,20 @@ def _scalar(x: float, device) -> torch.Tensor:
     return torch.full((), x, dtype=_F32, device=device)
 
 
-def _cic_parts(pos: torch.Tensor, box_size: float, g: int):
-    """CIC base cell + fractional offsets, cell-centred. pos in [0, box)^3."""
-    h = _scalar(f32(f32(box_size) / f32(g)), pos.device)
+def spacing(box_size, g: int, device) -> torch.Tensor:
+    """box / g as a float32 0-dim tensor on `device`, the box a Python float
+    or a 0-dim tensor (a size computed on the device, as the two-level P3M
+    submesh's): one correctly rounded float32 division either way, so both
+    give the same bits and neither reads the device."""
+    if isinstance(box_size, torch.Tensor):
+        return box_size.to(device=device, dtype=_F32) / _scalar(float(g), device)
+    return _scalar(f32(f32(box_size) / f32(g)), device)
+
+
+def _cic_parts(pos: torch.Tensor, box_size, g: int):
+    """CIC base cell + fractional offsets, cell-centred. pos in [0, box)^3;
+    the box a Python float or a 0-dim tensor (`spacing`)."""
+    h = spacing(box_size, g, pos.device)
     u = pos / h - 0.5
     i0 = torch.floor(u).to(torch.int32)
     return i0, u - i0
@@ -52,7 +63,7 @@ def _axis_index_weight(i: torch.Tensor, w: torch.Tensor, g: int, periodic: bool)
     return i.clamp(0, g - 1), torch.where(valid, w, 0.0)
 
 
-def _corners(pos: torch.Tensor, box_size: float, g: int, periodic: bool):
+def _corners(pos: torch.Tensor, box_size, g: int, periodic: bool):
     """The 8 CIC corners as (flat grid index [N] i64, weight [N]), in the
     JAX package's (dx, dy, dz) order."""
     i0, f = _cic_parts(pos, box_size, g)
@@ -69,22 +80,22 @@ def _corners(pos: torch.Tensor, box_size: float, g: int, periodic: bool):
                 yield flat, wx * wy * wz
 
 
-def cic_deposit(pos: torch.Tensor, mass: torch.Tensor, box_size: float, g: int,
+def cic_deposit(pos: torch.Tensor, mass: torch.Tensor, box_size, g: int,
                 periodic: bool = True) -> torch.Tensor:
     """Scatter mass to the [g, g, g] density grid (CIC). periodic=False drops
     contributions outside the grid: a body fully outside [0, box)^3 deposits
-    nothing."""
+    nothing. box_size: a Python float or a 0-dim tensor, the same bits."""
     grid = torch.zeros(g * g * g, dtype=_F32, device=pos.device)
     for flat, w in _corners(pos, box_size, g, periodic):
         grid.index_add_(0, flat, mass * w)
     return grid.view(g, g, g)
 
 
-def cic_gather(field: torch.Tensor, pos: torch.Tensor, box_size: float, g: int,
+def cic_gather(field: torch.Tensor, pos: torch.Tensor, box_size, g: int,
                periodic: bool = True) -> torch.Tensor:
     """Gather a [g, g, g, C] grid field to the bodies ([N, C]). periodic=False
     zeroes out-of-range weights: a body fully outside [0, box)^3 gathers
-    zero."""
+    zero. box_size: a Python float or a 0-dim tensor, the same bits."""
     flat_field = field.reshape(g * g * g, -1)
     out = None
     for flat, w in _corners(pos, box_size, g, periodic):

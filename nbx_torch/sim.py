@@ -24,7 +24,9 @@ import numpy as np
 import torch
 
 from nbx_torch import forces, thermal
-from nbx_torch.collisions import Draws, Events, empty_events, resolve_collisions
+from nbx_torch.collisions import (
+    Draws, Events, empty_events, resolve_collisions, resolve_collisions_sequential,
+)
 from nbx_torch.config import SimConfig
 from nbx_torch.ops.pairwise import pairwise_acc
 from nbx_torch.state import SimState
@@ -32,6 +34,18 @@ from nbx_torch.state import SimState
 # Dense O(N^2)-memory gravity up to this capacity; above it the kernel on a
 # CUDA tensor, row blocks on a CPU tensor.
 _DENSE_MAX = 2048
+
+# The collision sweeps: "jacobi", the data-parallel sweep of
+# `resolve_collisions`, and "sequential", the strict in-sweep-visibility
+# sweep of `resolve_collisions_sequential`. The JAX package runs any other
+# value as "jacobi"; the port raises ValueError.
+COLLISION_IMPLS = {"jacobi": resolve_collisions, "sequential": resolve_collisions_sequential}
+
+
+def _collision_impl(name: str):
+    if name not in COLLISION_IMPLS:
+        raise ValueError(f"collision_impl must be one of {sorted(COLLISION_IMPLS)}, got {name!r}")
+    return COLLISION_IMPLS[name]
 
 
 def gravity(
@@ -58,11 +72,15 @@ def gravity(
 
 def substep(
     state: SimState, cfg: SimConfig, h: float, force_impl: str = "auto",
-    draws: Optional[Draws] = None,
+    draws: Optional[Draws] = None, collision_impl: str = "jacobi",
 ) -> tuple[SimState, Events]:
     """One physics substep of size h. `draws` supplies the fracture uniforms
     (see collisions.resolve_collisions); None draws them from the state's
-    generator."""
+    generator. collision_impl: "jacobi" (the default, the data-parallel
+    sweep) or "sequential" (the strict in-sweep-visibility sweep, one kernel
+    launch a substep on the card, at most ops.sequential.MAX_CAPACITY
+    bodies); any other value raises ValueError."""
+    resolve = _collision_impl(collision_impl)
     half = 0.5 * h
     vel = state.vel + state.acc * half  # half-kick, old acc
     pos = state.pos + vel * h  # drift
@@ -70,7 +88,7 @@ def substep(
     state = state.replace(pos=pos, vel=vel, acc=acc)
 
     if cfg.collisions:
-        state, events = resolve_collisions(state, cfg, h, draws)
+        state, events = resolve(state, cfg, h, draws)
     else:
         events = empty_events(cfg, state.device)
 
@@ -98,13 +116,15 @@ def _stack(items: list):
     })
 
 
-def step(state: SimState, cfg: SimConfig, force_impl: str = "auto") -> tuple[SimState, Events]:
+def step(
+    state: SimState, cfg: SimConfig, force_impl: str = "auto", collision_impl: str = "jacobi",
+) -> tuple[SimState, Events]:
     """One frame = cfg.sub_steps substeps of dt / sub_steps. The Events of
     the substeps are stacked along a leading axis."""
     h = substep_size(cfg)
     evs = []
     for _ in range(cfg.sub_steps):
-        state, e = substep(state, cfg, h, force_impl)
+        state, e = substep(state, cfg, h, force_impl, collision_impl=collision_impl)
         evs.append(e)
     return state, _stack(evs)
 
@@ -115,12 +135,13 @@ def run(
     n_steps: int,
     force_impl: str = "auto",
     diagnostics: Optional[Callable[[SimState, SimConfig], object]] = None,
+    collision_impl: str = "jacobi",
 ) -> tuple[SimState, object]:
     """n_steps frames. Returns (final state, stacked aux): the per-frame
     output of `diagnostics(state, cfg)` if given, else the Events log,
     stacked along a leading frame axis."""
     outs = []
     for _ in range(n_steps):
-        state, ev = step(state, cfg, force_impl)
+        state, ev = step(state, cfg, force_impl, collision_impl)
         outs.append(diagnostics(state, cfg) if diagnostics is not None else ev)
     return state, _stack(outs)

@@ -173,12 +173,14 @@ def test_granular_full_kdk_scan_p3m_matches(tune):
 
 
 def test_scan_rejects_p3m():
-    """P3M's one unported part, the two-level residual, raises with its
-    ROADMAP item; the scan's P3M force takes the dense residual."""
+    """The two-level residual (ported since this test first raised on it)
+    runs at this scene's size; the scan's P3M force takes the dense
+    residual, as the JAX scan's does, and refuses parameters it does not
+    know, residual_mode among them."""
     pos, vel, mass = _scan_scene()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p3m_acceleration(torch.from_numpy(pos), torch.from_numpy(mass), 0.5, BOX, g=16, n_cells=4,
-                         residual_mode="twolevel")
+    acc, unc = p3m_acceleration(torch.from_numpy(pos), torch.from_numpy(mass), 0.5, BOX, g=16, n_cells=4,
+                                residual_mode="twolevel", sub_g=12, sub_cells=4, sub_k=32)
+    assert acc.shape == (pos.shape[0], 3) and bool(torch.isfinite(acc).all()) and unc.dtype == torch.int32
     _, cfg = _configs()
     buckets = bucketed_layout_for(pos, BOX, G_CELLS, BAND)
     _, totals = cs.granular_full_kdk_scan(
@@ -190,6 +192,10 @@ def test_scan_rejects_p3m():
         cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass, device="cpu"), cfg, BOX, 1,
                                   n_cells=G_CELLS, band_cells=BAND, buckets=buckets, force_impl="p3m",
                                   pm_grid=16, p3m=dict(p3m_cells=4))
+    with pytest.raises(ValueError, match="unknown P3M parameters"):
+        cs.granular_full_kdk_scan(cs.make_granular_state(pos, vel, mass, device="cpu"), cfg, BOX, 1,
+                                  n_cells=G_CELLS, band_cells=BAND, buckets=buckets, force_impl="p3m",
+                                  pm_grid=16, p3m=dict(residual_mode="twolevel"))
 
 
 @pytest.mark.parametrize("layout", ["default", "demo_banded"])

@@ -7,8 +7,9 @@ against the same steps on the CPU, the steps free of host syncs (P3M's,
 the drift gate's and the spatial step's too), the spatial step with one
 rank a card (NCCL) against the same ranks on gloo, the precision
 variants of the direct sum (K1a, K1b, K1d, K1e, and K1c on the tensor cores)
-against their plain versions and their error ladder, and K2 as the layout
-probes launch it.
+against their plain versions and their error ladder, K2 as the layout
+probes launch it, the strict-sequential sweep kernel against its plain
+version, and the two-level P3M residual on the card against the CPU.
 
 Marked `cuda`: every test skips where torch sees no CUDA device, and the
 NCCL ranks' cases where it sees fewer cards than their mesh holds (2 or
@@ -28,15 +29,17 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BITWISE, LADDER, SHORT_LAST_SPLIT_N, TENSOR_CORE_VARIANTS, VARIANT_TOL, VARIANTS,
-                        ladder_ratios, rand_vel, variant_tol, within_ladder)
+from chip_smoke import (BITWISE, LADDER, SHORT_LAST_SPLIT_N, TENSOR_CORE_VARIANTS, TWOLEVEL_SMALL, VARIANT_TOL,
+                        VARIANTS, lattice_pile, ladder_ratios, rand_vel, sequential_scenes, sweep_diff, sweep_inputs,
+                        variant_tol, within_ladder)
 from nbx_torch import collisions_scaled, integrators, scene, sim
 from nbx_torch.bench import drift, layoutsplit, layoutvar
 from nbx_torch.bench.granular import granular_cloud
 from nbx_torch.bench.pp_scenes import MAIN_CASES, RESIDUAL_CASES, main_case, residual_case
 from nbx_torch.collisions import draw_fracture_uniforms
 from nbx_torch.config import SimConfig, body_radius
-from nbx_torch.ops import _build, collide, p3m, pairwise, ppkernel
+from nbx_torch.ops import _build, collide, p3m, pairwise, ppkernel, sequential
+from nbx_torch.bench import p3m_cluster
 from nbx_torch.ops.pm import isolated_green_hat
 from torch_shard_ranks import NCCL_KINDS as SHARD_NCCL_KINDS
 from torch_spatial_ranks import NCCL_KINDS
@@ -1202,3 +1205,71 @@ def test_probe_kernel_matches_plain_and_blocks_are_bitwise_desc(dev, n, cfg):
     desc = layoutvar.once(pos, vel, mass, radius, box, g, band, buckets[0], "desc")
     blocks = layoutvar.once(pos, vel, mass, radius, box, g, band, buckets[0], "blocks")
     assert all(torch.equal(x, y) for x, y in zip(desc, blocks))
+
+
+# --- the strict-sequential sweep and the two-level P3M residual ---------------
+
+@pytest.mark.parametrize("name", list(sequential_scenes()))
+def test_sequential_sweep_matches_plain(dev, name):
+    """The sweep kernel against its plain version on each scene of
+    chip_smoke's phase 27: every float within 1e-5 of its field's largest
+    magnitude (bitwise, as measured), counters, flags and materials exact."""
+    cfg, sc, timers = sequential_scenes()[name]
+    cfg = cfg.to(dev)
+    inputs = sweep_inputs(cfg, sc, timers, dev)
+    h = sim.substep_size(cfg)
+    before = sequential.sweep.launches
+    got = sequential.sweep(*inputs, h, cfg)
+    assert sequential.sweep.launches == before + 1
+    err, bitwise, bad = sweep_diff(got, sequential.sweep_reference(*inputs, h, cfg))
+    assert not bad, (bad, err)
+
+
+def test_sequential_sweep_gives_the_same_bits_twice(dev):
+    cfg, sc, timers = sequential_scenes()["4,096-body pile"]
+    cfg = cfg.to(dev)
+    inputs = sweep_inputs(cfg, sc, timers, dev)
+    a = sequential.sweep(*inputs, 0.008, cfg)
+    assert sweep_diff(a, sequential.sweep(*inputs, 0.008, cfg))[1]
+
+
+def test_sequential_sweep_capacity_limit_raises(dev):
+    cfg = SimConfig(capacity=sequential.MAX_CAPACITY + 1).to(dev)
+    with pytest.raises(ValueError, match="at most"):
+        sequential.sweep(*sweep_inputs(cfg, lattice_pile(2)[0], None, dev), 0.008, cfg)
+    with pytest.raises(ValueError, match="collision_impl"):
+        sim.step(scene.make_state(cfg, lattice_pile(2)[0], dev), cfg, collision_impl="jacobi2")
+
+
+def test_sequential_frames_on_card_match_cpu(dev):
+    """The reference scene, 10 frames of the sequential step on the card
+    and on the CPU with the same fracture draws: slots and event counts
+    exactly, floats to 1e-4 (gravity sums in another order)."""
+    cfg = SimConfig()
+    sc = scene.reference_galaxy(seed=0)
+    a, b = scene.make_state(cfg.to(dev), sc, dev), scene.make_state(cfg, sc, "cpu")
+    h = sim.substep_size(cfg)
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(10 * cfg.sub_steps):
+        d = draw_fracture_uniforms(cfg, gen, "cpu")
+        a, ea = sim.substep(a, cfg.to(dev), h, draws=d.to(dev), collision_impl="sequential")
+        b, eb = sim.substep(b, cfg, h, draws=d, collision_impl="sequential")
+        for f in ("n_merges", "n_fractures", "n_bounces", "n_evicted", "n_dropped"):
+            assert int(getattr(ea, f)) == int(getattr(eb, f)), f
+    assert torch.equal(a.alive.cpu(), b.alive) and torch.equal(a.seq.cpu(), b.seq)
+    for f in ("pos", "vel", "temp", "contact"):
+        assert _rel_err(getattr(a, f).cpu(), getattr(b, f)) < 1e-4, f
+
+
+def test_twolevel_p3m_on_card_matches_cpu(dev):
+    """p3m_acceleration(residual_mode="twolevel") with K4 and K5 on a
+    4,096-body cluster (phase 28's), card against CPU."""
+    pos, mass, _ = p3m_cluster.cluster_scene(4096, 1024)
+    before = ppkernel.pp_short.launches, ppkernel.pp_react.launches
+    got, unc = p3m.p3m_acceleration(torch.from_numpy(pos).to(dev), torch.from_numpy(mass).to(dev), 1.0,
+                                    p3m_cluster.BOX, **TWOLEVEL_SMALL)
+    assert (ppkernel.pp_short.launches, ppkernel.pp_react.launches) == (before[0] + 1, before[1] + 1)
+    want, w_unc = p3m.p3m_acceleration(torch.from_numpy(pos), torch.from_numpy(mass), 1.0, p3m_cluster.BOX,
+                                       **TWOLEVEL_SMALL)
+    assert int(unc) == int(w_unc) == 0
+    assert _rel_err(got.cpu(), want) < 1e-4

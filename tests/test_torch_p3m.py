@@ -3,10 +3,15 @@ path, the scene-census tuner, p3m_acceleration with both short-range
 implementations (the port's "ops"/"kernel" for the JAX package's
 "xla"/"pallas", the JAX side's Pallas kernels in interpret mode, the port's
 through their plain PyTorch versions), with and without occupancy buckets,
-and the KDK scan; and the clustered scene of nbx_torch.bench.p3m_cluster.
+and the KDK scan; the two-level residual's argument checks and the box given
+as a tensor; and the clustered scene of nbx_torch.bench.p3m_cluster
+(tests/test_torch_p3m_twolevel.py and test_torch_p3m_outliers.py hold the
+two-level residual's scenes).
 
 Floats to the JAX tests' own bar, rtol 2e-5 and atol 3e-6 max|acc|; counts
 and tune dicts exactly."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -17,7 +22,7 @@ from nbx import forces as jforces
 from nbx.bench import p3m_cluster as jbench
 from nbx.ops import p3m as jp3m
 from nbx_torch.bench import p3m_cluster
-from nbx_torch.ops import p3m, ppkernel
+from nbx_torch.ops import p3m, pm, ppkernel
 
 torch.set_num_threads(1)
 
@@ -105,12 +110,41 @@ def test_p3m_acceleration_matches(pp_impl, buckets):
     assert (int(unc) > 0) == (buckets == ((8, 8, 8), (16, 16, 8)))
 
 
-def test_p3m_twolevel_residual_waits():
+def test_p3m_argument_checks():
+    """The two submesh rules of `nbx` (sub_cells >= 4, sub_g >= 3 sub_cells)
+    and the port's pp_impl and residual_mode names."""
     pos, mass = _scene(n=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p3m.p3m_acceleration(*_t(pos, mass), 1.0, 50.0, g=16, n_cells=6, residual_mode="twolevel")
+    call = functools.partial(p3m.p3m_acceleration, *_t(pos, mass), 1.0, 50.0, g=16, n_cells=6)
+    with pytest.raises(ValueError, match="sub_cells must be >= 4"):
+        call(residual_mode="twolevel", sub_g=32, sub_cells=3)
+    with pytest.raises(ValueError, match="under-resolves"):
+        call(residual_mode="twolevel", sub_g=32, sub_cells=12)
+    with pytest.raises(ValueError, match="residual_mode"):
+        call(residual_mode="sparse")
     with pytest.raises(ValueError, match="pp_impl"):
-        p3m.p3m_acceleration(*_t(pos, mass), 1.0, 50.0, g=16, n_cells=6, pp_impl="xla")
+        call(pp_impl="xla")
+
+
+def test_box_as_tensor_gives_the_same_bits():
+    """The two-level submesh passes its box (and scale) as a 0-d tensor:
+    every function that takes one gives the bits of the same box as a Python
+    float."""
+    pos, mass = _scene(n=400, seed=8)
+    tp, tm = _t(pos, mass)
+    box, a = 27.123, p3m.smoothing_length(27.123, 5)
+    tbox, ta = torch.tensor(box, dtype=torch.float32), torch.tensor(a, dtype=torch.float32)
+    for x, y in zip(p3m.cell_sort(tp, box, 5), p3m.cell_sort(tp, tbox, 5)):
+        assert torch.equal(x, y)
+    for x, y in zip(p3m.cell_bin_full(tp, box, 5, 8), p3m.cell_bin_full(tp, tbox, 5, 8)):
+        assert torch.equal(x, y)
+    acc, ovf = p3m.short_range_acc(tp, tm, 0.7, a, box, 5, 8, 0.05)
+    acc_t, ovf_t = p3m.short_range_acc(tp, tm, 0.7, ta, tbox, 5, 8, 0.05)
+    assert torch.equal(acc, acc_t) and int(ovf) == int(ovf_t) > 0
+    rho = pm.cic_deposit(tp, tm, box, 12, periodic=False)
+    assert torch.equal(rho, pm.cic_deposit(tp, tm, tbox, 12, periodic=False))
+    field = torch.stack([rho, 2 * rho, -rho], dim=-1)
+    assert torch.equal(pm.cic_gather(field, tp, box, 12, periodic=False),
+                       pm.cic_gather(field, tp, tbox, 12, periodic=False))
 
 
 def test_p3m_kdk_scan_matches():
@@ -144,3 +178,20 @@ def test_cluster_scene_and_sample_errors():
                                     pp_impl="kernel")
     assert int(unc) == 0
     assert p3m_cluster.sample_errors(tp, tm, acc, n_field, n_sample=256)["median"] < 0.05
+
+
+def test_cluster_bench_mode_specs():
+    """`nbx`'s mode specs dense|twolevel[@n_cells,K[,pp[,b]]], its pp names
+    taken for the port's; a bare mode keeps the production tune."""
+    tune = p3m_cluster.mode_tune("twolevel")
+    assert tune == dict(p3m_cluster.PRODUCTION_TUNE, residual_mode="twolevel", sub_g=96, sub_cells=24, sub_k=96)
+    assert p3m_cluster.mode_tune("dense") == p3m_cluster.PRODUCTION_TUNE
+    tune = p3m_cluster.mode_tune("dense@25,96,xla")
+    assert (tune["n_cells"], tune["max_per_cell"], tune["pp_impl"]) == (25, 96, "ops")
+    assert p3m_cluster.mode_tune("twolevel@12,768,pallas")["pp_impl"] == "kernel"
+    pos = _tune_scene()
+    tune = p3m_cluster.mode_tune("dense@8,64,kernel,b", pos)
+    assert tune["pp_buckets"] == ppkernel.pp_buckets_for(pos, p3m_cluster.BOX, 8, 64)
+    for bad in ("sparse", "dense@12,768,cuda"):
+        with pytest.raises(ValueError):
+            p3m_cluster.mode_tune(bad)
