@@ -18,9 +18,12 @@ the all-gather multi-device paths (`parallel.shard`), the gravity-only
 path at each precision of `pairwise_acc` (the `bench throughput`, `drift`
 and `latency` entries with `precision`), the layout probes
 (`bench.layoutsplit`, `bench.layoutvar`), the strict-sequential frame step
-(`sim.run(collision_impl="sequential")`), the two-level P3M residual and the
+(`sim.run(collision_impl="sequential")`), the two-level P3M residual, the
 host API (`interactive.Simulation`, `checkpoint`, `profiling`, `python -m
-nbx_torch run`):
+nbx_torch run`), the renderer (`render.pipeline`), the live server
+(`serve.serve`, `--big`), the multi-host entry and per-rank checkpoints
+(`parallel.multihost`, `checkpoint.save_sharded`) and the demos (`python -m
+nbx_torch demo`):
 
   0. device: name and power limit; TF32 off
   1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
@@ -200,7 +203,8 @@ nbx_torch run`):
      capacity 300 through sim.run(collision_impl="sequential"), 300 frames
      timed beside phase 3's Jacobi frame, one launch a substep, every 50th
      substep's sweep held against the plain version, one frame
-     sync-checked; the sweep timed at the reference scene's shapes
+     sync-checked; the sweep timed at the reference scene's shapes, and the
+     kernel alone by CUDA events queued behind a sleep kernel
  28. the two-level P3M residual: p3m_acceleration(residual_mode="twolevel")
      on phase 9's 1M + 30k scene at the production tune (K4's main pass
      and K5 a call, no residual-residual launch; submesh 96 / 24 / 128),
@@ -213,6 +217,29 @@ nbx_torch run`):
      from both, bitwise (generator included); `python -m nbx_torch run
      --frames 50 --capacity 300`; `profiling.StepTimer` over 20 frames,
      `profiling.trace`, `profiling.nan_guard`
+ 30. the renderer: the reference galaxy (capacity 300) through sim.step and
+     render_and_advance at 640x360 with 64 impostors, bloom and the
+     starfield, 300 frames, physics and render timed apart by CUDA events;
+     one frame under set_sync_debug_mode("error"), one profiled, one
+     against the CPU with the same state, events and particle draws (1e-4
+     of the frame's largest value, with and without impostors); then the
+     131,072-body cloud's served frame (`BigLiveSim._advance_and_render`,
+     phase 7's configuration, re-sized after a late readback shows an
+     overflow), 60 frames beside phase 7's step alone, each re-sized
+     layout's first frame without overflow, render_granular alone, one
+     frame of the step and render sync-checked and one against the CPU
+ 31. `serve.serve` in-process on free localhost ports, the reference
+     galaxy and `--big` (131,072 bodies), about 10 s each: every endpoint
+     answers, frames encoded a second, /frame.png latency; no frame raised
+     (the servers' never-cleared n_errors, also in /state)
+ 32. the multi-host entry at one card: `multihost.initialize` from
+     WORLD_SIZE=1, RANK=0, LOCAL_RANK=0 on NCCL, `make_host_mesh`,
+     `shard_state_multihost` of the 262,144-body merger, 10 sharded steps
+     (K1) and the energy; `checkpoint.save_sharded` / `load_sharded`
+     bitwise; `render_sharded` and `render_spatial` at D = 1 bitwise the
+     single-device splat (deterministic scatters)
+ 33. `python -m nbx_torch demo galaxy 30` and `demo merger 131072 10` as
+     subprocesses: exit 0, their PNGs non-empty
 
 Every phase raises on failure, so the script exits non-zero; it needs a CUDA
 device and has no CPU fallback. The line before the last is the kernels'
@@ -258,9 +285,11 @@ windows read and the targets it writes, not the rows of its input (the
 it launches on the sequential frame step's path (phase 27) and is timed at
 the reference scene's shapes; its bound counts the overlap tests this run's
 sweep made (11 FP32 operations each) and, beside the card's, gives one SM's
-(1/132 of the FP32 rate: the sweep is one block). It prints its total and the
-time of phases 11-14, 15-17, 18-20, 21-24, 25, 26, 27, 28 and 29 before the
-kernels line (18 records).
+(1/132 of the FP32 rate: the sweep is one block). Phases 30-33 port no kernel:
+the renderer, the server and the demos run eager PyTorch around K1 and K2,
+whose launches on those paths they log. It prints its total and the time of
+phases 11-14, 15-17, 18-20, 21-24, 25, 26, 27, 28, 29, 30, 31, 32 and 33
+before the kernels line (18 records).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -281,7 +310,7 @@ import time
 import numpy as np
 import torch
 
-from nbx_torch import collisions, collisions_scaled, diagnostics, integrators, profiling, scene, sim
+from nbx_torch import checkpoint, collisions, collisions_scaled, convert, diagnostics, integrators, profiling, scene, sim
 from nbx_torch.bench import collsplit, cvt_rate, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
 from nbx_torch.bench import collide_turns, layoutsplit, layoutvar, sass, sharded
 from nbx_torch.bench import spatial as spatial_bench
@@ -295,6 +324,8 @@ from nbx_torch.ops.pairwise import (pairwise_acc, pairwise_acc_jerk, pairwise_ac
                                    potential_per_body_reference)
 from nbx_torch.ops.pm import isolated_green_hat, out_of_box_count, pm_acceleration
 from nbx_torch.parallel import shard, spatial
+from nbx_torch.render import particles, pipeline, splat
+from nbx_torch.render.colormap import tonemap
 
 KERNEL_TOL = 1e-5  # max|kernel - plain| / max|plain|, the bar of tests/test_tpu_only.py
 HEADLINE_N = 262_144
@@ -781,7 +812,7 @@ def server_setup(dev, n: int = SCALED_N, g: int = 40, b: int = 12, pm_grid: int 
 
 
 # The cloud collapses under its own gravity, and buckets sized once per scene
-# (as BigLiveSim sizes them) overflow from about frame 22 on. Phase 7 re-sizes
+# (as the JAX package's BigLiveSim sizes them) overflow from about frame 22 on. Phase 7 re-sizes
 # them from the current positions every RESIZE_EVERY frames, host-side and
 # untimed, with BLOCK_SLACK headroom for the tail bucket's growth in between.
 RESIZE_EVERY = 5
@@ -3157,19 +3188,33 @@ def phase_sequential(dev, jacobi_ms: float, frames: int = 300, check_every: int 
     k_ms = cuda_ms(lambda: kernel(*args), 20)
     plain_ms = cuda_ms(lambda: sequential.sweep_reference(*args), 1)
     b, b_sm = sweep_bound(args, out)
-    # the kernel's own device time (the wrapper also fills its outputs)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        kernel(*args)
-        torch.cuda.synchronize()
-    kernel_us = [e.device_time_total / e.count for e in prof.key_averages() if "sweep_kernel" in e.key]
-    device_ms = kernel_us[0] / 1e3 if kernel_us else None  # None: the profiler saw no launch
+    # the kernel's own device time: launches into outputs allocated once, each
+    # between two CUDA events queued behind a sleep kernel, so neither the
+    # wrapper's fills nor its host enqueue (about 0.14 ms, 16e) is in the span
+    out0 = sequential._outputs(args[0], args[1], args[2], args[8], cfg)
+    device_ms = bare_kernel_ms(lambda: sequential._launch_into(out0, args[:9], args[9], args[10]))
     log(27, f"sweep at the reference scene (C=300, {int(out.count('n_tests'))} overlap tests): a call {k_ms:.4f} ms "
-            f"(the kernel alone {device_ms} ms on the device, torch.profiler), plain {plain_ms:.3f} ms; "
+            f"(the kernel alone {device_ms:.4f} ms on the device, CUDA events), plain {plain_ms:.3f} ms; "
             f"{bound_text(b)}; one SM's {bound_text(b_sm)}; kernel/one SM's bound {k_ms / b_sm['bound_ms']:.1f}")
     return dict(launches=launches, max_abs_err=err, ms=k_ms, plain_ms=plain_ms, **record(b), library_ms=None,
                 bound_ms_one_sm=b_sm["bound_ms"], kernel_device_ms=device_ms, ms_per_frame=ms,
                 jacobi_ms_per_frame=jacobi_ms, ms_pile_4096=pile_ms)
+
+
+def bare_kernel_ms(launch, reps: int = 20) -> float:
+    """Median device ms of `launch()`, each between two CUDA events queued
+    behind a ~1 ms sleep kernel: the span holds the kernel's run, not the
+    host's time to enqueue it."""
+    spans = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        launch()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in spans]))
 
 
 @contextlib.contextmanager
@@ -3320,6 +3365,430 @@ def phase_host_api(dev, capacity: int = 4096, n_disk: int = 3000) -> None:
     log(29, "nan_guard: a clean frame passes; an injected NaN raises FloatingPointError")
 
 
+RENDER_W, RENDER_H = 640, 360  # the viewer's frame
+RENDER_IMPOSTORS = 64
+# one frame on the card against the CPU, with and without impostors: max|card - CPU| / max|CPU| of
+# the frame. The impostor's rim normal sqrt(1 - d^2) is ill-conditioned (the CPU tests hold jitted
+# `nbx` to 1e-3, tests/torch_parity.IMPOSTOR_FRAME_TOL), but the card's eager ops round as the CPU's
+# but for their transcendental functions: 4.2e-5 with 64 impostors (NVIDIA H100 80GB HBM3, 700 W).
+RENDER_TOL = 1e-4
+
+
+def frame_events(marks) -> tuple[float, float]:
+    """Mean device-stream ms of (physics, render) over (start, mid, end) CUDA
+    event triples, one a frame."""
+    torch.cuda.synchronize()
+    return (float(np.mean([a.elapsed_time(b) for a, b, _ in marks])),
+            float(np.mean([b.elapsed_time(c) for _, b, c in marks])))
+
+
+def marks3():
+    return tuple(torch.cuda.Event(enable_timing=True) for _ in range(3))
+
+
+def to_cpu(x):
+    """A tensor, dataclass or NamedTuple of tensors on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if hasattr(x, "_asdict"):
+        return type(x)(*(to_cpu(v) for v in x))
+    return type(x)(**{f.name: to_cpu(getattr(x, f.name)) for f in dataclasses.fields(x)})
+
+
+def render_vs_cpu(dev, st, cfg, ev, fr, cam, stars, n_impostors: int, granular_trails=None) -> float:
+    """One frame of render_and_advance (or render_granular with trail slots)
+    on the card and on the CPU from the same state, events, renderer state
+    and particle draws: max|card - CPU| / max|CPU| of the frame; the particle
+    slots must agree."""
+    gen = torch.Generator().manual_seed(3)
+    n = st.pos.shape[0]
+    f = int(ev.spawn_mask.numel())
+    draws = pipeline.FrameDraws(particles.draw_smoke(gen, n, fr.particles.life.shape[0], "cpu"),
+                                particles.draw_explosions(gen, f, "cpu"))
+    fr_cpu = convert.frame_state_from_arrays(convert.frame_state_to_arrays(fr), "cpu")
+    cam_cpu = splat.Camera(cam.eye.cpu(), cam.target.cpu(), cam.up.cpu(), cam.fov_deg)
+    kw = dict(width=RENDER_W, height=RENDER_H, stars=stars, n_impostors=n_impostors)
+    card_draws = pipeline.FrameDraws(draws.smoke.to(dev), draws.explosions.to(dev))
+    if granular_trails is None:
+        cfg_cpu = SimConfig(**{k.name: getattr(cfg, k.name) for k in dataclasses.fields(cfg) if k.name != "materials"})
+        st_cpu = convert.state_from_arrays(convert.state_to_arrays(st), cfg_cpu, "cpu")
+        fa, a = pipeline.render_and_advance(fr, st, cfg, ev, cam, draws=card_draws, **kw)
+        kw["stars"] = stars.cpu()
+        fb, b = pipeline.render_and_advance(fr_cpu, st_cpu, cfg_cpu, to_cpu(ev), cam_cpu, draws=draws, **kw)
+    else:
+        cfg_cpu = cfg.to("cpu")
+        st_cpu = convert.granular_state_from_arrays(convert.granular_state_to_arrays(st), "cpu")
+        fa, a = pipeline.render_granular(fr, st, cfg, ev, cam, granular_trails, draws=card_draws, **kw)
+        kw["stars"] = stars.cpu()
+        fb, b = pipeline.render_granular(fr_cpu, st_cpu, cfg_cpu, to_cpu(ev), cam_cpu, granular_trails.cpu(),
+                                         draws=draws, **kw)
+    check(torch.equal(fa.particles.life.cpu() > 0, fb.particles.life > 0), "particle slots equal on card and CPU")
+    return float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def render_profile(fr, st, cfg, ev, cam, kw) -> None:
+    """Log one render_and_advance's kernels and device time by torch.profiler
+    against its host time: whether the render waits on the host."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pipeline.render_and_advance(fr, st, cfg, ev, cam, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # kernels only: an operator's entry also sums its kernels' device time
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_time_total > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(e.device_time_total for e in dev_events) / 1e3
+    kernels = sum(e.count for e in dev_events)
+    top = sorted(dev_events, key=lambda e: -e.device_time_total)[:4]
+    if not dev_events:
+        log(30, f"render profile: {wall:.3f} ms on the host; the profiler saw no device time (not measured)")
+        return
+    log(30, f"render profile, one frame: {wall:.3f} ms wall, {kernels} kernels, {busy:.3f} ms device busy "
+            f"(share {busy / wall:.3f}); top: " + "; ".join(f"{e.key[:40]} {e.device_time_total / 1e3:.3f} ms "
+                                                          f"x{e.count}" for e in top))
+
+
+def phase_render(dev, scaled_ms: float, frames: int = 300, scaled_frames: int = 60, scaled_n: int = SCALED_N) -> dict:
+    """Phase 30: the renderer on the card. The reference galaxy (capacity
+    300) through sim.step and render_and_advance at 640x360 with 64
+    impostors, bloom and the starfield for `frames` frames, physics and
+    render timed apart by CUDA events; one frame under
+    set_sync_debug_mode("error"); one frame against the CPU with the same
+    state, events and draws (with and without impostors). Then the
+    at-scale 131,072-body cloud's served frame, `BigLiveSim._advance_and_render`
+    (phase 7's configuration, re-sized after a late readback shows an
+    overflow; every re-sized layout's first frame must count none), timed
+    beside phase 7's step alone, with render_granular alone on one state;
+    one frame of its step and render sync-checked and one against the CPU."""
+    cfg = SimConfig().to(dev)
+    st = scene.make_state(cfg, scene.reference_galaxy(seed=0), dev, seed=0)
+    fr = pipeline.FrameState.create(cfg.capacity, cfg.trail_length, device=dev)
+    cam = splat.Camera.default(dev)
+    stars = pipeline.starfield_directions(device=dev)
+    kw = dict(width=RENDER_W, height=RENDER_H, stars=stars, n_impostors=RENDER_IMPOSTORS)
+    for _ in range(2):  # warm-up: allocator, constants
+        st, ev = sim.step(st, cfg)
+        fr, img = pipeline.render_and_advance(fr, st, cfg, ev, cam, **kw)
+    torch.cuda.synchronize()
+    marks = []
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        a, b, c = marks3()
+        a.record()
+        st, ev = sim.step(st, cfg)
+        b.record()
+        fr, img = pipeline.render_and_advance(fr, st, cfg, ev, cam, **kw)
+        c.record()
+        marks.append((a, b, c))
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) / frames * 1e3
+    phys_ms, render_ms = frame_events(marks)
+    check(tuple(img.shape) == (RENDER_H, RENDER_W, 3) and all_finite(img), "frame finite, 640x360")
+    check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0 and float(img.max()) > 0.0, "frame in [0, 1], lit")
+    log(30, f"reference galaxy, capacity 300, {frames} frames at {RENDER_W}x{RENDER_H}, {RENDER_IMPOSTORS} "
+            f"impostors, bloom, {pipeline.N_STARS} stars: {frame_ms:.3f} ms/frame; physics {phys_ms:.3f} ms, render "
+            f"{render_ms:.3f} ms a frame (CUDA events); particles alive {int(fr.particles.n_alive)}, lights "
+            f"{int((fr.lights.intensity > 0).sum())}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, ev = sim.step(st, cfg)
+        fr2, img = pipeline.render_and_advance(fr, st, cfg, ev, cam, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(30, "one frame (step and render) ran under set_sync_debug_mode('error'): no host sync")
+    render_profile(fr, st, cfg, ev, cam, kw)
+    err_imp = render_vs_cpu(dev, st, cfg, ev, fr, cam, stars, RENDER_IMPOSTORS)
+    err_plain = render_vs_cpu(dev, st, cfg, ev, fr, cam, stars, 0)
+    log(30, f"one frame card vs CPU, same state, events and draws: max rel err {err_plain:.3e} without impostors, "
+            f"{err_imp:.3e} with {RENDER_IMPOSTORS} (tol {RENDER_TOL:g})")
+    check(err_plain < RENDER_TOL and err_imp < RENDER_TOL, "the frame on the card against the CPU")
+
+    # the at-scale viewer's frame as the server makes it: BigLiveSim's own
+    # _advance_and_render (phase 7's configuration, its thread not started),
+    # with its re-size after a late readback shows an overflow
+    from nbx_torch.serve import BigLiveSim
+
+    live = BigLiveSim(n=scaled_n, device=dev)
+    layouts, read = [], []  # the layout each frame ran on; each call's n_overflow, the frame before's
+
+    def served_frame():
+        img = live._advance_and_render()
+        layouts.append(live.n_resizes)
+        read.append(live.n_overflow)
+        return img
+
+    for _ in range(2):  # warm-up: allocator, cuFFT plans, constants
+        served_frame()
+    torch.cuda.synchronize()
+    collide.collide_fused.launches = 0  # the at-scale viewer's frames from here
+    t0 = time.perf_counter()
+    for _ in range(scaled_frames):
+        gimg = served_frame()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k2 = collide.collide_fused.launches
+    overflow = read[1:]  # overflow[f]: frame f's count, read back during frame f + 1
+    firsts = [overflow[f] for f in range(1, len(overflow)) if layouts[f] != layouts[f - 1]]
+    check(live.n_resizes > 0, "at-scale frames: the collapsing cloud overflowed a layout and was re-sized")
+    check(all(v == 0 for v in firsts), f"at-scale frames: n_overflow on each re-sized layout's first frame {firsts}")
+    check(k2 > 0 and live.n_errors == 0, f"at-scale frames: K2 launched ({k2})")
+    check(all_finite(live.state.pos, gimg), "at-scale state and frame finite")
+    gcfg, box = live.cfg, live.box
+    skw = dict(n_cells=live.g_c, band_cells=live.band, buckets=live.buckets, force_impl=live.force_impl,
+               pm_grid=live.pm_grid, log_events=True, green_hat=live.green_hat)
+    gkw = dict(width=live.width, height=live.height, stars=live.stars, n_impostors=RENDER_IMPOSTORS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gst, _, gev = collisions_scaled.granular_full_kdk_scan(live.state, gcfg, box, 1, **skw)
+        gfr2, gimg = pipeline.render_granular(live.frame_state, gst, gcfg, gev, live.cam, live.trail_idx, **gkw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(30, "one at-scale frame (step and render) ran under set_sync_debug_mode('error'): no host sync")
+    marks = []
+    for _ in range(10):  # the render alone, on one state: its share of the frame
+        a, _, c2 = marks3()
+        a.record()
+        pipeline.render_granular(live.frame_state, gst, gcfg, gev, live.cam, live.trail_idx, **gkw)
+        c2.record()
+        marks.append((a, c2))
+    torch.cuda.synchronize()
+    g_render = float(np.mean([a.elapsed_time(c2) for a, c2 in marks]))
+    log(30, f"at-scale cloud N={live.n}, {scaled_frames} frames of BigLiveSim._advance_and_render (the served "
+            f"frame, counters read back a frame late, re-sizes included): {dt / scaled_frames * 1e3:.3f} ms/frame "
+            f"(phase 7's step alone {scaled_ms:.3f} ms); render_granular alone {g_render:.3f} ms (CUDA events); "
+            f"K2 {k2} launches; {live.n_resizes} re-sizes after an overflow, n_overflow per frame "
+            f"{overflow}, on each re-sized layout's first frame {firsts}")
+    g_err = render_vs_cpu(dev, gst, gcfg, gev, live.frame_state, live.cam, live.stars, RENDER_IMPOSTORS,
+                          granular_trails=live.trail_idx)
+    log(30, f"one at-scale frame card vs CPU: max rel err {g_err:.3e} (tol {RENDER_TOL:g}, with impostors)")
+    check(g_err < RENDER_TOL, "the at-scale frame on the card against the CPU")
+    return dict(ms_frame=frame_ms, physics_ms=phys_ms, render_ms=render_ms, scaled_ms_frame=dt / scaled_frames * 1e3,
+                scaled_render_ms=g_render)
+
+
+SERVE_SECONDS = 10.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_get(url: str, timeout: float = 30.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read(), r.headers.get("Content-Type")
+
+
+def phase_serve(dev, seconds: float = SERVE_SECONDS, big_n: int = SCALED_N) -> dict:
+    """Phase 31: `serve.serve` on the card, in-process on a free localhost
+    port, for the reference galaxy (LiveSim) and the 131,072-body cloud
+    (BigLiveSim, `--big`): every endpoint answers (/, /frame.png, /stream,
+    /state, /spawn, /orbit, /set, /resize, /reset), frames encoded a second
+    and /frame.png latency over `seconds`; no frame raised, from the first
+    frame to the frames after /reset (LiveSim's n_errors, never cleared, and
+    /state's)."""
+    import threading
+
+    from nbx_torch import serve as serve_mod
+
+    out = {}
+    for big in (0, big_n):
+        name = f"serve --big {big}" if big else "serve"
+        collide.collide_fused.launches = 0  # this server's launches from here
+        port = free_port()
+        httpd, live = serve_mod.serve(port, block=False, big_n=big)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{port}"
+        try:
+            t0 = time.perf_counter()
+            while not live.frame_png and not live.n_errors and time.perf_counter() - t0 < 300:
+                time.sleep(0.05)
+            check(live.n_errors == 0 and bool(live.frame_png), f"{name}: first frame ({live.first_error})")
+            first_s = time.perf_counter() - t0
+            code, body, ctype = http_get(base + "/")
+            check(code == 200 and ctype == "text/html" and b"drawPreview" in body, f"{name}: /")
+            spawn = json.loads(http_get(base + "/spawn?sx0=300&sy0=200&sx1=340&sy1=210")[1])
+            # the cloud starts with no dead slot: a big spawn may be dropped (counted, never evicted)
+            check(spawn["spawned"] in ((0, 1) if big else (True,)) and not spawn["evicted"],
+                  f"{name}: /spawn ({spawn})")
+            http_get(base + "/orbit?dyaw=0.05&dpitch=0.02&zoom=1.02")
+            check(json.loads(http_get(base + "/set?G=0.55&bloom_strength=1.1")[1])["set"]["G"] == 0.55,
+                  f"{name}: /set")
+            check(json.loads(http_get(base + "/resize?w=640&h=360")[1]) == {"width": 640, "height": 360},
+                  f"{name}: /resize")
+            import urllib.request
+
+            with urllib.request.urlopen(base + "/stream", timeout=60) as r:
+                data = b""
+                while data.count(b"--nbxframe") < 3:
+                    data += r.read(65536)
+            check(data.count(b"\x89PNG") >= 2, f"{name}: /stream pushed frames")
+            lat, states = [], []
+            seq0, t0 = live.frame_seq, time.perf_counter()
+            while time.perf_counter() - t0 < seconds:
+                a = time.perf_counter()
+                code, body, ctype = http_get(base + "/frame.png")
+                lat.append((time.perf_counter() - a) * 1e3)
+                check(code == 200 and ctype == "image/png" and body[:4] == b"\x89PNG", f"{name}: /frame.png")
+                if len(lat) % 20 == 0:
+                    states.append(json.loads(http_get(base + "/state")[1]))
+                time.sleep(0.02)
+            elapsed = time.perf_counter() - t0
+            rate = (live.frame_seq - seq0) / elapsed
+            s = json.loads(http_get(base + "/state")[1])
+            check(s["error"] is None and s["n_errors"] == 0 and all(x["n_errors"] == 0 for x in states),
+                  f"{name}: /state shows {s['n_errors']} frames that raised, the first {s['first_error']}")
+            check(s["step"] > 0 and s["alive"] > 0, f"{name}: /state steps ({s})")
+            extra = ""
+            if big:
+                extra = (f"; counters bounces {s['n_bounces']} merges {s['n_merges']} fractures {s['n_fractures']}; "
+                         f"n_overflow {s['n_overflow']}, {s['n_resizes']} re-sizes (phase 30 holds each re-sized "
+                         f"layout's first frame to 0); K2 launches {collide.collide_fused.launches}")
+                check(collide.collide_fused.launches > 0, f"{name}: K2 launched")
+            check(json.loads(http_get(base + "/reset?scenario=" + ("cloud" if big else "galaxy"))[1]) == {},
+                  f"{name}: /reset")
+            log(31, f"{name}: first frame after {first_s:.1f} s; {rate:.2f} frames encoded a second over "
+                    f"{elapsed:.1f} s (the server paces at 30 a second); /frame.png latency median "
+                    f"{np.median(lat):.2f} ms, p90 {np.percentile(lat, 90):.2f} ms over {len(lat)} requests; "
+                    f"/state step {s['step']} alive {s['alive']} energy {s['energy']:.4g}{extra}")
+            out[name] = dict(fps=rate, png_ms=float(np.median(lat)))
+            seq = live.frame_seq
+            t0 = time.perf_counter()
+            while live.frame_seq < seq + 2 and time.perf_counter() - t0 < 60:  # frames of the reset scene
+                time.sleep(0.05)
+        finally:
+            httpd.shutdown()
+            live.stop()
+        check(live.n_errors == 0 and live.frame_seq >= seq + 2,
+              f"{name}: {live.n_errors} frames raised while it served, the first {live.first_error}")
+    return out
+
+
+@contextlib.contextmanager
+def launcher_env(**env):
+    """The launcher variables of a world of one (None: unset), the whole
+    environment's values of them restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_multihost(dev, n: int = HEADLINE_N, steps: int = 10, n_cloud: int = SCALED_N) -> dict:
+    """Phase 32: the multi-host entry at one card. `multihost.initialize`
+    from WORLD_SIZE=1, RANK=0, LOCAL_RANK=0 (NCCL), `make_host_mesh`,
+    `shard_state_multihost` of the 262,144-body merger, `steps` sharded steps
+    (K1) with the all-reduced energy; `save_sharded` / `load_sharded`
+    bitwise; `render_sharded` and `render_spatial` at D = 1 against the
+    single-device splat (deterministic scatters: bitwise)."""
+    import torch.distributed as dist
+
+    from nbx_torch.parallel import multihost
+
+    with launcher_env(WORLD_SIZE=1, RANK=0, LOCAL_RANK=0, MASTER_PORT=None):
+        multihost.initialize(device=dev)
+    try:
+        multihost.initialize(device=dev)  # idempotent
+        backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+        check(dist.get_backend() == backend and dist.get_world_size() == 1, f"{backend} world of one")
+        mesh = multihost.make_host_mesh()
+        sc = scene.galaxy_merger(n=n, seed=0)
+        st = multihost.shard_state_multihost(mesh, sc["pos"], sc["vel"], sc["mass"])
+        step = shard.make_sharded_step(mesh)
+        G, eps, h = 0.5, 0.5, 0.02
+        st = step(st, G, eps, h)  # warm-up
+        torch.cuda.synchronize()
+        pairwise_acc.launches = 0  # the multi-host step's path from here
+        t0 = time.perf_counter()
+        st, _ = shard.run_sharded(st, step, G, eps, h, steps)
+        ke, pe = shard.sharded_energy(mesh, st, G, eps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        check(pairwise_acc.launches == steps, f"K1 called {pairwise_acc.launches} times in {steps} steps")
+        check(all_finite(st.pos, st.vel, ke, pe), "sharded state and energy finite")
+        log(32, f"initialize (NCCL, WORLD_SIZE=1), make_host_mesh {mesh.mesh.tolist()}, shard_state_multihost of the "
+                f"{n}-body merger: {steps} sharded steps {ms:.3f} ms/step (and the energy), K1 {pairwise_acc.launches} "
+                f"calls; E = {float(ke + pe):.6e}")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            checkpoint.save_sharded(tmp, st, mesh)
+            back = checkpoint.load_sharded(tmp, mesh)
+            ck_s = time.perf_counter() - t0
+            size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        check(all(torch.equal(a, b) for a, b in zip(st, back)), "save_sharded / load_sharded bitwise")
+        log(32, f"save_sharded + load_sharded: bitwise, {size} bytes, {ck_s:.2f} s")
+        cam = splat.Camera(torch.tensor([0.0, 220.0, 420.0], device=dev), torch.zeros(3, device=dev),
+                           torch.tensor([0.0, 1.0, 0.0], device=dev))
+        mats = SimConfig().materials.to(dev)
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            img = shard.render_sharded(mesh, st, cam)
+            ref = tonemap(splat.splat_bodies_hdr(st.pos, torch.pow(st.mass, 1.0 / 3.0) * 0.8,
+                                                 torch.zeros(n, device=dev), torch.zeros(n, dtype=torch.int32,
+                                                                                         device=dev),
+                                                 ones, mats.color1, mats.color2, cam), 4.0)
+            check(torch.equal(img, ref), "render_sharded at D = 1 is the single-device splat")
+            pos, vel, mass = granular_cloud(n_cloud, seed=0)
+            cfg = SimConfig().to(dev)
+            sst = spatial.spatial_state_for(mesh, pos, vel, mass, BOX, 40)
+            gcam = splat.Camera(torch.tensor([50.0, 110.0, 210.0], device=dev), torch.full((3,), 50.0, device=dev),
+                                torch.tensor([0.0, 1.0, 0.0], device=dev))
+            simg = spatial.render_spatial(mesh, sst, cfg, gcam)
+            sref = tonemap(splat.splat_bodies_hdr(sst.pos, body_radius(sst.mass, sst.mat, cfg.materials), sst.temp,
+                                                  sst.mat, sst.mass > 0, cfg.materials.color1, cfg.materials.color2,
+                                                  gcam), 4.0)
+            check(torch.equal(simg, sref) and float(simg.max()) > 0, "render_spatial at D = 1 is the single-device "
+                                                                     "splat")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        log(32, f"render_sharded ({n} bodies) and render_spatial (the {n_cloud}-body cloud) at D = 1: bitwise the "
+                f"single-device splat (deterministic scatters)")
+        return dict(ms_step=ms)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_demos(frames_galaxy: int = 30, merger_n: int = SCALED_N, frames_merger: int = 10, device: str = "cuda") -> None:
+    """Phase 33: `python -m nbx_torch demo galaxy` and `demo merger` as
+    subprocesses: exit 0, their PNGs exist and are non-empty."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for args, want in ((["galaxy", str(frames_galaxy), os.path.join(tmp, "galaxy")], -(-frames_galaxy // 4)),
+                           (["merger", str(merger_n), str(frames_merger), os.path.join(tmp, "merger")],
+                            -(-frames_merger // 2))):
+            cmd = [sys.executable, "-m", "nbx_torch", "demo", *args, "--device", device]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            dt = time.perf_counter() - t0
+            out = args[-1]
+            pngs = sorted(f for f in os.listdir(out) if f.endswith(".png")) if os.path.isdir(out) else []
+            sizes = [os.path.getsize(os.path.join(out, f)) for f in pngs]
+            log(33, f"demo {' '.join(args[:-1])}: exit {proc.returncode} in {dt:.1f} s; {len(pngs)} PNGs, "
+                    f"{min(sizes, default=0)}-{max(sizes, default=0)} bytes; {proc.stdout.strip()[-300:]}")
+            check(proc.returncode == 0, f"demo {args[0]} exits 0 ({proc.stderr[-2000:]})")
+            check(len(pngs) == want and min(sizes) > 1000, f"demo {args[0]}: {want} non-empty PNGs")
+            if args[0] == "galaxy":
+                check(os.path.getsize(os.path.join(out, "player.html")) > 0, "demo galaxy: the HTML player")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     name = phase_device()
@@ -3331,7 +3800,7 @@ def main() -> None:
     phase_headline(dev)
     k1_launches = pairwise_acc.launches
     k2 = phase_collide_kernel(dev)
-    phase_scaled(dev)  # resets the launch counts: the at-scale path starts here
+    scaled_ms = phase_scaled(dev)  # resets the launch counts: the at-scale path starts here
     k2_launches = collide.collide_fused.launches
     phase_scaled_vs_cpu(dev)
     err4, err5 = phase_pp_kernels(dev)
@@ -3373,10 +3842,19 @@ def main() -> None:
     t28 = time.perf_counter()
     phase_host_api(dev)
     t29 = time.perf_counter()
-    print(f"[done] every phase passed: {t29 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
+    phase_render(dev, scaled_ms)  # resets K2's count: the at-scale viewer's frames
+    t30 = time.perf_counter()
+    phase_serve(dev)  # resets K2's count before each server: its frames
+    t31 = time.perf_counter()
+    phase_multihost(dev)  # resets K1's count: the multi-host step
+    t32 = time.perf_counter()
+    phase_demos()
+    t33 = time.perf_counter()
+    print(f"[done] every phase passed: {t33 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
           f"phases 15-17 {t17 - t14:.1f} s, phases 18-20 {t20 - t17:.1f} s, phases 21-24 {t24 - t20:.1f} s, "
           f"phase 25 {t25 - t24:.1f} s, phase 26 {t26 - t25:.1f} s, phase 27 {t27 - t26:.1f} s, "
-          f"phase 28 {t28 - t27:.1f} s, phase 29 {t29 - t28:.1f} s", flush=True)
+          f"phase 28 {t28 - t27:.1f} s, phase 29 {t29 - t28:.1f} s, phase 30 {t30 - t29:.1f} s, "
+          f"phase 31 {t31 - t30:.1f} s, phase 32 {t32 - t31:.1f} s, phase 33 {t33 - t32:.1f} s", flush=True)
     records = [
         dict(name="pairwise_f32r", route="cuda", source="nbx_torch/csrc/pairwise_f32r.cu",
              replaces="nbx/ops/pairwise.py:168", launches=k1_launches, **k1),

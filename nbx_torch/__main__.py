@@ -1,5 +1,7 @@
 """nbx_torch command-line interface.
 
+    python -m nbx_torch serve [--port 8000] [--host 127.0.0.1] [--scenario galaxy] [--big [N]]
+    python -m nbx_torch demo galaxy|merger [args...]
     python -m nbx_torch bench throughput|drift|latency|granular|collsplit|spatial [args...]
     python -m nbx_torch run --scenario galaxy --frames 500 --checkpoint nbx_checkpoint.npz
 
@@ -7,9 +9,13 @@
 positionally to the benchmark's main, as `python -m nbx` passes them.
 `run`: a headless run of `interactive.Simulation` at `--capacity`, snapshotted
 every `--every` frames to `--checkpoint` (`Simulation.run_checkpointed`),
-closing with one line of the final body count and energy. Both run on the
-card and raise where torch sees none. The JAX CLI's `serve` and `demo` wait
-for the renderer and the server (ROADMAP item 9).
+closing with one line of the final body count and energy. `serve`: the live
+viewer (`serve.serve`); `--big` serves the at-scale granular path with N
+bodies (131,072 when N is left out; the cloud or disk scenario), as the JAX
+package's `python -m nbx.serve --big`. `demo`: `demos/galaxy.py` (n_frames,
+out_dir) or `demos/merger.py` (n, n_frames, out_dir), all-digit arguments as
+ints. Every command runs on the card and raises where torch sees none;
+`demo --device cpu` runs a demo on the CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +29,19 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="nbx_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+    s = sub.add_parser("serve", help="live interactive viewer server")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--host", default="127.0.0.1",
+                   help="bind address; endpoints are unauthenticated, pass 0.0.0.0 only to expose deliberately")
+    s.add_argument("--scenario", default="galaxy")
+    s.add_argument("--width", type=int, default=640)
+    s.add_argument("--height", type=int, default=360)
+    s.add_argument("--big", type=int, nargs="?", const=131072, default=0, metavar="N",
+                   help="serve the at-scale granular path with N bodies (default 131072)")
+    d = sub.add_parser("demo", help="render a demo scene to PNG frames")
+    d.add_argument("which", choices=["galaxy", "merger"])
+    d.add_argument("args", nargs="*")
+    d.add_argument("--device", default="cuda")
     b = sub.add_parser("bench", help="benchmarks")
     b.add_argument("which", choices=["throughput", "drift", "latency", "granular", "collsplit", "spatial"])
     b.add_argument("args", nargs="*")
@@ -33,18 +52,26 @@ def main(argv=None) -> int:
     r.add_argument("--every", type=int, default=100)
     r.add_argument("--capacity", type=int, default=300)
     a = p.parse_args(argv)
-    if a.cmd == "bench":
+    if a.cmd in ("serve", "run") or (a.cmd == "demo" and a.device != "cpu"):
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{a.cmd} runs on a CUDA device and torch sees none")
+    if a.cmd == "serve":
+        from nbx_torch.serve import serve
+
+        serve(a.port, scenario=a.scenario, width=a.width, height=a.height, host=a.host, big_n=a.big)
+    elif a.cmd == "demo":
+        demo = importlib.import_module(f"nbx_torch.demos.{a.which}")
+        demo.main(*[int(x) if x.isdigit() else x for x in a.args], device=a.device)
+    elif a.cmd == "bench":
         importlib.import_module(f"nbx_torch.bench.{a.which}").main(
             *[int(x) if x.isdigit() else x for x in a.args]
         )
     elif a.cmd == "run":
-        import torch
-
         from nbx_torch.config import SimConfig
         from nbx_torch.interactive import Simulation
 
-        if not torch.cuda.is_available():
-            raise RuntimeError("run runs on a CUDA device and torch sees none")
         sim = Simulation(SimConfig(capacity=a.capacity), scenario=a.scenario)
         sim.run_checkpointed(a.frames, a.checkpoint, a.every)
         d = sim.measure()

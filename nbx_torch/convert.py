@@ -214,3 +214,75 @@ def sharded_body_state_to_arrays(*states: ShardedBodyState) -> dict:
     numpy arrays in the JAX package's global layout."""
     return {name: np.concatenate([getattr(s, name).cpu().numpy() for s in states])
             for name in SHARDED_BODY_FIELDS}
+
+
+# ---- the renderer's state (`render.pipeline.FrameState` and its parts) ----------------
+
+TRAIL_FIELDS = {"pos": torch.float32, "valid": torch.bool, "head": torch.int32}
+PARTICLE_FIELDS = {"pos": torch.float32, "vel": torch.float32, "life": torch.float32, "decay": torch.float32}
+LIGHT_FIELDS = {"pos": torch.float32, "intensity": torch.float32}
+
+
+def _fields(arrays: dict, fields: dict, device) -> dict:
+    return {name: torch.as_tensor(np.array(arrays[name]), dtype=dtype).to(device) for name, dtype in fields.items()}
+
+
+def trail_state_from_arrays(arrays: dict, device=CUDA):
+    """A render.trails.TrailState from the JAX TrailState's fields (pos,
+    valid, head) as numpy arrays."""
+    from nbx_torch.render.trails import TrailState
+
+    return TrailState(**_fields(arrays, TRAIL_FIELDS, device))
+
+
+def particle_state_from_arrays(arrays: dict, device=CUDA, seed: int = 0):
+    """A render.particles.ParticleState from the JAX ParticleState's fields
+    (pos, vel, life, decay) as numpy arrays. The JAX key does not carry over:
+    the generator is seeded with `seed`, and the JAX package's draws go in
+    through the spawns' `draws=`."""
+    from nbx_torch.render.particles import ParticleState
+
+    return ParticleState(**_fields(arrays, PARTICLE_FIELDS, device), generator=make_generator(device, seed))
+
+
+def light_state_from_arrays(arrays: dict, device=CUDA):
+    """A render.lights.LightState from the JAX LightState's fields (pos,
+    intensity) as numpy arrays."""
+    from nbx_torch.render.lights import LightState
+
+    return LightState(**_fields(arrays, LIGHT_FIELDS, device))
+
+
+def frame_state_from_arrays(arrays: dict, device=CUDA, seed: int = 0):
+    """A render.pipeline.FrameState from a dict of three dicts, "trails",
+    "particles" and "lights", each its part's fields as numpy arrays
+    (`frame_state_to_arrays`' layout)."""
+    from nbx_torch.render.pipeline import FrameState
+
+    return FrameState(trails=trail_state_from_arrays(arrays["trails"], device),
+                      particles=particle_state_from_arrays(arrays["particles"], device, seed),
+                      lights=light_state_from_arrays(arrays["lights"], device))
+
+
+def frame_state_to_arrays(frame) -> dict:
+    """A FrameState's fields (the generator aside) as numpy arrays, in the
+    layout frame_state_from_arrays reads."""
+    return {part: {name: getattr(getattr(frame, part), name).cpu().numpy() for name in fields}
+            for part, fields in (("trails", TRAIL_FIELDS), ("particles", PARTICLE_FIELDS), ("lights", LIGHT_FIELDS))}
+
+
+def camera_from_fields(eye, target, up, fov_deg: float = 45.0, device=CUDA):
+    """A render.splat.Camera from the JAX Camera's fields (eye, target, up as
+    3-vectors, fov_deg)."""
+    from nbx_torch.render.splat import Camera
+
+    def vec(x):
+        return torch.as_tensor(np.array(x, np.float32)).to(device)
+
+    return Camera(eye=vec(eye), target=vec(target), up=vec(up), fov_deg=float(np.asarray(fov_deg)))
+
+
+def starfield_from_array(dirs, device=CUDA) -> torch.Tensor:
+    """The starfield's unit directions ([n, 3], for example the JAX package's
+    starfield_directions()) on `device`."""
+    return torch.as_tensor(np.array(dirs), dtype=torch.float32).to(device)

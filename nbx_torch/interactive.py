@@ -12,8 +12,7 @@ live state with the reference GUI's verbs.
 
 It takes a `seed` for the fracture generator where the JAX package takes a
 PRNG key, and a `device` (the card unless the caller asks for the CPU).
-`render` and `spawn_drag_screen` need the renderer, which is not ported yet
-(ROADMAP item 9); they raise NotImplementedError.
+`render` and `spawn_drag_screen` go through the renderer (`render.splat`).
 """
 
 from __future__ import annotations
@@ -87,8 +86,16 @@ class Simulation:
 
     def spawn_drag_screen(self, cam, sx0, sy0, sx1, sy1, width: int = 640, height: int = 360,
                           mass: float | None = None, mat: int = ROCK) -> tuple[bool, bool]:
-        raise NotImplementedError("spawn_drag_screen raycasts through the renderer's camera, "
-                                  "which is not ported yet (ROADMAP item 9)")
+        """The reference's input path: raycast two screen points onto the
+        y = 0 plane, then slingshot-spawn between them. Returns (spawned,
+        evicted): spawned is False when either ray misses the plane."""
+        from nbx_torch.render.splat import screen_to_plane
+
+        p0, hit0 = screen_to_plane(cam, sx0, sy0, width, height)
+        p1, hit1 = screen_to_plane(cam, sx1, sy1, width, height)
+        if not (bool(hit0) and bool(hit1)):
+            return False, False
+        return True, self.spawn_drag(p0.cpu().numpy(), p1.cpu().numpy(), mass=mass, mat=mat)
 
     # -- observation -----------------------------------------------------------
     def bodies(self) -> dict:
@@ -105,8 +112,12 @@ class Simulation:
         return type(d)(**{f.name: getattr(d, f.name).cpu().numpy() for f in dataclasses.fields(d)})
 
     def render(self, cam=None, width: int = 640, height: int = 360, exposure: float = 1.5) -> np.ndarray:
-        raise NotImplementedError("render needs the renderer (render.splat), which is not ported yet "
-                                  "(ROADMAP item 9)")
+        """One splat frame of the current state (`render.splat.render_state`),
+        [H, W, 3] float32 in [0, 1] on the host."""
+        from nbx_torch.render import splat
+
+        img = splat.render_state(self.state, self.cfg, cam, width=width, height=height, exposure=exposure)
+        return img.cpu().numpy()
 
     # -- persistence -----------------------------------------------------------
     def run_checkpointed(self, n_frames: int, path: str, every: int = 100) -> None:

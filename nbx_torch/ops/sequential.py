@@ -266,15 +266,21 @@ def sweep(pos, vel, temp, mass, radius, inv_m, mat, alive, contact, h: float, cf
                                   ("contact", contact, torch.float32, (c, c))):
         _check(name, t, dtype, shape, dev)
     out = _outputs(pos, vel, temp, contact, cfg)
-    k = _Constants.of(cfg, h)
-    _launch("collide_sequential", [_P] * 19 + [_I] * 3 + [_F] * 8 + [_P], dev,
-            *(t.data_ptr() for t in (pos, vel, temp, mass, radius, inv_m, mat, alive, contact)),
-            *(out[name].data_ptr() for name in ("pos", "vel", "temp", "removed", "contact", "counts", "mbuf",
-                                                "mmat", "fbuf", "fmat")),
-            c, cfg.max_merges, cfg.max_fractures, k.h, k.merge_time, k.merge_q, k.fracture_q,
-            k.min_fragment_mass, k.correction, k.restitution1, k.friction)
+    _launch_into(out, (pos, vel, temp, mass, radius, inv_m, mat, alive, contact), h, cfg)
     sweep.launches += 1
     return Sweep(**out)
+
+
+def _launch_into(out: dict, args: tuple, h: float, cfg: SimConfig) -> None:
+    """Launch the kernel on checked inputs `args` (sweep's first nine) into
+    the outputs `out` (`_outputs`), uncounted: `sweep` counts its launches."""
+    k = _Constants.of(cfg, h)
+    _launch("collide_sequential", [_P] * 19 + [_I] * 3 + [_F] * 8 + [_P], args[0].device,
+            *(t.data_ptr() for t in args),
+            *(out[name].data_ptr() for name in ("pos", "vel", "temp", "removed", "contact", "counts", "mbuf",
+                                                "mmat", "fbuf", "fmat")),
+            args[0].shape[0], cfg.max_merges, cfg.max_fractures, k.h, k.merge_time, k.merge_q, k.fracture_q,
+            k.min_fragment_mass, k.correction, k.restitution1, k.friction)
 
 
 sweep.launches = 0

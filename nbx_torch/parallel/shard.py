@@ -1,6 +1,5 @@
 """Device meshes and the all-gather multi-device paths (port of
-`nbx/parallel/shard.py`, but for `render_sharded`, which waits for the
-renderer).
+`nbx/parallel/shard.py`).
 
 A mesh here is a `torch.distributed.device_mesh.DeviceMesh` over the ranks of
 an initialised process group, one rank a device: ("b",), or a factored 2-D
@@ -23,7 +22,8 @@ rank, on `torch.distributed` collectives over the mesh's groups:
     rank + 1 and a receive from rank - 1, which on a ring of 2 are one peer.
 
 Paths: the gravity-only KDK step (1-D, 2-D and ring), the energies and
-`run_sharded`; the dense full-physics step; the column-slab sharded
+`run_sharded`; `render_sharded` (each rank splats its rows, one all_reduce
+composites the HDR image); the dense full-physics step; the column-slab sharded
 collision pass and the granular step on it, whose collision pass is
 `ops.collide.packed_collision_blocks_slab` (the kernel K2) over the slab of
 columns [d g^2/D, (d + 1) g^2/D) of the gathered state: each rank's rows
@@ -339,6 +339,30 @@ def make_sharded_step_ring(mesh: DeviceMesh, impl: str = "auto"):
         return ShardedState(pos, vel, acc, state.mass)
 
     return step
+
+
+def render_sharded(mesh: DeviceMesh, state: ShardedState, cam, radius_scale: float = 0.8, width: int = 640,
+                   height: int = 360, exposure: float = 4.0) -> torch.Tensor:
+    """Render a sharded state on the device: every rank splats its own rows
+    (radius cbrt(m) radius_scale, rock colours, cold) into an HDR buffer,
+    one all_reduce (sum) over the mesh composites the additive image, and
+    the tonemap runs on every rank. The frame is [H, W, 3] whatever N is; at
+    D = 1 it is the single-device splat bit for bit."""
+    from nbx_torch.config import default_materials
+    from nbx_torch.render.colormap import tonemap
+    from nbx_torch.render.splat import splat_bodies_hdr
+
+    dev = state.pos.device
+    mats = default_materials(dev)
+    n_loc = state.pos.shape[0]
+    radius = torch.pow(state.mass, 1.0 / 3.0) * radius_scale
+    hdr = splat_bodies_hdr(state.pos, radius, torch.zeros(n_loc, device=dev),
+                           torch.zeros(n_loc, dtype=torch.int32, device=dev),
+                           torch.ones(n_loc, dtype=torch.bool, device=dev), mats.color1, mats.color2, cam,
+                           width=width, height=height)
+    for dim in range(mesh.ndim):
+        dist.all_reduce(hdr, group=mesh.get_group(dim))
+    return tonemap(hdr, exposure)
 
 
 def sharded_energy(mesh: DeviceMesh, state: ShardedState, G: float, eps: float, impl: str = "auto"):

@@ -1,6 +1,5 @@
 """Spatially owned granular physics over a mesh of ranks: halo exchange,
-O(N/D) memory (port of `nbx/parallel/spatial.py`, but for `render_spatial`,
-which waits for the renderer).
+O(N/D) memory (port of `nbx/parallel/spatial.py`).
 
 The design is the JAX module's (see its docstring), on `torch.distributed`:
 
@@ -309,6 +308,27 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
 
 
 # ---- the step ---------------------------------------------------------------------
+
+def render_spatial(mesh: DeviceMesh, state: SpatialState, cfg: SimConfig, cam, width: int = 640,
+                   height: int = 360, exposure: float = 4.0) -> torch.Tensor:
+    """Render from spatial ownership: every rank splats its own slab's live
+    slots (material colours, temperature glow) into an HDR buffer, one
+    all_reduce (sum) over the mesh composites the additive image, and the
+    tonemap runs on every rank. No body is gathered; the frame is [H, W, 3]
+    whatever N is. The splats commute, so the composite equals the gathered
+    state's single-device splat up to float32 summation order (bit for bit
+    at D = 1)."""
+    from nbx_torch.render.colormap import tonemap
+    from nbx_torch.render.splat import splat_bodies_hdr
+
+    mats = cfg.materials
+    radius = body_radius(state.mass, state.mat, mats)
+    hdr = splat_bodies_hdr(state.pos, radius, state.temp, state.mat, state.mass > 0.0, mats.color1, mats.color2,
+                           cam, width=width, height=height)
+    for dim in range(mesh.ndim):
+        dist.all_reduce(hdr, group=mesh.get_group(dim))
+    return tonemap(hdr, exposure)
+
 
 def make_spatial_granular_step(
     mesh: DeviceMesh,

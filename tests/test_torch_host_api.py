@@ -185,8 +185,8 @@ def test_run_checkpointed_resumes_bitwise(tmp_path):
     s4 = Simulation.load(p, device="cpu")
     assert s4.cfg.collisions is False and s4.cfg.capacity == 8
     s4.step(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        s4.render()
+    img = s4.render(width=64, height=48)  # the renderer now serves Simulation.render
+    assert img.shape == (48, 64, 3) and 0.0 <= img.min() and img.max() <= 1.0
 
 
 # --- profiling: the cases of tests/test_profiling.py --------------------------

@@ -221,7 +221,9 @@ def test_import_leaves_out_jax_and_nbx():
         "import nbx_torch, nbx_torch.sim, nbx_torch.scene, nbx_torch.diagnostics, "
         "nbx_torch.convert, nbx_torch.ops.pairwise, nbx_torch.ops._build, nbx_torch.ops.sequential, "
         "nbx_torch.ops.p3m, nbx_torch.checkpoint, nbx_torch.interactive, nbx_torch.profiling, "
-        "nbx_torch.__main__, nbx_torch.bench.p3m_cluster\n"
+        "nbx_torch.__main__, nbx_torch.bench.p3m_cluster, nbx_torch.render.pipeline, nbx_torch.render.viewer, "
+        "nbx_torch.render.campath, nbx_torch.serve, nbx_torch.parallel.multihost, nbx_torch.demos.galaxy, "
+        "nbx_torch.demos.merger\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'nbx'))\n"
         "assert not bad, bad\n"

@@ -27,6 +27,15 @@ EVENT_FLOATS = (
 )
 
 
+def configs(**kw):
+    """(JAX SimConfig, the port's on the CPU) with the same fields."""
+    from nbx.config import SimConfig as JaxConfig
+
+    jcfg = JaxConfig(**kw)
+    return jcfg, convert.config_from_fields({f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)},
+                                            "cpu")
+
+
 def jax_state_arrays(jst) -> dict:
     """The JAX SimState's leaves (all but the key) as numpy arrays."""
     out = {name: np.asarray(getattr(jst, name)) for name in convert.STATE_FIELDS}
@@ -149,3 +158,103 @@ def assert_events_match(ev, jev, tol: float = FLOAT_TOL) -> None:
             assert_close(got, want, f.name, tol)
         else:
             np.testing.assert_array_equal(got, want, err_msg=f.name)
+
+
+# ---- the renderer ------------------------------------------------------------------
+
+# Sphere-impostor pixels against the JAX pass run op by op (jax.disable_jit),
+# as a fraction of max|HDR|: the impostor's normal is sqrt(1 - d^2),
+# ill-conditioned at a disc's rim, and a hot body's crack mask (a steep
+# smoothstep of the noise) carries one rounding of d^2 into its heat glow
+# (measured: 8.5e-4 on a 300-body hot cluster, 3e-5 on the reference galaxy;
+# tests/test_torch_render_fx.py).
+IMPOSTOR_TOL = 2e-3
+
+
+def jax_frame_arrays(jfr) -> dict:
+    """The JAX FrameState's fields (the key aside) as numpy arrays, in
+    convert.frame_state_from_arrays' layout."""
+    return {
+        "trails": {k: np.asarray(getattr(jfr.trails, k)) for k in ("pos", "valid", "head")},
+        "particles": {k: np.asarray(getattr(jfr.particles, k)) for k in ("pos", "vel", "life", "decay")},
+        "lights": {k: np.asarray(getattr(jfr.lights, k)) for k in ("pos", "intensity")},
+    }
+
+
+def jax_camera(jcam, device="cpu"):
+    """The port's Camera with the JAX camera's fields."""
+    return convert.camera_from_fields(np.asarray(jcam.eye), np.asarray(jcam.target), np.asarray(jcam.up),
+                                      float(np.asarray(jcam.fov_deg)), device)
+
+
+def jax_smoke_draws(key, c: int, pool: int):
+    """(new key, the SmokeDraws) `nbx.render.particles.spawn_smoke` draws from
+    a pool whose key is `key`, over c bodies: split into six, k1 ... k5."""
+    from nbx_torch.render.particles import SmokeDraws
+
+    b = min(c, pool)
+    key, k1, k2, k3, k4, k5 = jax.random.split(key, 6)
+    arrays = (jax.random.uniform(k1, (c,)), jax.random.normal(k2, (b, 3)), jax.random.uniform(k3, (b,)),
+              jax.random.uniform(k4, (b, 3)), jax.random.uniform(k5, (b,)))
+    return key, SmokeDraws(*(torch.from_numpy(np.array(a)) for a in arrays))
+
+
+def jax_explosion_draws(key, f: int):
+    """(new key, the ExplosionDraws) `spawn_explosions` draws for f events."""
+    from nbx_torch.render.particles import EXPLOSION_COUNT, ExplosionDraws
+
+    n = f * EXPLOSION_COUNT
+    key, k1, k2, k3 = jax.random.split(key, 4)
+    arrays = (jax.random.normal(k1, (n, 3)), jax.random.uniform(k2, (n,)), jax.random.uniform(k3, (n,)))
+    return key, ExplosionDraws(*(torch.from_numpy(np.array(a)) for a in arrays))
+
+
+def jax_frame_draws(key, c: int, pool: int, f: int):
+    """(new key, the FrameDraws) of one `render_and_advance` / `render_granular`
+    from a particle pool whose key is `key`: c bodies, f explosion events
+    (all substeps' spawn slots)."""
+    from nbx_torch.render.pipeline import FrameDraws
+
+    key, smoke = jax_smoke_draws(key, c, pool)
+    key, expl = jax_explosion_draws(key, f)
+    return key, FrameDraws(smoke, expl)
+
+
+def assert_frame_state_matches(fr, jfr) -> None:
+    """The renderer's state against the JAX FrameState: trails, particles and
+    lights to FLOAT_TOL; the trail slots, the particle slots (live, and ever
+    written) and the live lights exactly."""
+    got, want = convert.frame_state_to_arrays(fr), jax_frame_arrays(jfr)
+    np.testing.assert_array_equal(got["trails"]["valid"], want["trails"]["valid"])
+    np.testing.assert_array_equal(got["trails"]["head"], want["trails"]["head"])
+    assert_close(got["trails"]["pos"], want["trails"]["pos"], "trails.pos")
+    np.testing.assert_array_equal(got["particles"]["life"] > 0, want["particles"]["life"] > 0)
+    np.testing.assert_array_equal(got["particles"]["decay"] > 0, want["particles"]["decay"] > 0)
+    for name in ("pos", "vel", "life", "decay"):
+        assert_close(got["particles"][name], want["particles"][name], f"particles.{name}")
+    np.testing.assert_array_equal(got["lights"]["intensity"] > 0, want["lights"]["intensity"] > 0)
+    for name in ("pos", "intensity"):
+        assert_close(got["lights"][name], want["lights"][name], f"lights.{name}")
+
+
+def assert_hdr_close(got, want, what: str, tol: float = FLOAT_TOL) -> None:
+    """An image to `tol` of the reference's largest magnitude, and its
+    nonzero-pixel mask exactly."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(got.any(axis=-1), want.any(axis=-1), err_msg=f"{what}: pixel mask")
+    assert_close(got, want, what, tol)
+
+
+
+# A tonemapped frame with impostors against the jitted JAX frame: the
+# tonemap carries an impostor pixel's rounding through exposure / 0.6 and the
+# ACES and gamma slopes onto values in [0, 1]. nbx jitted and nbx run op by op
+# differ by up to 1.3e-4 on the galaxy's frames at 160x90; the port by up to
+# 3.3e-4 from either. Frames with impostors are held to 1e-3 of their largest
+# value; without impostors, to FLOAT_TOL.
+IMPOSTOR_FRAME_TOL = 1e-3
+
+
+def assert_frame_close(got, want, what: str, tol: float = IMPOSTOR_FRAME_TOL) -> None:
+    """A tonemapped frame with sphere impostors, to IMPOSTOR_FRAME_TOL."""
+    assert_close(got, want, what, tol)
