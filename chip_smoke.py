@@ -114,12 +114,14 @@ nbx_torch demo`):
  18. the gravity-fused collision kernel K7 against its plain version on the
      card, through the spatial step's local entries: the clustered 192-body
      scenes as slabs of 1-D and 2-D meshes (caps that cover and overflow,
-     dead bodies), then the 131,072-body cloud's local grids at
-     `bench spatial`'s 32,8,96,104, as D = 1 (the whole grid) and as four
-     virtual slabs on the one card (owned rows plus the boundary layers their
-     neighbours would send); K7's deltas and partners bitwise K2's on the
-     same windows; at zero-overflow caps the slabs' union equal to D = 1;
-     K7 and K2 timed on D = 1's windows
+     dead bodies) at eps = 0.5 and eps = 0 (the law's rsqrtf
+     instantiation), then the 131,072-body cloud's local grids at
+     `bench spatial`'s 32,8,96,104, as D = 1 (the whole grid; at eps = 0
+     too, and at R = 1 and 2 targets a thread) and as four virtual slabs on
+     the one card (owned rows plus the boundary layers their neighbours
+     would send); K7's deltas and partners bitwise K2's on the same windows;
+     at zero-overflow caps the slabs' union equal to D = 1; K7 and K2 timed
+     on D = 1's windows, and K7 at R = 1, 2, 2, 1 in turns
  19. the spatial halo-exchange step at world size 1 (a process group of this
      process alone, NCCL for the card and gloo for the CPU): `bench
      spatial`'s scene with pm, with p3m (K7's path) and with
@@ -193,18 +195,21 @@ nbx_torch demo`):
      layout, both launches timed; each probe's main at its defaults
      (131,072 at 32,8 and 262,144 at 40,8), its K2 launches counted
  27. the strict-sequential collision sweep (`csrc/collide_sequential.cu`,
-     one block a substep) against its plain version
-     (`ops.sequential.sweep_reference`) on the scenes of
-     tests/test_sequential.py in contact, a head-on fracture scene and a
-     4,096-body pile (each bitwise, or floats to 1e-5 with counters, flags
-     and materials exact; the pile twice bitwise; capacity 5,633 raises);
+     a card-wide pre-pass and a one-block walk a substep) against its plain
+     version (`ops.sequential.sweep_reference`) on the scenes of
+     tests/test_sequential.py in contact, a head-on fracture scene, two
+     scenes that reach the walk's escape path and a 4,096-body pile (each
+     bitwise, or floats to 1e-5 with counters, flags and materials exact;
+     the pile twice bitwise, its kernels timed; capacity 5,633 raises);
      the fracture scene through `resolve_collisions_sequential` on the card
      against the CPU with the same draws; then the reference scene at
      capacity 300 through sim.run(collision_impl="sequential"), 300 frames
      timed beside phase 3's Jacobi frame, one launch a substep, every 50th
      substep's sweep held against the plain version, one frame
-     sync-checked; the sweep timed at the reference scene's shapes, and the
-     kernel alone by CUDA events queued behind a sleep kernel
+     sync-checked; one call's kernels by torch.profiler (the pre-pass and
+     the walk, no fill); the sweep timed at the reference scene's shapes,
+     and the pre-pass, the walk and both alone by CUDA events queued behind
+     a sleep kernel
  28. the two-level P3M residual: p3m_acceleration(residual_mode="twolevel")
      on phase 9's 1M + 30k scene at the production tune (K4's main pass
      and K5 a call, no residual-residual launch; submesh 96 / 24 / 128),
@@ -282,8 +287,9 @@ bucket-0 launch (phase 26). A collision pass's bytes count the rows its
 windows read and the targets it writes, not the rows of its input (the
 "blocks" copy's padding is never read). The strict-sequential sweep
 (collide_sequential) replaces no TPU kernel (`nbx` runs it as a fori_loop):
-it launches on the sequential frame step's path (phase 27) and is timed at
-the reference scene's shapes; its bound counts the overlap tests this run's
+it launches on the sequential frame step's path (phase 27, a call two
+launches: the pre-pass and the walk) and is timed at the reference scene's
+shapes; its bound counts the overlap tests this run's
 sweep made (11 FP32 operations each) and, beside the card's, gives one SM's
 (1/132 of the FP32 rate: the sweep is one block). Phases 30-33 port no kernel:
 the renderer, the server and the demos run eager PyTorch around K1 and K2,
@@ -1954,34 +1960,39 @@ SMALL_GRAV = [
 def phase_grav_kernel(dev, n_big: int = SCALED_N, n_slabs: int = 4) -> dict:
     """K7 against its plain version on the card: the clustered 192-body
     scenes as slabs of 1-D and 2-D meshes (caps that cover and overflow, dead
-    bodies), then the 131,072-body cloud's local grids at bench spatial's
-    32,8,96,104: D = 1 (the whole grid, no halo) and n_slabs virtual slabs on
-    this one card; K7's collision outputs bitwise K2's on the same windows
-    throughout; at zero-overflow caps (packed_caps_for) the slabs' union
-    equal to D = 1. Times K7 and K2 on D = 1's windows. Returns K7's
-    kernels-line entry (without its launches)."""
+    bodies), at eps = 0.5 and at eps = 0 (the law's rsqrtf instantiation),
+    then the 131,072-body cloud's local grids at bench spatial's
+    32,8,96,104: D = 1 (the whole grid, no halo; at eps = 0 too) and
+    n_slabs virtual slabs on this one card; K7's collision outputs bitwise
+    K2's on the same windows throughout; at zero-overflow caps
+    (packed_caps_for) the slabs' union equal to D = 1. Times K7 and K2 on
+    D = 1's windows. Returns K7's kernels-line entry (without its
+    launches)."""
     g8 = 8
     err = 0.0
-    sg = (0.5, BOX / g8 / 3.0, 0.5)
-    for label, seed, dead, scale, (d_x, d_y, me_x, me_y), layout, caps in SMALL_GRAV:
-        pos, vel, mass = clustered_scene(seed=seed)
-        if dead:
-            mass[::5] = 0.0
-        if caps == "sized":
-            caps = (collide.packed_caps_for(pos, BOX, g8, 2) if layout == "packed" else
-                    tuple((t, s_, 64) for t, s_, _ in collide.bucketed_layout_for(pos, BOX, g8, 2, 0.6)))
-        inputs = collide_inputs(pos, vel, mass, scale, dev)
-        rows, _, slab = slab_rows(inputs[0], BOX, g8, d_x, d_y, me_x, me_y, junk=8)
-        got, want, k2, _, _ = local_both(inputs, rows, BOX, g8, 2, caps, slab, sg, layout)
-        err = max(err, check_local(f"clustered n=192 {label} caps {caps}", got, want, k2))
-        check((int(got[-1]) > 0) == ("overflows" in label), f"{label}: n_overflow {int(got[-1])}")
+    for eps in (0.5, 0.0):
+        sg = (0.5, BOX / g8 / 3.0, eps)
+        for label, seed, dead, scale, (d_x, d_y, me_x, me_y), layout, caps in SMALL_GRAV:
+            pos, vel, mass = clustered_scene(seed=seed)
+            if dead:
+                mass[::5] = 0.0
+            if caps == "sized":
+                caps = (collide.packed_caps_for(pos, BOX, g8, 2) if layout == "packed" else
+                        tuple((t, s_, 64) for t, s_, _ in collide.bucketed_layout_for(pos, BOX, g8, 2, 0.6)))
+            inputs = collide_inputs(pos, vel, mass, scale, dev)
+            rows, _, slab = slab_rows(inputs[0], BOX, g8, d_x, d_y, me_x, me_y, junk=8)
+            got, want, k2, _, _ = local_both(inputs, rows, BOX, g8, 2, caps, slab, sg, layout)
+            err = max(err, check_local(f"clustered n=192 eps={eps} {label} caps {caps}", got, want, k2))
+            check((int(got[-1]) > 0) == ("overflows" in label), f"{label}: n_overflow {int(got[-1])}")
 
     g, b, tc, sc_ = (int(x) for x in SPATIAL_CFG.split(","))
     pos, vel, mass = granular_cloud(n_big, seed=0, box=BOX)
     inputs = collide_inputs(pos, vel, mass, 1.0, dev)
-    sg = (0.5, BOX / g / 3.0, 0.5)
     every = torch.arange(n_big, device=dev)
     whole = (-1, g, 0, None)
+    got, want, k2, _, _ = local_both(inputs, every, BOX, g, b, (tc, sc_), whole, (0.5, BOX / g / 3.0, 0.0))
+    err = max(err, check_local(f"cloud n={n_big} D=1 eps=0.0", got, want, k2))
+    sg = (0.5, BOX / g / 3.0, 0.5)
     got, want, k2, calls, calls2 = local_both(inputs, every, BOX, g, b, (tc, sc_), whole, sg)
     err = max(err, check_local(f"cloud n={n_big} D=1 caps ({tc}, {sc_})", got, want, k2))
     t = time_local(18, f"cloud n={n_big} D=1 {SPATIAL_CFG}", calls, calls2, n_big)
@@ -2015,7 +2026,7 @@ def phase_grav_kernel(dev, n_big: int = SCALED_N, n_slabs: int = 4) -> dict:
     log(18, f"cloud n={n_big}: partners ({int((w_j >= 0).sum())} bodies with one) and bounces "
             f"({int(w_d[:, 7].sum())}) of the {n_slabs} slabs equal D = 1's")
     return dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], library_ms=None)
+                bound_by=t["bound_by"], library_ms=None, k2_ms=t["k2_ms"])
 
 
 def spatial_setup(dev, n: int = SCALED_N, token: str = SPATIAL_CFG, force: str = "pm", buckets=None,
@@ -3016,6 +3027,28 @@ def lattice_pile(side: int = 16, spacing: float = 2.75, seed: int = 3) -> tuple[
     return sc, timers
 
 
+def push_line(masses, slots, depth: float = 1.8, gap: float = 2.1, speed: float = 2.0) -> dict:
+    """Bodies of `masses` on the x axis in chain order, body k in slot
+    slots[k] (rock): the first, moving +x at `speed`, overlaps the second by
+    depth r_1; each later body starts gap (r_k-1 + r_k) from the one before,
+    beyond the walk's near margin (ops/sequential.py NEAR_SCALE = 2), and at
+    rest. Each mass is a thousandth of the one before, so each bounce's
+    correction carries the lighter body past its share of the margin into
+    the next: the walk's escape path."""
+    r = [(3.0 * m / (4.0 * np.pi)) ** (1.0 / 3.0) for m in masses]
+    x = [0.0, r[0] + r[1] - depth * r[1]]
+    for k in range(2, len(masses)):
+        x.append(x[-1] + gap * (r[k - 1] + r[k]))
+    n = len(masses)
+    pos, vel = np.zeros((n, 3), np.float32), np.zeros((n, 3), np.float32)
+    mass = np.zeros(n, np.float32)
+    for k, s in enumerate(slots):
+        pos[s] = (x[k], 0.01 * k, 0.0)
+        mass[s] = masses[k]
+    vel[slots[0], 0] = speed
+    return dict(pos=pos, vel=vel, mass=mass, mat=np.zeros(n, np.int32), temp=np.zeros(n, np.float32))
+
+
 def _timers(c: int, pairs) -> np.ndarray:
     t = np.zeros((c, c), np.float32)
     for i, j, v in pairs:
@@ -3028,7 +3061,12 @@ def sequential_scenes() -> dict:
     contact at its first substep: the four of tests/test_sequential.py (the
     isolated pair bouncing, the 5-body chain pile, the slow merge with its
     timer past merge_time, the 6-body pile merging and bouncing), a head-on
-    fracture scene at a low fracture_threshold, and a 4,096-body pile."""
+    fracture scene at a low fracture_threshold, two scenes that reach the
+    walk's escape path (push_line: a gap chain, each correction pushing the
+    next body, which touched no one at the start, into contact, in its own
+    row or as an escaped partner; a pushed body hitting, in its own row, a
+    body it never neared), the fracture scene at the kernel's largest
+    capacity, and a 4,096-body pile."""
     iso = scene.head_on_collision()
     iso["pos"][:, 0], iso["pos"][:, 2] = [-2.5, 2.5], [0, 2]
     slow = scene.head_on_collision()
@@ -3045,6 +3083,11 @@ def sequential_scenes() -> dict:
                                     _timers(16, [(2, 3, 0.2), (4, 5, 0.2)])),
         "head-on fracture": (SimConfig(capacity=64, merge_time=0.1, fracture_threshold=5.0), fracture_scene(),
                              _timers(64, [(4, 5, 0.2)])),
+        "gap chain": (SimConfig(capacity=16, **off), push_line([1e4, 10.0, 1e-2, 1e-5, 1e-8], [0, 2, 1, 3, 4]), None),
+        "pushed body's own row": (SimConfig(capacity=16, **off), push_line([1e3, 1.0, 1e-3, 1e-6], [0, 1, 2, 3]),
+                                  None),
+        "head-on fracture at capacity 5,632": (SimConfig(capacity=sequential.MAX_CAPACITY, merge_time=0.0,
+                                                         fracture_threshold=5.0), fracture_scene(), None),
         "4,096-body pile": (SimConfig(capacity=4096), lattice, lattice_timers),
     }
 
@@ -3078,6 +3121,7 @@ def check_sweep(name: str, got, want) -> float:
     c = {k: int(got.count(k)) for k in sequential.COUNTS}
     log(27, f"{name}: {'bitwise' if bitwise else f'max|kernel-plain|={err:.3e}'}; {c}")
     check(not bad, f"{name}: the sweep kernel against its plain version: {bad}")
+    check(bitwise, f"{name}: the sweep kernel bitwise its plain version")
     return err
 
 
@@ -3107,10 +3151,22 @@ def phase_sequential(dev, jacobi_ms: float, frames: int = 300, check_every: int 
         h = sim.substep_size(cfg)
         got = sequential.sweep(*inputs, h, cfg)
         err = max(err, check_sweep(f"{name} (C={cfg.capacity})", got, sequential.sweep_reference(*inputs, h, cfg)))
-    check(sweep_diff(got, sequential.sweep(*inputs, h, cfg))[1], "the 4,096-body pile: two launches bitwise")
+    check(sweep_diff(got, sequential.sweep(*inputs, h, cfg))[1], "the 4,096-body pile: two calls bitwise")
     b, b_sm = sweep_bound(inputs, got)
     pile_ms = cuda_ms(lambda: sequential.sweep(*inputs, h, cfg), 5)
-    log(27, f"4,096-body pile: kernel {pile_ms:.4f} ms; {bound_text(b)}; one SM's {bound_text(b_sm)}")
+    pile_stages = sweep_stage_ms(inputs, h, cfg, 5)
+    log(27, f"4,096-body pile: a call {pile_ms:.4f} ms; the kernels alone (CUDA events) " + stages_text(pile_stages)
+            + f"; {bound_text(b)}; one SM's {bound_text(b_sm)}")
+    # the same lattice 4 apart: every row has near words and no pair
+    # overlaps (the largest radius sum, two ice bodies', is 3.37), so the
+    # walk's time is its rows' alone
+    cfg = SimConfig(capacity=4096).to(dev)
+    apart = sweep_inputs(cfg, lattice_pile(spacing=4.0)[0], None, dev)
+    got = sequential.sweep(*apart, h, cfg)
+    check_sweep("4,096-body lattice 4 apart (C=4096)", got, sequential.sweep_reference(*apart, h, cfg))
+    check(int(got.count("n_bounces")) == 0, "the lattice 4 apart has no contact")
+    apart_stages = sweep_stage_ms(apart, h, cfg, 5)
+    log(27, "4,096-body lattice 4 apart: the kernels alone " + stages_text(apart_stages))
     with pytest_raises(ValueError):
         big = SimConfig(capacity=sequential.MAX_CAPACITY + 1)
         sequential.sweep(*sweep_inputs(big.to(dev), lattice_pile(2)[0], None, dev), h, big)
@@ -3185,20 +3241,97 @@ def phase_sequential(dev, jacobi_ms: float, frames: int = 300, check_every: int 
     log(27, "one sequential frame ran under set_sync_debug_mode('error'): no host sync in sim.step")
 
     args, out = recorded[-1]
+    names, where = sweep_call_kernels(args), "this process"
+    if not names:  # no profiler session of this process showed device events: a fresh process's
+        cmd = [sys.executable, "-c", "import json, chip_smoke; print(json.dumps(chip_smoke.sweep_call_kernels()))"]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"the sweep's kernels in a fresh process: {proc.stderr[-3000:]}")
+        names, where = json.loads(proc.stdout.splitlines()[-1]), "a fresh process (the head-on fracture scene)"
+    check(len(names) == 2 and "near_kernel" in names[0] and "walk_kernel" in names[1],
+          f"a sweep call launches the pre-pass and the walk and nothing else (no fill): {names}")
+    log(27, f"a call ran with torch's fills raising; its kernels (torch.profiler, {where}): {names}")
     k_ms = cuda_ms(lambda: kernel(*args), 20)
     plain_ms = cuda_ms(lambda: sequential.sweep_reference(*args), 1)
     b, b_sm = sweep_bound(args, out)
-    # the kernel's own device time: launches into outputs allocated once, each
-    # between two CUDA events queued behind a sleep kernel, so neither the
-    # wrapper's fills nor its host enqueue (about 0.14 ms, 16e) is in the span
-    out0 = sequential._outputs(args[0], args[1], args[2], args[8], cfg)
-    device_ms = bare_kernel_ms(lambda: sequential._launch_into(out0, args[:9], args[9], args[10]))
+    stages = sweep_stage_ms(args[:9], args[9], args[10])
     log(27, f"sweep at the reference scene (C=300, {int(out.count('n_tests'))} overlap tests): a call {k_ms:.4f} ms "
-            f"(the kernel alone {device_ms:.4f} ms on the device, CUDA events), plain {plain_ms:.3f} ms; "
-            f"{bound_text(b)}; one SM's {bound_text(b_sm)}; kernel/one SM's bound {k_ms / b_sm['bound_ms']:.1f}")
+            f"(the kernels alone on the device, CUDA events: {stages_text(stages)}), plain {plain_ms:.3f} ms; "
+            f"{bound_text(b)}; one SM's {bound_text(b_sm)}; kernels/one SM's bound "
+            f"{stages['both'] / b_sm['bound_ms']:.1f}")
     return dict(launches=launches, max_abs_err=err, ms=k_ms, plain_ms=plain_ms, **record(b), library_ms=None,
-                bound_ms_one_sm=b_sm["bound_ms"], kernel_device_ms=device_ms, ms_per_frame=ms,
-                jacobi_ms_per_frame=jacobi_ms, ms_pile_4096=pile_ms)
+                bound_ms_one_sm=b_sm["bound_ms"], kernel_device_ms=stages["both"], prepass_ms=stages["pre-pass"],
+                walk_ms=stages["walk"], ms_per_frame=ms, jacobi_ms_per_frame=jacobi_ms, ms_pile_4096=pile_ms,
+                pile_kernels_ms=pile_stages["both"], pile_prepass_ms=pile_stages["pre-pass"],
+                pile_walk_ms=pile_stages["walk"], apart_walk_ms=apart_stages["walk"])
+
+
+def sweep_stage_ms(args: tuple, h: float, cfg: SimConfig, reps: int = 20) -> dict:
+    """The device ms of a sweep's kernels on `args` (sweep's first nine),
+    each launch between CUDA events queued behind a sleep kernel
+    (bare_kernel_ms), so the wrapper's host work is not in the span: the
+    pre-pass alone, the walk alone (on the scratch a pre-pass left), both."""
+    c, dev = args[0].shape[0], args[0].device
+    out, scratch = sequential._outputs(*args[:3], args[8], cfg, zeroed=False), sequential._scratch(c, dev)
+    sequential._launch_into(out, scratch, args, h, cfg)
+    return {name: bare_kernel_ms(lambda s=st: sequential._launch_into(out, scratch, args, h, cfg, s), reps)
+            for name, st in (("pre-pass", sequential.PREPASS), ("walk", sequential.WALK),
+                             ("both", sequential.BOTH))}
+
+
+def stages_text(t: dict) -> str:
+    return f"pre-pass {t['pre-pass']:.4f} ms, walk {t['walk']:.4f} ms, both {t['both']:.4f} ms"
+
+
+@contextlib.contextmanager
+def no_fills():
+    """torch's fills (zeros, full, their _like forms, zero_, fill_) raise
+    inside the block: a call that runs through launches no fill kernel."""
+    def refuse(*args, **kwargs):
+        raise RuntimeError("a fill inside a call that should launch none")
+
+    names = [(torch, n) for n in ("zeros", "zeros_like", "full", "full_like")] + \
+            [(torch.Tensor, n) for n in ("zero_", "fill_")]
+    kept = [(owner, n, getattr(owner, n)) for owner, n in names]
+    for owner, n, _ in kept:
+        setattr(owner, n, refuse)
+    try:
+        yield
+    finally:
+        for owner, n, fn in kept:
+            setattr(owner, n, fn)
+
+
+def sweep_call_kernels(args=None) -> list[str]:
+    """The device kernels of one sweep call on `args` (sweep's eleven; by
+    default the head-on fracture scene on the card), by call_kernels, after
+    the same call ran with torch's fills raising (no_fills)."""
+    if args is None:
+        cfg, sc, timers = sequential_scenes()["head-on fracture"]
+        cfg = cfg.to("cuda")
+        args = (*sweep_inputs(cfg, sc, timers, "cuda"), sim.substep_size(cfg), cfg)
+    with no_fills():
+        sequential.sweep(*args)
+    return call_kernels(lambda: sequential.sweep(*args))
+
+
+def call_kernels(call, tries: int = 3) -> list[str]:
+    """The names of the device kernels one `call()` launches, in launch
+    order, by torch.profiler: the first of `tries` profiled calls whose
+    session shows device events (late in a long process a session has shown
+    none; [] if none does)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    names = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted((e for e in prof.events() if e.device_type == cuda),
+                                        key=lambda e: e.time_range.start)]
+        if names:
+            break
+    return names
 
 
 def bare_kernel_ms(launch, reps: int = 20) -> float:

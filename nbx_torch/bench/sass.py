@@ -22,12 +22,14 @@ with kGrav) has no MUFU.RSQ a lane: its overlap test runs in a loop of its
 own, several lanes unrolled, apart from the hit path (rsqrtf and the
 physics, taken only by overlapping pairs, in a loop over the hits). Its
 marker is the shortest loop that holds at least 4 LDS.128 (K7's: the
-shortest that holds a MUFU.EX2, its law on every lane): each lane of the
+shortest that holds a MUFU.EX2, its law on every lane): each lane of K2's
 overlap test loads its staged row's first 16 bytes (x y z vx) once, so the
-LDS.128 in that loop are its lanes; the hit loop loads whole rows, two a
-hit, and evaluates no exponential. It reports instructions a lane
-(lanes_in_loop) and, over its R targets a thread (the kernel's first
-template argument), a pair.
+LDS.128 in that loop are its lanes; K7's loop evaluates the law once a lane
+a target, so its lanes are its MUFU.EX2 over R (ptxas may add an LDS.128
+there: K7's one-MUFU law's loop holds 5 for 4 lanes); the hit loop loads
+whole rows, two a hit, and evaluates no exponential. It reports
+instructions a lane (lanes_in_loop) and, over its R targets a thread (the
+kernel's first template argument), a pair.
 
     python -m nbx_torch.bench.sass [kernel ...]
     # default: the direct sums; or pp_react pp_short collide_fused
@@ -105,17 +107,17 @@ def per_pair(code: list[tuple[int, str, str]]) -> tuple[int, dict[str, float]]:
     return pairs, {op: n / max(pairs, 1) for op, n in sorted(body.items())}
 
 
-def per_lane(code: list[tuple[int, str, str]]) -> tuple[int, dict[str, float]]:
+def per_lane(code: list[tuple[int, str, str]], targets: int = 1) -> tuple[int, dict[str, float]]:
     """(lanes in the overlap loop, instructions a lane by opcode) of a
-    collision kernel: the shortest loop that holds a MUFU.EX2 (K7), or else
-    the shortest that holds at least 4 LDS.128, one a lane, counted whole
-    (no branch in it)."""
+    collision kernel of `targets` targets a thread: the shortest loop that
+    holds a MUFU.EX2 (K7: a lane an EX2 a target), or else the shortest that
+    holds at least 4 LDS.128, one a lane, counted whole (no branch in it)."""
     loops = [(hi - lo, body) for lo, hi, body in _loops(code)
              if body.get("LDS.128", 0) >= 1 and (body.get("MUFU.EX2", 0) or body["LDS.128"] >= 4)]
     if not loops:
         return 0, {}
     _, body = min(loops, key=lambda loop: (loop[1].get("MUFU.EX2", 0) == 0, loop[0]))
-    lanes = body["LDS.128"]
+    lanes = body["MUFU.EX2"] // targets if body.get("MUFU.EX2", 0) else body["LDS.128"]
     return lanes, {op: n / lanes for op, n in sorted(body.items())}
 
 
@@ -132,8 +134,8 @@ def main(kernels=DIRECT_SUMS) -> list[dict]:
             if name == "collide_fused":
                 if "collide_fused_kernel" not in fn:
                     continue
-                lanes, ops = per_lane(code)
                 r = targets_a_thread(fn)
+                lanes, ops = per_lane(code, r)
                 a_lane = sum(ops.values())
                 rows.append({"source": f"csrc/{name}.cu", "function": fn, "lanes_in_loop": lanes,
                              "targets_a_thread": r, "instructions_a_lane": a_lane,

@@ -45,7 +45,8 @@
 //    [32 R g, 32 R (g + 1)), R targets a thread (thread l holds targets
 //    32 i + l, i < R), so one staged lane serves R targets. R = 2, or 1 for
 //    windows of at most 32 or at least 256 target rows (K8's full columns:
-//    more, shorter units) and for K7 (ops/collide.py, launch_shape). Units
+//    more, shorter units) and for K7, where R = 2 ran 16-18% slower on the
+//    card (ops/collide.py, launch_shape; PERF.md). Units
 //    past a window's target count exit at once; the targets of a large
 //    window take units of their own instead of restaging.
 //  * A block runs one group of `windows_per_block` consecutive windows;
@@ -82,21 +83,23 @@
 //
 // With gravity (kGrav, the TPU kernel K7): every lane of the window, not only
 // the overlapping pairs, also adds the P3M short-range pull of
-// csrc/pp_law.cuh (its exact form, pair_weight: rsqrtf, expf and the IEEE
-// reciprocal, in the TPU kernels' Horner order; K4 and K5 take the one-MUFU
-// form) to the target,
+// csrc/pp_law.cuh to the target, in K4's form (pair_base_unmasked: one MUFU
+// instruction a special function, rsqrt.approx.ftz where eps^2 >= FLT_MIN
+// (kFtz) and a guarded rsqrtf below it, eps = 0 too; the constants of
+// LawApprox built once a thread),
 //
 //   grav_i = G sum_j w_ij d_ij,  w_ij = m_j [erfc(x)/s + c_a e^(-x^2)] / s^2,
 //
 // masked to 0 unless both masses are > 0, the ids differ and r^2 > 0 (a
 // masked source lane carries mass 0), folded over the runs as the collision
 // sums are. Every lane pays an rsqrt, an exp and a reciprocal: K7 is bound by
-// the SFU rate on the window's lanes, not by FP32 issue as K2 is; its law is
-// not redesigned here, but its masks are one select (pp_law.cuh, keep_pair)
-// with the id test folded into the source mass, so no branch keeps the
-// unrolled lanes' laws apart. The collision decisions keep their rule on FMA
-// contraction, so K7's delta rows and partners are K2's bit for bit.
+// the SFU rate on the window's lanes, not by FP32 issue as K2 is. Its masks
+// are one select (pp_law.cuh, keep_pair) with the id test folded into the
+// source mass, so no branch keeps the unrolled lanes' laws apart. The
+// collision decisions keep their rule on FMA contraction, and the runs do
+// not depend on R, so K7's delta rows and partners are K2's bit for bit.
 
+#include <cfloat>
 #include <climits>
 #include <cuda_runtime.h>
 
@@ -207,11 +210,12 @@ __device__ __forceinline__ void stage(int r, int round_lanes, int total, int s_s
   }
 }
 
-// R targets a thread; kGrav adds K7's gravity. See the header for the design.
-// The minimum of one block an SM lets ptxas give the R = 1 instantiations the
-// registers they need: without it, it held them to 80, and K7 spilled and ran
-// 5% slower on the card (PERF.md).
-template <int R, bool kGrav>
+// R targets a thread; kGrav adds K7's gravity, kFtz its law's
+// rsqrt.approx.ftz. See the header for the design. The minimum of one block
+// an SM lets ptxas give the R = 1 instantiations the registers they need:
+// without it, it held them to 80, and K7 spilled and ran 5% slower on the
+// card (PERF.md).
+template <int R, bool kGrav, bool kFtz>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted: (x y z vx), (vy vz m r)
                      const int* __restrict__ order,             // [n] sorted position -> body id
@@ -243,6 +247,7 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
   const int round_lanes = tm * kRun;
   const int tid = tw * 32 + lane;
   const float one_e = 1.f + e;
+  const nbx_pp::LawApprox la = nbx_pp::approx_of(law);
 
   // this block's group g and windows [w0, w0 + nw); the last group's blocks
   // first, so that the few long units of the windows that fill it start
@@ -363,7 +368,8 @@ collide_fused_kernel(const float4* __restrict__ feats,          // [n, 2] sorted
               const float md = __fadd_rn(ri[i], rj);
               if (r2 < __fmul_rn(md, md)) hit[i] |= 1u << j;
               if (kGrav) {
-                const float wg = nbx_pp::pair_weight(r2, gj != gi[i] ? mj : 0.f, law);
+                const float mg = gj != gi[i] ? mj : 0.f;
+                const float wg = nbx_pp::keep_pair(mg * nbx_pp::pair_base_unmasked<kFtz>(r2, la), r2, mg);
                 s[i][8] += wg * dx;
                 s[i][9] += wg * dy;
                 s[i][10] += wg * dz;
@@ -492,7 +498,7 @@ struct Shape {
   int n_win, groups, windows_per_block, team_warps, teams;
 };
 
-template <int R, bool kGrav>
+template <int R, bool kGrav, bool kFtz>
 cudaError_t launch(const void* feats, const void* order, const void* src_ok, const void* win, void* out_d,
                    void* out_j, void* out_g, const Shape& sh, float e, float fric, const nbx_pp::Law& law,
                    cudaStream_t stream) {
@@ -502,13 +508,13 @@ cudaError_t launch(const void* feats, const void* order, const void* src_ok, con
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (smem > 48 * 1024 && smem > allowed[dev & 15]) {
-    err = cudaFuncSetAttribute(collide_fused_kernel<R, kGrav>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(collide_fused_kernel<R, kGrav, kFtz>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     allowed[dev & 15] = smem;
   }
   const long long blocks =
       static_cast<long long>((sh.n_win + sh.windows_per_block - 1) / sh.windows_per_block) * sh.groups;
-  collide_fused_kernel<R, kGrav><<<static_cast<unsigned>(blocks), sh.teams * sh.team_warps * 32, smem, stream>>>(
+  collide_fused_kernel<R, kGrav, kFtz><<<static_cast<unsigned>(blocks), sh.teams * sh.team_warps * 32, smem, stream>>>(
       static_cast<const float4*>(feats), static_cast<const int*>(order), static_cast<const unsigned char*>(src_ok),
       static_cast<const int*>(win), static_cast<float*>(out_d), static_cast<int*>(out_j), sh.n_win, sh.groups,
       sh.windows_per_block, sh.team_warps, e, fric, static_cast<float*>(out_g), law);
@@ -524,15 +530,21 @@ int dispatch(int targets, const void* feats, const void* order, const void* src_
       sh.teams * tm > kMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // K2: R = 1 or 2 (ops/collide.py, launch_shape); K7: R = 1, its law with
+  // rsqrt.approx.ftz where eps^2 is normal, as K4 and K5 take it
   cudaError_t err;
-  // K2: R = 1 or 2 (ops/collide.py, launch_shape); K7: R = 1
-  if (targets == 1) {
-    err = launch<1, kGrav>(feats, order, src_ok, win, out_d, out_j, out_g, sh, e, fric, law, s);
-  } else if constexpr (!kGrav) {
-    err = targets == 2 ? launch<2, false>(feats, order, src_ok, win, out_d, out_j, out_g, sh, e, fric, law, s)
-                       : cudaErrorInvalidValue;
+  if constexpr (kGrav) {
+    if (targets != 1)
+      err = cudaErrorInvalidValue;
+    else if (law.eps2 >= FLT_MIN)
+      err = launch<1, true, true>(feats, order, src_ok, win, out_d, out_j, out_g, sh, e, fric, law, s);
+    else
+      err = launch<1, true, false>(feats, order, src_ok, win, out_d, out_j, out_g, sh, e, fric, law, s);
+  } else if (targets == 1) {
+    err = launch<1, false, false>(feats, order, src_ok, win, out_d, out_j, out_g, sh, e, fric, law, s);
   } else {
-    err = cudaErrorInvalidValue;
+    err = targets == 2 ? launch<2, false, false>(feats, order, src_ok, win, out_d, out_j, out_g, sh, e, fric, law, s)
+                       : cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

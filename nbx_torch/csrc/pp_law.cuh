@@ -3,17 +3,17 @@
 //
 //   acc_i = G sum_j w_ij d_ij,   d_ij = p_j - p_i,
 //   w_ij  = m_j [erfc(x)/s + c_a e^(-x^2)] / s^2,   s = sqrt(r^2 + eps^2),
-//   x = (s^2 rsqrt(s^2)) (1/a),  c_a = 2 / (a sqrt(pi)),
+//   x = s / a,  c_a = 2 / (a sqrt(pi)),
 //
 // masked to 0 unless r^2 > 0 and m_j > 0, with erfc(x) from the Abramowitz &
 // Stegun 7.1.26 polynomial in the Horner order of the TPU kernels
-// (nbx/ops/ppkernel.py:109-115). Two forms:
-//   pair_weight (K7): rsqrtf, expf and the IEEE reciprocal __frcp_rn; K7's
-//   gravity keeps these bits;
-//   pair_base_approx (K5; K4 as pair_base_unmasked with keep_pair's select):
-//   the weight without m_j, one MUFU instruction each, rsqrt.approx.ftz
-//   where eps^2 is normal, ex2.approx.ftz and rcp.approx.ftz, and the
-//   constants folded (below).
+// (nbx/ops/ppkernel.py:109-115). One form, one MUFU instruction a special
+// function (rsqrt.approx.ftz where eps^2 is normal, ex2.approx.ftz,
+// rcp.approx.ftz) with the constants folded (below): pair_base_approx (K5),
+// and pair_base_unmasked with keep_pair's select (K4 and K7, the weight
+// times m_j). The plain versions take the exact functions; each MUFU is
+// within 2 ulp of its IEEE counterpart (PTX ISA), so a weight moves by a
+// few float32 roundings, far inside the kernels' 1e-5 of max|plain|.
 
 #pragma once
 
@@ -34,10 +34,10 @@ struct Law {
   float eps2, inv_a, c_a, g;
 };
 
-// w where r^2 > 0 and m_j > 0, else 0 (K4's weight m_j wbase, and K7's
-// pair_weight): one select in PTX. Written as `?:` in C++, with m_j > 0
-// uniform across a warp (a staged source), the compiler branches around the
-// whole law instead: a branch and a move a pair.
+// w where r^2 > 0 and m_j > 0, else 0 (K4's and K7's weight m_j wbase): one
+// select in PTX. Written as `?:` in C++, with m_j > 0 uniform across a warp
+// (a staged source), the compiler branches around the whole law instead: a
+// branch and a move a pair.
 __device__ __forceinline__ float keep_pair(float w, float r2, float mj) {
   float y;
   asm("{\n\t.reg .pred p;\n\tsetp.gt.f32 p, %3, 0f00000000;\n\tsetp.gt.and.f32 p, %2, 0f00000000, p;\n\t"
@@ -47,23 +47,7 @@ __device__ __forceinline__ float keep_pair(float w, float r2, float mj) {
   return y;
 }
 
-__device__ __forceinline__ float pair_weight(float r2, float mj, const Law& law) {
-  const float s2 = r2 + law.eps2;
-  const float inv_s = rsqrtf(s2 > 0.f ? s2 : 1.f);
-  const float x = (s2 * inv_s) * law.inv_a;
-  const float ex2 = expf(-x * x);
-  const float tt = __frcp_rn(1.f + kAsP * x);
-  float poly = kAs5;
-  poly = poly * tt + kAs4;
-  poly = poly * tt + kAs3;
-  poly = poly * tt + kAs2;
-  poly = poly * tt + kAs1;
-  const float erfc_x = poly * tt * ex2;
-  const float w = mj * (erfc_x * inv_s + law.c_a * ex2) * (inv_s * inv_s);
-  return keep_pair(w, r2, mj);  // no branch around the law: K7's unrolled lanes interleave
-}
-
-// K4's and K5's law: the weight without the source mass, wbase = [erfc(x)/s +
+// The law: the weight without the source mass, wbase = [erfc(x)/s +
 // c_a e^(-x^2)] / s^2, 0 where r^2 = 0 (a select, so that a coincident
 // pair's 0 * inf never enters a sum). One MUFU instruction a special
 // function:
@@ -73,7 +57,7 @@ __device__ __forceinline__ float pair_weight(float r2, float mj, const Law& law)
 //   t = rcp.approx.ftz(1 + k_p s), k_p = p / a;
 //   wbase = ex2 (poly t / s + c_a) / s^2, poly in the Horner order above.
 // Each is within 2 ulp of its IEEE counterpart (PTX ISA), so wbase moves by a
-// few float32 roundings against pair_weight's.
+// few float32 roundings against the exact functions'.
 struct LawApprox {
   float eps2, k_ex, k_p, c_a;
 };

@@ -24,10 +24,13 @@ A merge or a fracture removes both bodies from the rest of the sweep and
 zeroes the pair's timer. Every later pair sees all of it. After the loop the
 timers of pairs that did not overlap are pruned to 0.
 
-`sweep` runs the kernel `nbx_torch/csrc/collide_sequential.cu` (one launch,
-one block) on CUDA tensors and its plain PyTorch version `sweep_reference` on
-CPU tensors; any other device raises. The plain version is the CPU path and
-the kernel's yardstick on the card; it reads every decision back to the host.
+`sweep` runs the kernels of `nbx_torch/csrc/collide_sequential.cu` (a
+card-wide pre-pass that marks the pairs near at the start, then a one-block
+walk of the rows: two launches) on CUDA tensors and its plain PyTorch version
+`sweep_reference` on CPU tensors; any other device raises. The plain version
+is the CPU path and the kernel's yardstick on the card; it reads every
+decision back to the host. `_near_walk_reference` walks the kernel's rule
+(only near or escaped candidates are tested) in torch ops, for the tests.
 
 Both use the fact that a live pair that does not overlap changes nothing:
 its timer stays, its heat, correction and impulse are zeros (only the sign
@@ -56,9 +59,17 @@ from nbx_torch.ops.collide import _check
 from nbx_torch.ops.pairwise import _launch
 
 CORRECTION = 0.8  # Baumgarte position-correction factor, as in collisions.py
-# The kernel keeps 41 bytes a body in shared memory (csrc/collide_sequential.cu);
-# 5,632 bodies take 230,912 of the 232,448 bytes a block may use.
+# The walk keeps 40 bytes a body in shared memory and two bitmasks
+# (csrc/collide_sequential.cu); 5,632 bodies take 226,688 of the 232,448
+# bytes a block may use.
 MAX_CAPACITY = 5632
+# The near-pair walk (csrc/collide_sequential.cu): a pair is near when its
+# start distance passes the overlap test with r_i + r_j scaled by NEAR_SCALE,
+# a margin of r_i + r_j; a body escapes once its displacement bound passes
+# ESCAPE r_k, its share of the margin less 1/16 of it, the slack that covers
+# rounding (the kernel's header states the argument).
+NEAR_SCALE = 2.0
+ESCAPE = 0.9375
 # counts[6]: the sweep's counters, and the overlap tests it made (a row's
 # live candidates up to and including each hit, or to the row's end)
 COUNTS = ("n_bounces", "m_cnt", "m_drop", "f_cnt", "f_drop", "n_tests")
@@ -108,21 +119,31 @@ class _Constants:
                    f32(1.0 + f32(cfg.restitution)), f32(cfg.friction))
 
 
-def _outputs(pos, vel, temp, contact, cfg: SimConfig) -> dict:
+def _outputs(pos, vel, temp, contact, cfg: SimConfig, zeroed: bool = True) -> dict:
     """The outputs a sweep fills, made on the inputs' device: the bodies to
-    be overwritten, the zeroed timers and record buffers."""
+    be overwritten, the timers and record buffers zeroed (the plain version)
+    or left for the kernel's pre-pass to zero (zeroed=False: nothing is
+    filled, so a call launches no fill kernel)."""
     mm, ff = cfg.max_merges, cfg.max_fractures
     z = dict(device=pos.device)
+    new = torch.zeros if zeroed else torch.empty
     return dict(
         pos=torch.empty_like(pos), vel=torch.empty_like(vel), temp=torch.empty_like(temp),
-        contact=torch.zeros_like(contact),
+        contact=new(contact.shape, dtype=torch.float32, **z),
         removed=torch.empty(pos.shape[0], dtype=torch.bool, **z),
         counts=torch.empty(len(COUNTS), dtype=torch.int32, **z),
-        mbuf=torch.zeros((mm, MERGE_WIDTH), dtype=torch.float32, **z),
-        mmat=torch.zeros(mm, dtype=torch.int32, **z),
-        fbuf=torch.zeros((ff, FRACTURE_WIDTH), dtype=torch.float32, **z),
-        fmat=torch.zeros(ff, dtype=torch.int32, **z),
+        mbuf=new((mm, MERGE_WIDTH), dtype=torch.float32, **z),
+        mmat=new(mm, dtype=torch.int32, **z),
+        fbuf=new((ff, FRACTURE_WIDTH), dtype=torch.float32, **z),
+        fmat=new(ff, dtype=torch.int32, **z),
     )
+
+
+def _scratch(c: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-pass's near bitmask [C, ceil(C/32)] and row spans [C], uint32
+    words held as int32, unfilled."""
+    return (torch.empty((c, -(-c // 32)), dtype=torch.int32, device=dev),
+            torch.empty(c, dtype=torch.int32, device=dev))
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -137,7 +158,7 @@ def _weighted(a_i, m_i, a_j, m_j, tot):
 def _apply_pair(i: int, j: int, b: dict, out: dict, live: np.ndarray, n: dict, k: _Constants,
                 cfg: SimConfig) -> None:
     """Pair (i, j), known to overlap, applied in place: the plain version of
-    the kernel's `apply_pair`, operation for operation."""
+    the kernel's `apply_warp`, operation for operation."""
     pos, vel, temp, mass, inv = b["pos"], b["vel"], b["temp"], b["mass"], b["inv_m"]
     d = pos[j] - pos[i]
     dist2 = _dot3(d, d)
@@ -239,6 +260,89 @@ def sweep_reference(pos, vel, temp, mass, radius, inv_m, mat, alive, contact, h:
     return Sweep(**out)
 
 
+@dataclasses.dataclass(frozen=True)
+class Walk:
+    """The near-pair walk's bookkeeping (`_near_walk_reference`): the near
+    set [C, C] (i < j), the bodies escaped by the sweep's end [C], and each
+    applied pair in sweep order as (i, j, near, i escaped, j escaped) at the
+    time of its test."""
+
+    near: np.ndarray
+    escaped: np.ndarray
+    hits: list
+
+
+def _near_set(pos: torch.Tensor, radius: torch.Tensor, block: int = 256) -> np.ndarray:
+    """The pre-pass's near set [C, C]: pairs i < j whose start positions pass
+    the overlap test with r_i + r_j scaled by NEAR_SCALE, rounded as the
+    kernel rounds."""
+    c = pos.shape[0]
+    near = np.zeros((c, c), bool)
+    for i0 in range(0, c, block):
+        d = pos[None, :, :] - pos[i0:i0 + block, None, :]  # d[i, j] = pos[j] - pos[i]
+        s = (radius[i0:i0 + block, None] + radius[None, :]) * NEAR_SCALE
+        near[i0:i0 + block] = (_dot3(d, d) < s * s).numpy()
+    return np.triu(near, 1)
+
+
+def _near_walk_reference(pos, vel, temp, mass, radius, inv_m, mat, alive, contact, h: float,
+                         cfg: SimConfig) -> tuple[Sweep, Walk]:
+    """The kernel's near-pair walk in plain ops, on CPU tensors, for the
+    tests: the near set at the start positions (`_near_set`), a displacement
+    bound per body, summed as the kernel sums it after each move, and the
+    escape rule, bound > ESCAPE r_k; row i tests its live candidates in the
+    near set or escaped, or every live candidate once i has escaped, applies
+    the first hit with `sweep_reference`'s `_apply_pair` and resumes after
+    it. n_tests by the kernel's count: a row's live candidates up to the hit
+    that removed it, or every live body above it. Returns the Sweep, which
+    must equal `sweep_reference`'s bit for bit, and the Walk."""
+    c = pos.shape[0]
+    k = _Constants.of(cfg, h)
+    out = _outputs(pos, vel, temp, contact, cfg)
+    b = dict(pos=pos.clone(), vel=vel.clone(), temp=temp.clone(), mass=mass, radius=radius, inv_m=inv_m, mat=mat,
+             contact=contact)
+    live = alive.cpu().numpy().copy()
+    near = _near_set(pos, radius)
+    theta = radius * ESCAPE
+    disp = torch.zeros_like(radius)
+    escaped = np.zeros(c, bool)
+    hits = []
+    n = dict.fromkeys(COUNTS, 0)
+    above = int(live.sum())  # live bodies at or above row i
+    for i in range(c):
+        if not live[i]:
+            continue
+        above -= 1
+        j0, tests = i + 1, above
+        while j0 < c:
+            cand = live[j0:] if escaped[i] else live[j0:] & (near[i, j0:] | escaped[j0:])
+            idx = torch.from_numpy(np.flatnonzero(cand) + j0)
+            d = b["pos"][idx] - b["pos"][i]
+            min_dist = radius[i] + radius[idx]
+            first = np.flatnonzero((_dot3(d, d) < min_dist * min_dist).numpy())
+            if first.size == 0:
+                break
+            j = int(idx[first[0]])
+            hits.append((i, j, bool(near[i, j]), bool(escaped[i]), bool(escaped[j])))
+            before = b["pos"][[i, j]].clone()
+            _apply_pair(i, j, b, out, live, n, k, cfg)
+            for body, p0 in zip((i, j), before):
+                a = (b["pos"][body] - p0).abs()
+                disp[body] = disp[body] + ((a[0] + a[1]) + a[2])
+                escaped[body] = bool(disp[body] > theta[body])
+            if not live[i]:  # fired: its candidates up to j, j then live; j leaves the bodies above
+                tests = int(live[i + 1:j + 1].sum()) + 1
+                above -= 1
+                break
+            j0 = j + 1
+        n["n_tests"] += tests
+    for name in ("pos", "vel", "temp"):
+        out[name].copy_(b[name])
+    out["removed"].copy_(alive & ~torch.from_numpy(live))
+    out["counts"].copy_(torch.tensor([n[name] for name in COUNTS], dtype=torch.int32))
+    return Sweep(**out), Walk(near, escaped, hits)
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -247,9 +351,8 @@ def sweep(pos, vel, temp, mass, radius, inv_m, mat, alive, contact, h: float, cf
     vel [C, 3], temp, mass, radius, inv_m [C] float32, mat [C] int32, alive
     [C] bool, contact [C, C] float32, all contiguous. The kernel on CUDA
     tensors (C at most MAX_CAPACITY, else ValueError), `sweep_reference` on
-    CPU tensors, and
-    ValueError on any other device. `sweep.launches` counts the kernel's
-    launches."""
+    CPU tensors, and ValueError on any other device. `sweep.launches` counts
+    the kernel's calls, each two launches: the pre-pass and the walk."""
     dev = pos.device
     if dev.type == "cpu":
         return sweep_reference(pos, vel, temp, mass, radius, inv_m, mat, alive, contact, h, cfg)
@@ -265,22 +368,27 @@ def sweep(pos, vel, temp, mass, radius, inv_m, mat, alive, contact, h: float, cf
                                   ("mat", mat, torch.int32, (c,)), ("alive", alive, torch.bool, (c,)),
                                   ("contact", contact, torch.float32, (c, c))):
         _check(name, t, dtype, shape, dev)
-    out = _outputs(pos, vel, temp, contact, cfg)
-    _launch_into(out, (pos, vel, temp, mass, radius, inv_m, mat, alive, contact), h, cfg)
+    out = _outputs(pos, vel, temp, contact, cfg, zeroed=False)
+    _launch_into(out, _scratch(c, dev), (pos, vel, temp, mass, radius, inv_m, mat, alive, contact), h, cfg)
     sweep.launches += 1
     return Sweep(**out)
 
 
-def _launch_into(out: dict, args: tuple, h: float, cfg: SimConfig) -> None:
-    """Launch the kernel on checked inputs `args` (sweep's first nine) into
-    the outputs `out` (`_outputs`), uncounted: `sweep` counts its launches."""
+# the pre-pass alone, the walk alone (on the scratch a pre-pass left), both
+PREPASS, WALK, BOTH = 1, 2, 3
+
+
+def _launch_into(out: dict, scratch: tuple, args: tuple, h: float, cfg: SimConfig, stages: int = BOTH) -> None:
+    """Launch the kernels on checked inputs `args` (sweep's first nine) into
+    the outputs `out` (`_outputs`) with the scratch `_scratch`, uncounted:
+    `sweep` counts its calls, each the pre-pass and the walk."""
     k = _Constants.of(cfg, h)
-    _launch("collide_sequential", [_P] * 19 + [_I] * 3 + [_F] * 8 + [_P], args[0].device,
+    _launch("collide_sequential", [_P] * 21 + [_I] * 4 + [_F] * 8 + [_P], args[0].device,
             *(t.data_ptr() for t in args),
             *(out[name].data_ptr() for name in ("pos", "vel", "temp", "removed", "contact", "counts", "mbuf",
                                                 "mmat", "fbuf", "fmat")),
-            args[0].shape[0], cfg.max_merges, cfg.max_fractures, k.h, k.merge_time, k.merge_q, k.fracture_q,
-            k.min_fragment_mass, k.correction, k.restitution1, k.friction)
+            *(t.data_ptr() for t in scratch), args[0].shape[0], cfg.max_merges, cfg.max_fractures, stages, k.h,
+            k.merge_time, k.merge_q, k.fracture_q, k.min_fragment_mass, k.correction, k.restitution1, k.friction)
 
 
 sweep.launches = 0

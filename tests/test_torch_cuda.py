@@ -801,6 +801,22 @@ def test_grav_kernel_matches_plain_and_k2(dev, case):
     assert torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1]) and int(got[3]) == int(k2[2])
 
 
+def test_grav_kernel_at_zero_eps(dev):
+    """K7 at eps = 0 (its law's rsqrtf instantiation) on the 131,072-body
+    cloud's whole grid: gravity to TOL of its plain version, its deltas,
+    partners and n_overflow bitwise K2's on the same windows."""
+    from chip_smoke import SCALED_N, SPATIAL_CFG, collide_inputs, local_both
+
+    g, b, tc, sc = (int(x) for x in SPATIAL_CFG.split(","))
+    pos, vel, mass = granular_cloud(SCALED_N, seed=0, box=BOX)
+    inputs = collide_inputs(pos, vel, mass, 1.0, dev)
+    got, want, k2, _, _ = local_both(inputs, torch.arange(SCALED_N, device=dev), BOX, g, b, (tc, sc),
+                                     (-1, g, 0, None), (0.5, BOX / g / 3.0, 0.0))
+    assert _rel_err(got[2], want[2]) < TOL and float(want[2].abs().max()) > 0
+    assert _rel_err(got[0][:, :7], want[0][:, :7]) < TOL and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1]) and int(got[-1]) == int(k2[-1])
+
+
 def _spatial_pair(dev, force, n=4096):
     """The same spatial step on a CUDA mesh and a CPU mesh of one process."""
     from chip_smoke import spatial_setup
@@ -1212,8 +1228,9 @@ def test_probe_kernel_matches_plain_and_blocks_are_bitwise_desc(dev, n, cfg):
 @pytest.mark.parametrize("name", list(sequential_scenes()))
 def test_sequential_sweep_matches_plain(dev, name):
     """The sweep kernel against its plain version on each scene of
-    chip_smoke's phase 27: every float within 1e-5 of its field's largest
-    magnitude (bitwise, as measured), counters, flags and materials exact."""
+    chip_smoke's phase 27 (the escape scenes too): bitwise, and so every
+    float within 1e-5 of its field's largest magnitude, counters, flags and
+    materials exact."""
     cfg, sc, timers = sequential_scenes()[name]
     cfg = cfg.to(dev)
     inputs = sweep_inputs(cfg, sc, timers, dev)
@@ -1223,6 +1240,16 @@ def test_sequential_sweep_matches_plain(dev, name):
     assert sequential.sweep.launches == before + 1
     err, bitwise, bad = sweep_diff(got, sequential.sweep_reference(*inputs, h, cfg))
     assert not bad, (bad, err)
+    assert bitwise, err
+
+
+def test_sequential_sweep_launches_no_fill(dev):
+    """A call launches the pre-pass and the walk, and no fill kernel: the
+    pre-pass zeroes the timers and the record buffers."""
+    from chip_smoke import sweep_call_kernels
+
+    names = sweep_call_kernels()
+    assert len(names) == 2 and "near_kernel" in names[0] and "walk_kernel" in names[1], names
 
 
 def test_sequential_sweep_gives_the_same_bits_twice(dev):
