@@ -22,8 +22,9 @@ and `latency` entries with `precision`), the layout probes
 host API (`interactive.Simulation`, `checkpoint`, `profiling`, `python -m
 nbx_torch run`), the renderer (`render.pipeline`), the live server
 (`serve.serve`, `--big`), the multi-host entry and per-rank checkpoints
-(`parallel.multihost`, `checkpoint.save_sharded`) and the demos (`python -m
-nbx_torch demo`):
+(`parallel.multihost`, `checkpoint.save_sharded`), the demos (`python -m
+nbx_torch demo`), the binned bounce path (`collisions_binned`) and the
+scatter probe (`bench.microops`):
 
   0. device: name and power limit; TF32 off
   1. build: nvcc every kernel (sm_90a) at once, print ptxas' resource reports
@@ -243,8 +244,23 @@ nbx_torch demo`):
      (K1) and the energy; `checkpoint.save_sharded` / `load_sharded`
      bitwise; `render_sharded` and `render_spatial` at D = 1 bitwise the
      single-device splat (deterministic scatters)
- 33. `python -m nbx_torch demo galaxy 30` and `demo merger 131072 10` as
-     subprocesses: exit 0, their PNGs non-empty
+ 33. `python -m nbx_torch demo galaxy 30`, `demo merger 131072 10`, `demo
+     granular 32768 3`, `demo orbit 6`, `demo spatial 8192 12` and `demo
+     merger_full 1048576 2` as subprocesses: exit 0, their PNGs non-empty;
+     merger_full's result line with n_overflow_max == n_uncorrected_max == 0
+ 34. the binned bounce path (`collisions_binned`): resolve_bounces_binned on
+     tests/test_collisions_binned.py's 96-body scene (g = 8, K = 64) on the
+     card against the CPU; on the 131,072-body cloud at g = 40, K = 32
+     against the fused pass's full-column layout (`binned_collision_pass`,
+     K2's kernel), n_bounces equal, no overflow, deltas to 1e-5 of their
+     largest (dtemp 1e-4), both timed; 10 steps of granular_kdk_scan there
+     with force "auto" (K1 a step), flags clear, one more step under
+     set_sync_debug_mode("error")
+ 35. the scatter probe (`bench.microops`) at 131,072 and 1,048,576: the two
+     take forms and the two inverse forms equal on the card, the two kill
+     forms on mutual partners; one chained iteration of each variant under
+     set_sync_debug_mode("error"); its main (us an operation, each variant,
+     eager and replayed as one CUDA graph)
 
 Every phase raises on failure, so the script exits non-zero; it needs a CUDA
 device and has no CPU fallback. The line before the last is the kernels'
@@ -291,11 +307,11 @@ it launches on the sequential frame step's path (phase 27, a call two
 launches: the pre-pass and the walk) and is timed at the reference scene's
 shapes; its bound counts the overlap tests this run's
 sweep made (11 FP32 operations each) and, beside the card's, gives one SM's
-(1/132 of the FP32 rate: the sweep is one block). Phases 30-33 port no kernel:
-the renderer, the server and the demos run eager PyTorch around K1 and K2,
-whose launches on those paths they log. It prints its total and the time of
-phases 11-14, 15-17, 18-20, 21-24, 25, 26, 27, 28, 29, 30, 31, 32 and 33
-before the kernels line (18 records).
+(1/132 of the FP32 rate: the sweep is one block). Phases 30-35 port no kernel:
+the renderer, the server, the demos, the binned path and the probe run eager
+PyTorch around K1, K2, K4 and K5, whose launches on those paths they log. It
+prints its total and the time of phases 11-14, 15-17, 18-20, 21-24 and each
+of 25-35 before the kernels line (18 records).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -318,11 +334,13 @@ import torch
 
 from nbx_torch import checkpoint, collisions, collisions_scaled, convert, diagnostics, integrators, profiling, scene, sim
 from nbx_torch.bench import collsplit, cvt_rate, drift, granular, latency, p3m_cluster, pp_scenes, throughput, timing
-from nbx_torch.bench import collide_turns, layoutsplit, layoutvar, sass, sharded
+from nbx_torch.bench import collide_turns, layoutsplit, layoutvar, microops, sass, sharded
 from nbx_torch.bench import spatial as spatial_bench
 from nbx_torch.bench.granular import BOX, granular_cloud
 from nbx_torch.collisions import draw_fracture_uniforms
+from nbx_torch.collisions_binned import granular_kdk_scan, resolve_bounces_binned
 from nbx_torch.config import SimConfig, body_radius, f32, inverse_mass
+from nbx_torch.demos.merger_full import merger_setup
 from nbx_torch.interactive import Simulation
 from nbx_torch.ops import _build, collide, p3m, pairwise, ppkernel, sequential
 from nbx_torch.ops.pairwise import (pairwise_acc, pairwise_acc_jerk, pairwise_acc_jerk_reference,
@@ -1108,40 +1126,6 @@ def phase_p3m(dev, n: int = 1_000_000, n_core: int = 30_000, evals: int = 5) -> 
     check(int(unc) == 0 and ppkernel.pp_short.launches == 2 * evals + 2, "kernels ran in the sync-checked evaluation")
     log(9, "one evaluation ran under set_sync_debug_mode('error'): no host sync in p3m_acceleration")
     return ms, errs
-
-
-MERGER_CFG = dict(G=0.5, dt=0.35, sub_steps=1, softening=0.5, merge_time=0.5,
-                  fracture_threshold=25.0, max_fractures=32)
-
-
-def merger_setup(dev, n: int, tune: dict | None = None):
-    """examples/merger_full.py's scene and configuration: the scene-census
-    P3M tune (or an explicit one with p3m_tune_for's keys), the collision
-    grid from the largest radius, buckets from bucketed_layout_for, the
-    smoothed Green's function once per scene.
-
-    One change: merger_full clamps the collision grid at 64 cells, and at
-    n = 1,048,576 bucketed_layout_for (the JAX package's as the port's)
-    rejects every band at 64 (the tail windows of the cores need 20,763 to
-    45,828 fused source lanes, over its 8,192). Here the grid is the finest
-    whose cells still hold 2.2 r_max, as merger_full's rule without the
-    clamp: 204 cells at n = 1,048,576, where band 8 fits."""
-    sc, box = scene.galaxy_merger_3d(n=n, seed=0)
-    cfg = SimConfig(**MERGER_CFG).to(dev)
-    r_max = float(body_radius(torch.from_numpy(sc["mass"]), torch.from_numpy(sc["mat"]),
-                              SimConfig().materials).max())
-    g_c = int(box / (2.2 * r_max))
-    g_c = max(8, g_c - g_c % 2)
-    band = 8 if g_c >= 16 else 2
-    if tune is None:
-        tune = p3m.p3m_tune_for(sc["pos"], box, residual_budget=131072, affected_budget=2048, k_max=1536)
-    kw = dict(n_cells=g_c, band_cells=band, buckets=collide.bucketed_layout_for(sc["pos"], box, g_c, band),
-              force_impl="p3m", log_events=True, pm_grid=tune["g"], p3m=tune,
-              green_hat=isolated_green_hat(box, tune["g"], p3m.smoothing_length(box, tune["n_cells"]),
-                                           smoothed=True, device=dev))
-    st = collisions_scaled.make_granular_state(sc["pos"], sc["vel"], sc["mass"], mat=sc["mat"],
-                                               temp=sc["temp"], seed=0, device=dev)
-    return st, cfg, box, kw
 
 
 def phase_merger(dev, n: int = MERGER_N, frames: int = 2, steps: int = 2) -> tuple[float, tuple, dict, dict]:
@@ -3900,26 +3884,161 @@ def phase_multihost(dev, n: int = HEADLINE_N, steps: int = 10, n_cloud: int = SC
         dist.destroy_process_group()
 
 
-def phase_demos(frames_galaxy: int = 30, merger_n: int = SCALED_N, frames_merger: int = 10, device: str = "cuda") -> None:
-    """Phase 33: `python -m nbx_torch demo galaxy` and `demo merger` as
-    subprocesses: exit 0, their PNGs exist and are non-empty."""
+DEMOS = (  # phase 33: (arguments of `python -m nbx_torch demo`, the PNGs each writes)
+    (["galaxy", "30"], 8),
+    (["merger", str(SCALED_N), "10"], 5),
+    (["granular", str(granular.DEMO_N), "3"], 3),
+    (["orbit", "6"], 6),
+    (["spatial", "8192", "12"], 1),
+    (["merger_full", str(MERGER_N), "2"], 2),
+)
+
+
+def phase_demos(demos=DEMOS, device: str = "cuda") -> dict:
+    """Phase 33: `python -m nbx_torch demo <name>` as subprocesses, each
+    writing into its own directory: exit 0, its PNGs non-empty; galaxy's
+    HTML player; merger_full's result line with n_overflow_max ==
+    n_uncorrected_max == 0. Returns each demo's wall seconds and the lines
+    it printed last."""
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for args, want in ((["galaxy", str(frames_galaxy), os.path.join(tmp, "galaxy")], -(-frames_galaxy // 4)),
-                           (["merger", str(merger_n), str(frames_merger), os.path.join(tmp, "merger")],
-                            -(-frames_merger // 2))):
-            cmd = [sys.executable, "-m", "nbx_torch", "demo", *args, "--device", device]
+        for args, want in demos:
+            name = args[0]
+            where = os.path.join(tmp, name)  # each demo's out_dir follows the arguments given here
+            cmd = [sys.executable, "-m", "nbx_torch", "demo", *args, where, "--device", device]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
             dt = time.perf_counter() - t0
-            out = args[-1]
-            pngs = sorted(f for f in os.listdir(out) if f.endswith(".png")) if os.path.isdir(out) else []
-            sizes = [os.path.getsize(os.path.join(out, f)) for f in pngs]
-            log(33, f"demo {' '.join(args[:-1])}: exit {proc.returncode} in {dt:.1f} s; {len(pngs)} PNGs, "
-                    f"{min(sizes, default=0)}-{max(sizes, default=0)} bytes; {proc.stdout.strip()[-300:]}")
-            check(proc.returncode == 0, f"demo {args[0]} exits 0 ({proc.stderr[-2000:]})")
-            check(len(pngs) == want and min(sizes) > 1000, f"demo {args[0]}: {want} non-empty PNGs")
-            if args[0] == "galaxy":
-                check(os.path.getsize(os.path.join(out, "player.html")) > 0, "demo galaxy: the HTML player")
+            pngs = sorted(f for f in os.listdir(where) if f.endswith(".png")) if os.path.isdir(where) else []
+            sizes = [os.path.getsize(os.path.join(where, f)) for f in pngs]
+            log(33, f"demo {' '.join(args)}: exit {proc.returncode} in {dt:.1f} s; {len(pngs)} PNGs, "
+                    f"{min(sizes, default=0)}-{max(sizes, default=0)} bytes; {proc.stdout.strip()[-400:]}")
+            check(proc.returncode == 0, f"demo {name} exits 0 ({proc.stderr[-2000:]})")
+            check(len(pngs) == want and min(sizes) > 1000, f"demo {name}: {want} non-empty PNGs")
+            if name == "galaxy":
+                check(os.path.getsize(os.path.join(where, "player.html")) > 0, "demo galaxy: the HTML player")
+            if name == "merger_full":
+                res = json.loads(proc.stdout.strip().splitlines()[-1])
+                check(res["n_overflow_max"] == res["n_uncorrected_max"] == 0,
+                      f"merger_full: n_overflow_max {res['n_overflow_max']} and n_uncorrected_max "
+                      f"{res['n_uncorrected_max']} are 0")
+            out[name] = dict(seconds=dt, last=proc.stdout.strip().splitlines()[-1])
+    return out
+
+
+# ---- the binned bounce path and the scatter probe ----------------------------------
+
+BINNED_G, BINNED_K = 40, 32  # the 131,072-body cloud: cells of 2.5 >= 2 r_max (0.457), no cell past 32
+BINNED_TOL = {"dpos": 1e-5, "dvel": 1e-5, "dtemp": 1e-4}
+
+
+def binned_inputs(pos, vel, mass, dev):
+    """(pos, vel, mass, radius) on dev, rock radii."""
+    t = [torch.tensor(x, device=dev) for x in (pos, vel, mass)]
+    radius = body_radius(t[2], torch.zeros_like(t[2], dtype=torch.int32), SimConfig().to(dev).materials)
+    return (*t, radius)
+
+
+def binned_scene(n: int = 96, seed: int = 0):
+    """tests/test_collisions_binned.py's scene: balls in [20, 50)^3."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(20, 50, (n, 3)).astype(np.float32), rng.uniform(-2, 2, (n, 3)).astype(np.float32),
+            rng.uniform(5.0, 20.0, n).astype(np.float32))
+
+
+def check_deltas(name: str, got: dict, want: dict) -> None:
+    for f, tol in BINNED_TOL.items():
+        err = float((got[f].cpu() - want[f].cpu()).abs().max()) / max(float(want[f].abs().max()), 1e-30)
+        log(34, f"{name} {f}: max|diff| / max|ref| = {err:.3e} (tol {tol:g})")
+        check(err <= tol, f"{name} {f}: {err} > {tol}")
+
+
+def phase_binned(dev, n: int = SCALED_N, steps: int = 10) -> dict:
+    """Phase 34: the binned bounce path (`collisions_binned`)."""
+    # (a) the 96-body scene, the card against the CPU
+    pos, vel, mass = binned_scene()
+    got = resolve_bounces_binned(*binned_inputs(pos, vel, mass, dev), BOX, 8, max_per_cell=64)
+    want = resolve_bounces_binned(*binned_inputs(pos, vel, mass, "cpu"), BOX, 8, max_per_cell=64)
+    check_deltas("96 bodies g=8 K=64 card vs CPU", dict(zip(("dpos", "dvel", "dtemp"), got[:3])),
+                 dict(zip(("dpos", "dvel", "dtemp"), want[:3])))
+    counts = [(int(a), int(b)) for a, b in zip(got[3:], want[3:])]
+    check(all(a == b for a, b in counts) and counts[0][0] > 0, f"n_bounces, n_overflow, cell_too_small {counts}")
+    log(34, f"96 bodies: n_bounces, n_overflow, cell_too_small equal on card and CPU {counts}")
+
+    # (b) the 131,072-body cloud: the binned resolver against the fused pass's full columns (K2's kernel)
+    pos, vel, mass = granular_cloud(n)
+    inputs = binned_inputs(pos, vel, mass, dev)
+    g, k = BINNED_G, BINNED_K
+    binned = functools.partial(resolve_bounces_binned, *inputs, BOX, g, max_per_cell=k)
+    fused = functools.partial(collide.binned_collision_pass, *inputs, BOX, g, max_per_cell=k)
+    b = binned()
+    collide.collide_full_column.launches = 0
+    f = fused()
+    check(collide.collide_full_column.launches == 1, "the fused pass launched its kernel")
+    check_deltas(f"cloud n={n} g={g} K={k}: binned vs fused", dict(dpos=b[0], dvel=b[1], dtemp=b[2]),
+                 dict(dpos=f[1], dvel=f[0], dtemp=f[2]))
+    nb, nf = int(b[3]), int(f[4])
+    check(nb == nf > 0, f"n_bounces equal ({nb} vs {nf})")
+    check(int(b[4]) == int(f[5]) == 0, f"n_overflow 0 ({int(b[4])}, {int(f[5])})")
+    check(not bool(b[5]) and not bool(f[6]), "cells hold 2 r_max")
+    binned_ms, fused_ms = cuda_ms(binned, 5), cuda_ms(fused, 5)
+    log(34, f"cloud n={n} g={g} K={k}: n_bounces {nb} equal; binned resolver {binned_ms:.3f} ms, the fused pass "
+            f"(full columns) {fused_ms:.3f} ms")
+
+    # (c) the granular loop with K1 gravity
+    cfg = granular.bench_config()
+    args = (*inputs, cfg.G, cfg.softening, cfg.dt, BOX)
+    kw = dict(n_cells=g, max_per_cell=k, force_impl="auto")
+    granular_kdk_scan(*args, 1, **kw)  # warm-up
+    torch.cuda.synchronize()
+    pairwise_acc.launches = 0  # the loop's path
+    t0 = time.perf_counter()
+    p, v, t, tb, ovf, flags = granular_kdk_scan(*args, steps, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    flags = {name: int(x) for name, x in flags.items()}
+    check(pairwise_acc.launches == steps, f"K1 launched {pairwise_acc.launches} times in {steps} steps")
+    check(flags == {"cell_too_small": 0, "max_out_of_box": 0}, f"flags {flags}")
+    check(all_finite(p, v, t), "state finite")
+    log(34, f"granular_kdk_scan n={n} g={g} K={k} auto: {ms:.3f} ms/step over {steps} steps; bounces {int(tb)}, "
+            f"max overflow {int(ovf)}, flags {flags}; K1 {steps} calls")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p, *_ = granular_kdk_scan(*args, 1, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(pairwise_acc.launches == steps + 1 and all_finite(p), "K1 ran in the sync-checked step")
+    log(34, "one step ran under set_sync_debug_mode('error'): no host sync in granular_kdk_scan")
+    return dict(binned_ms=binned_ms, fused_ms=fused_ms, step_ms=ms)
+
+
+def phase_microops(dev) -> list:
+    """Phase 35: the scatter probe (`bench.microops`): the forms of each
+    primitive agree on the card, one chained iteration of each variant is
+    sync-free, then its main at 131,072 and 1,048,576."""
+    for n in microops.NS:
+        mask0, partner, order = microops.probe_inputs(n, dev)
+        for a, b in zip(microops.take_scatter(mask0, microops.K), microops.take_search(mask0, microops.K)):
+            check(torch.equal(a, b), f"n={n}: the take forms agree")
+        check(torch.equal(microops.inv_scatter(order), microops.inv_argsort(order)), f"n={n}: the inverse forms agree")
+        mask, mate = microops.mutual_input(n, dev)
+        kill = microops.kill_scatter(mask, mate)
+        check(torch.equal(kill, microops.kill_arith(mask, mate)) and 2 * int(kill.sum()) == int(mask.sum()),
+              f"n={n}: the kill forms agree on mutual partners")
+        log(35, f"n={n}: take, inverse and (mutual partners, {int(mask.sum())} set) kill forms agree on the card")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            accs = [microops.chain(mask0, partner, order, v, 1) for v in microops.VARIANTS]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log(35, f"n={n}: one chained iteration of each variant under set_sync_debug_mode('error'): "
+                f"{[int(a) for a in accs]}")
+    rows = microops.main(*microops.NS, device=dev)
+    check(len(rows) == len(microops.NS) * len(microops.VARIANTS)
+          and all(r["us_per_op"] > 0 and r["graph_us_per_op"] > 0 for r in rows),
+          "the probe timed every variant at both sizes, eager and as a CUDA graph")
+    return rows
 
 
 def main() -> None:
@@ -3983,11 +4102,16 @@ def main() -> None:
     t32 = time.perf_counter()
     phase_demos()
     t33 = time.perf_counter()
-    print(f"[done] every phase passed: {t33 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
+    phase_binned(dev)
+    t34 = time.perf_counter()
+    phase_microops(dev)
+    t35 = time.perf_counter()
+    print(f"[done] every phase passed: {t35 - t0:.1f} s in all, phases 11-14 {t14 - t10:.1f} s, "
           f"phases 15-17 {t17 - t14:.1f} s, phases 18-20 {t20 - t17:.1f} s, phases 21-24 {t24 - t20:.1f} s, "
           f"phase 25 {t25 - t24:.1f} s, phase 26 {t26 - t25:.1f} s, phase 27 {t27 - t26:.1f} s, "
           f"phase 28 {t28 - t27:.1f} s, phase 29 {t29 - t28:.1f} s, phase 30 {t30 - t29:.1f} s, "
-          f"phase 31 {t31 - t30:.1f} s, phase 32 {t32 - t31:.1f} s, phase 33 {t33 - t32:.1f} s", flush=True)
+          f"phase 31 {t31 - t30:.1f} s, phase 32 {t32 - t31:.1f} s, phase 33 {t33 - t32:.1f} s, "
+          f"phase 34 {t34 - t33:.1f} s, phase 35 {t35 - t34:.1f} s", flush=True)
     records = [
         dict(name="pairwise_f32r", route="cuda", source="nbx_torch/csrc/pairwise_f32r.cu",
              replaces="nbx/ops/pairwise.py:168", launches=k1_launches, **k1),

@@ -64,6 +64,18 @@ def smoothing_length(box_size: float, n_cells: int) -> float:
     return float(np.float32(cell_size(box_size, n_cells)) / np.float32(3.0))
 
 
+def body_cells(pos: torch.Tensor, box_size, n_cells: int) -> torch.Tensor:
+    """[N, 3] i32 cell coordinates (i, j, k) of each body on the
+    n_cells^3 grid over [0, box)^3; bodies outside are clipped into the
+    face cells."""
+    # Divide by a 0-dim tensor on the same device: a CUDA division by a host
+    # scalar multiplies by its reciprocal, which can move a body across a
+    # cell face. Truncate toward zero, then clamp (negative coordinates
+    # truncate to 0 first, as in the JAX package).
+    h = spacing(box_size, n_cells, pos.device)
+    return (pos / h).to(torch.int32).clamp(0, n_cells - 1)
+
+
 def cell_sort(pos: torch.Tensor, box_size, n_cells: int):
     """Sort bodies by cell id, k (the z cell coordinate) minor within each
     (i, j) column, so any k-window of cells within a column is one contiguous
@@ -75,12 +87,7 @@ def cell_sort(pos: torch.Tensor, box_size, n_cells: int):
     bodies of one cell keep their index order, as `jnp.argsort` keeps it.
     """
     g = n_cells
-    # Divide by a 0-dim tensor on the same device: a CUDA division by a host
-    # scalar multiplies by its reciprocal, which can move a body across a
-    # cell face. Truncate toward zero, then clamp (negative coordinates
-    # truncate to 0 first, as in the JAX package).
-    h = spacing(box_size, g, pos.device)
-    ijk = (pos / h).to(torch.int32).clamp(0, g - 1)
+    ijk = body_cells(pos, box_size, g)
     cid = (ijk[:, 0] * g + ijk[:, 1]) * g + ijk[:, 2]
     order = torch.argsort(cid, stable=True).to(torch.int32)
     cid_sorted = cid[order.long()]
