@@ -137,7 +137,7 @@ def profile_parts(pos, mass) -> dict:
     out = dict.fromkeys([label for _, _, label in parts], 0.0)
     total = 0.0
     for e in prof.events():  # each torch kernel once, through the CPU op that launched it
-        if e.device_type != cpu or e.name in labels or not e.kernels:
+        if e.device_type != cpu or e.name in labels or e.name.startswith("nbx.") or not e.kernels:
             continue
         dur = sum(k.duration for k in e.kernels)
         total += dur

@@ -16,13 +16,13 @@ JSON line:
   * ms_per_step: host clock over 10 steps ending in a synchronize, unprofiled;
   * device_ms_per_step, kernels_per_step, busy_share: torch.profiler over
     `steps` steps (kernel time summed, over the profiled wall time);
-  * parts: device ms per step of each part of the step, from profiler ranges
-    opened around the port's functions for this run only (the functions are
-    wrapped here, the package is not instrumented): the PM deposit, solve
-    (FFTs) and gather, the cell sort, the window layout, the collision kernel,
-    the epilogue, the contact timers, the fragments; `events, other` is the
-    rest of the collision substep, `step, other` the rest of the step
-    (kicks, drift, thermal decay, counters). The spatial step's parts: the
+  * parts: device ms per step of each part of the step, from the spans the
+    package opens (`nbx_torch.profiling.span`; PARTS, SPATIAL_PARTS and
+    SHARDED_PARTS map each span read here to its part's label): the PM
+    deposit, solve (FFTs) and gather, the cell sort, the window layout, the
+    collision kernel, the epilogue, the contact timers, the fragments;
+    `events, other` is the rest of the collision substep, `step, other`
+    the rest of the step (kicks, drift, thermal decay, counters). The spatial step's parts: the
     local pass (its slab sort, window layout and kernel, K2 or K7), the PM
     deposit, solve and gather, the exchanges, the fragments; `step, other`
     the rest (kicks, migration and halo selection, gates, merges, slot
@@ -36,7 +36,6 @@ Needs a CUDA device; prints the card's name and power limit first.
 
 from __future__ import annotations
 
-import functools
 import json
 import subprocess
 import sys
@@ -50,66 +49,57 @@ from nbx_torch.config import SimConfig
 from nbx_torch.ops import collide, pm
 from nbx_torch.parallel import shard, spatial
 
+SPAN = "nbx."  # the prefix of the package's span names
 
-def _ranged(module, name: str, label: str) -> None:
-    fn = getattr(module, name)
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(label):
-            return fn(*args, **kwargs)
-
-    setattr(module, name, wrapped)
-
-
-PARTS = (
-    (pm, "pm_acceleration", "pm, all"),
-    (pm, "cic_deposit", "pm deposit"),
-    (pm, "pm_solve_grid", "pm solve (FFTs)"),
-    (pm, "cic_gather", "pm gather"),
-    (collisions_scaled, "resolve_collisions_scaled", "events, all"),
-    (collide, "_bucketed_pass", "collision pass, all"),
-    (collide, "cell_sort", "cell sort"),
-    (collide, "_bucket_windows", "window layout"),
-    (collide, "collide_fused", "K2 collide_fused"),
-    (collide, "_epilogue_finish", "epilogue"),
-    (collisions_scaled, "_timers", "contact timers"),
-    (collisions_scaled, "_make_fragments", "fragments"),
-)
+PARTS = {
+    "nbx.pm": "pm, all",  # pm.pm_acceleration
+    "nbx.pm.deposit": "pm deposit",  # pm.cic_deposit
+    "nbx.pm.solve": "pm solve (FFTs)",  # pm._isolated_solve_r (and pm_solve_grid's periodic solve)
+    "nbx.pm.gather": "pm gather",  # pm.cic_gather
+    "nbx.collide": "events, all",  # collisions_scaled.resolve_collisions_scaled
+    "nbx.collide.pass": "collision pass, all",  # collide.binned_collision_pass
+    "nbx.collide.sort": "cell sort",  # the cell sort of collide._sorted_pass
+    "nbx.collide.windows": "window layout",  # collide._bucket_windows
+    "nbx.collide.kernel": "K2 collide_fused",  # collide._run, every collision kernel's launch
+    "nbx.collide.epilogue": "epilogue",  # collide._epilogue_finish
+    "nbx.collide.timers": "contact timers",  # collisions_scaled._timers
+    "nbx.collide.fragments": "fragments",  # collisions._make_fragments
+}
 
 
-SPATIAL_PARTS = (
-    (spatial, "packed_collision_blocks_local", "local pass, all"),
-    (collide, "cell_sort_slabgrid", "slab sort"),
-    (collide, "_bucket_windows", "window layout"),
-    (pm, "cic_deposit", "pm deposit"),
-    (pm, "_isolated_solve_r", "pm solve (FFTs)"),
-    (pm, "cic_gather", "pm gather"),
-    (spatial, "_exchange", "exchanges"),
-    (spatial, "_make_fragments", "fragments"),
-)
+SPATIAL_PARTS = {
+    "nbx.collide.pass": "local pass, all",  # collide._local_pass
+    "nbx.collide.sort": "slab sort",  # its cell_sort_slabgrid
+    "nbx.collide.windows": "window layout",
+    "nbx.pm.deposit": "pm deposit",
+    "nbx.pm.solve": "pm solve (FFTs)",
+    "nbx.pm.gather": "pm gather",
+    "nbx.spatial.exchange": "exchanges",  # spatial._exchange
+    "nbx.collide.fragments": "fragments",
+}
 
 
-SHARDED_PARTS = (
-    (shard, "_slab_pass", "slab pass, all"),
-    (collide, "cell_sort", "cell sort"),
-    (collide, "_bucket_windows", "window layout"),
-    (shard, "_reduce_scatter", "reduce-scatters"),
-    (shard, "_gather", "gathers"),
-    (shard, "partner_record", "partner record"),
-    (pm, "cic_deposit", "pm deposit"),
-    (pm, "pm_solve_grid", "pm solve (FFTs)"),
-    (pm, "cic_gather", "pm gather"),
-    (shard, "_make_fragments", "fragments"),
-)
+SHARDED_PARTS = {
+    "nbx.collide.pass": "slab pass, all",  # shard._slab_pass
+    "nbx.collide.sort": "cell sort",
+    "nbx.collide.windows": "window layout",
+    "nbx.reduce_scatter": "reduce-scatters",  # shard._reduce_scatter
+    "nbx.gather": "gathers",  # shard._gather
+    "nbx.shard.partner": "partner record",  # the shard step's partner_record
+    "nbx.pm.deposit": "pm deposit",
+    "nbx.pm.solve": "pm solve (FFTs)",
+    "nbx.pm.gather": "pm gather",
+    "nbx.collide.fragments": "fragments",
+}
 
 
-def profile(step, st, steps: int, parts, kernel_parts) -> dict:
-    """Profile `steps` calls of st = step(st) with ranges around `parts`
-    (already wrapped) and return the per-step numbers: device ms, kernels,
-    busy share, device ms of each part, the top kernels. The collision
-    kernel launches through ctypes, so no CPU op owns it: its time is
-    charged by name to the labels of kernel_parts."""
+def profile(step, st, steps: int, parts: dict, kernel_parts) -> dict:
+    """Profile `steps` calls of st = step(st) and return the per-step
+    numbers: device ms, kernels, busy share, device ms of each part (each
+    kernel charged to the labels `parts` gives the spans that enclose the
+    CPU op that launched it), the top kernels. The collision kernel launches
+    through ctypes, so no CPU op owns it: its time is charged by name to the
+    labels of kernel_parts."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -117,12 +107,12 @@ def profile(step, st, steps: int, parts, kernel_parts) -> dict:
             st = step(st)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    labels = {label for _, _, label in parts}
+    labels = set(parts.values())
     cpu = torch.autograd.DeviceType.CPU
     part_us = dict.fromkeys(labels | set(kernel_parts), 0.0)
     device_us, n_kernels = 0.0, 0
     for e in prof.events():  # each kernel once, through the CPU op that launched it
-        if e.device_type != cpu or e.name in labels:
+        if e.device_type != cpu or e.name.startswith(SPAN):
             continue
         dur = sum(k.duration for k in e.kernels)
         if not e.kernels:
@@ -130,9 +120,9 @@ def profile(step, st, steps: int, parts, kernel_parts) -> dict:
         device_us += dur
         n_kernels += len(e.kernels)
         a = e.cpu_parent
-        while a is not None:  # charge every enclosing range
-            if a.name in labels:
-                part_us[a.name] += dur
+        while a is not None:  # charge every enclosing span that is a part
+            if a.name in parts:
+                part_us[parts[a.name]] += dur
             a = a.cpu_parent
     kern = [e for e in prof.events() if e.device_type != cpu and "collide_fused_kernel" in e.name]
     kern_us = sum(e.time_range.elapsed_us() for e in kern)
@@ -140,11 +130,11 @@ def profile(step, st, steps: int, parts, kernel_parts) -> dict:
     for label in kernel_parts:
         part_us[label] += kern_us
     device_us += kern_us
-    # cross-check: the device-side events themselves, user ranges left out
+    # cross-check: the device-side events themselves, the spans left out
     device_side_ms = sum(
         e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type != cpu and e.name not in labels) / 1e3
-    top = sorted((e for e in prof.key_averages() if e.key not in labels),
+        if e.device_type != cpu and not e.name.startswith(SPAN)) / 1e3
+    top = sorted((e for e in prof.key_averages() if not e.key.startswith(SPAN)),
                  key=lambda e: -e.self_device_time_total)[:12]
     return dict(
         profiled_ms_per_step=wall_ms / steps, device_ms_per_step=device_us / 1e3 / steps,
@@ -169,13 +159,10 @@ def _host_ms(step, st, reps: int = 10):
 def main_spatial(argv, dev) -> dict:
     """The spatial step at world size 1 (module docstring)."""
     from nbx_torch.bench import spatial as spatial_bench
-    from nbx_torch.parallel import shard
 
     n = int(argv[0]) if argv else 131072
     steps = int(argv[1]) if len(argv) > 1 else 5
     force = argv[2] if len(argv) > 2 else "pm"
-    for module, name, label in SPATIAL_PARTS:  # before the step is built: it binds the PM functions then
-        _ranged(module, name, label)
     g, b, caps = spatial_bench.parse_config("32,8,96,104")
     box = BOX * (n / 131072.0) ** (1.0 / 3.0)
     pos, vel, mass = granular_cloud(n, seed=0, box=box)
@@ -209,8 +196,6 @@ def main_sharded(argv, dev) -> dict:
     n = int(argv[0]) if argv else 131072
     steps = int(argv[1]) if len(argv) > 1 else 5
     force = argv[2] if len(argv) > 2 else "pm"
-    for module, name, label in SHARDED_PARTS:  # before the step is built: it binds the PM functions then
-        _ranged(module, name, label)
     kw = sharded.GRANULAR
     box = BOX * (n / 131072.0) ** (1.0 / 3.0)
     pos, vel, mass = granular_cloud(n, seed=0, box=box)
@@ -262,9 +247,6 @@ def main(argv) -> None:
     ms_per_step, st = _host_ms(step, st)
     # the cloud collapses: re-size the buckets before the profiled window
     kw["buckets"] = collide.bucketed_layout_for(st.pos.cpu().numpy(), box, 40, 12)
-
-    for module, name, label in PARTS:
-        _ranged(module, name, label)
     out, _ = profile(step, st, steps, PARTS, ("K2 collide_fused", "collision pass, all", "events, all"))
     parts = out["parts_device_ms_per_step"]
     parts["events, other"] = parts["events, all"] - sum(

@@ -31,6 +31,7 @@ import torch
 from nbx_torch import thermal
 from nbx_torch.config import CUDA, SimConfig, f32, inverse_mass
 from nbx_torch.ops import sequential
+from nbx_torch.profiling import spanned
 from nbx_torch.state import SimState, add_bodies_batch
 
 RESTITUTION = 0.2
@@ -393,6 +394,7 @@ def resolve_collisions_sequential(
     return state, events
 
 
+@spanned("nbx.collide.fragments")
 def _make_fragments(
     draws: Draws,
     cfg: SimConfig,

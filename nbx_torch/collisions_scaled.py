@@ -36,6 +36,7 @@ from nbx_torch.collisions import Draws, _make_fragments, draw_fracture_uniforms
 from nbx_torch.config import CUDA, SimConfig, body_radius, f32
 from nbx_torch.ops.collide import binned_collision_pass
 from nbx_torch.ops.p3m import take_rows
+from nbx_torch.profiling import span, spanned
 from nbx_torch.sim import _stack, gravity, substep_size
 from nbx_torch.state import make_generator
 
@@ -119,6 +120,7 @@ def _set_at(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     return pad[:-1]
 
 
+@spanned("nbx.collide.timers")
 def _timers(state: GranularState, best_j: torch.Tensor, has: torch.Tensor, h: float):
     """Advance the contact timers with this substep's deepest partners.
     Returns (partner, contact_t, deepest [N], t_pair [N]): t_pair is the
@@ -163,6 +165,7 @@ def _timers(state: GranularState, best_j: torch.Tensor, has: torch.Tensor, h: fl
     return P, T, deepest, torch.minimum(t_mine, t_theirs)
 
 
+@spanned("nbx.collide")
 def resolve_collisions_scaled(
     state: GranularState,
     cfg: SimConfig,
@@ -414,19 +417,20 @@ def granular_full_kdk_scan(
     st = state
     evs = []
     for t in range(n_steps):
-        vel = st.vel + acc * half
-        pos = st.pos + vel * h
-        acc, n_unc = force(pos, st.mass)
-        unc = torch.maximum(unc, n_unc)
-        st = st.replace(pos=pos, vel=vel)
-        st, ev = resolve_collisions_scaled(
-            st, cfg, h, box_size, n_cells, max_per_cell, band_cells, packed_caps,
-            max_blocks, buckets, None if draws is None else draws[t],
-            windows_per_block=windows_per_block, construction=construction,
-        )
-        # slots reborn by a merge or a fracture are newborn: acc = 0
-        acc = torch.where(ev.touched[:, None], 0.0, acc)
-        st = st.replace(vel=st.vel + acc * half, temp=thermal.decay(st.temp, cfg.heat_decay))
+        with span("nbx.substep"):
+            vel = st.vel + acc * half
+            pos = st.pos + vel * h
+            acc, n_unc = force(pos, st.mass)
+            unc = torch.maximum(unc, n_unc)
+            st = st.replace(pos=pos, vel=vel)
+            st, ev = resolve_collisions_scaled(
+                st, cfg, h, box_size, n_cells, max_per_cell, band_cells, packed_caps,
+                max_blocks, buckets, None if draws is None else draws[t],
+                windows_per_block=windows_per_block, construction=construction,
+            )
+            # slots reborn by a merge or a fracture are newborn: acc = 0
+            acc = torch.where(ev.touched[:, None], 0.0, acc)
+            st = st.replace(vel=st.vel + acc * half, temp=thermal.decay(st.temp, cfg.heat_decay))
         nb, nm, nf = nb + ev.n_bounces, nm + ev.n_merges, nf + ev.n_fractures
         ovf = torch.maximum(ovf, ev.n_overflow)
         drop = drop + ev.n_dropped

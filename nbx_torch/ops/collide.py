@@ -89,6 +89,7 @@ from nbx_torch.config import f32
 from nbx_torch.ops import _build
 from nbx_torch.ops.p3m import cell_size, cell_sort, pp_law, take_rows
 from nbx_torch.ops.ppkernel import _law_base
+from nbx_torch.profiling import span, spanned
 
 LANE = 128  # the JAX package's lane width; only its sizing guards use it
 CORRECTION = 0.8  # Baumgarte factor
@@ -438,6 +439,7 @@ def _descriptors(ts, tn, ss9, run9) -> torch.Tensor:
     return torch.cat([ts.reshape(-1, 1), tn.reshape(-1, 1), strips], dim=1).to(torch.int32).contiguous()
 
 
+@spanned("nbx.collide.windows")
 def _bucket_windows(starts, cid_sorted, n: int, g: int, b: int, buckets, src_over: str = "uses",
                     grid: _Grid | None = None):
     """Window descriptors of every bucket over the target columns of `grid`
@@ -722,6 +724,7 @@ _FUSED_ARGS = [_P] * 6 + [_I] * 6 + [_F] * 2 + [_P]  # nbx_collide_fused
 _GRAV_ARGS = [_P] * 7 + [_I] * 6 + [_F] * 6 + [_P]  # nbx_collide_fused_grav
 
 
+@spanned("nbx.collide.kernel")
 def _run(name, feats, order, src_ok, win, out_d, out_j, restitution, friction, t_rows, s_capw,
          windows_per_block: int, short_gravity=None, out_g=None) -> bool:
     """The plain version on CPU tensors, the kernel on CUDA tensors (at
@@ -833,6 +836,7 @@ collide_fused_slab.launches = 0
 
 # ---- the pass ---------------------------------------------------------------
 
+@spanned("nbx.collide.pass")
 def binned_collision_pass(
     pos: torch.Tensor,  # [N, 3] binning domain [0, box)^3 (outside clamps to faces)
     vel: torch.Tensor,  # [N, 3]
@@ -939,7 +943,8 @@ def _sorted_pass(pos, vel, mass, radius, box_size, g, b, buckets, src_over, grid
     the whole-grid cell sort, run through `fused` once per bucket: (out_d,
     out_j, n_overflow) in body order."""
     n = pos.shape[0]
-    order, starts, cid_sorted = cell_sort(pos, box_size, g)
+    with span("nbx.collide.sort"):
+        order, starts, cid_sorted = cell_sort(pos, box_size, g)
     feats = _sorted_feats(pos, vel, mass, radius, order)
     windows, t_ok, n_overflow = _bucket_windows(starts, cid_sorted, n, g, b, buckets, src_over, grid)
     out_d, out_j = _outputs(n, pos.device)
@@ -962,6 +967,7 @@ def _per_cell_pass(pos, vel, mass, radius, box_size, g, b, k, restitution, frict
     return _epilogue_finish(out_d, out_j, pos, vel, mass, n_overflow, cell_too_small)
 
 
+@spanned("nbx.collide.epilogue")
 def _epilogue_finish(out_d, out_j, pos, vel, mass, n_overflow, cell_too_small):
     """Split the per-body delta rows and rebuild the deepest-partner record
     (partner_record), O(N)."""
@@ -1087,6 +1093,7 @@ def cell_sort_slabgrid(pos: torch.Tensor, alive: torch.Tensor, box_size: float, 
     return order, starts, cid_sorted
 
 
+@spanned("nbx.collide.pass")
 def _local_pass(pos, vel, mass, radius, box_size: float, g: int, b: int, buckets, src_over: str,
                 restitution: float, friction: float, x0_cell: int, slab_x: int, y0_cell: int,
                 slab_y: int | None, short_gravity, fused=None):
@@ -1098,8 +1105,9 @@ def _local_pass(pos, vel, mass, radius, box_size: float, g: int, b: int, buckets
     two_d = slab_y is not None
     w_y = slab_y if two_d else g
     gy = w_y + 2 if two_d else g
-    order, starts, cid_sorted = cell_sort_slabgrid(pos, mass > 0.0, box_size, g, x0_cell, slab_x + 2,
-                                                   y0_cell if two_d else 0, gy)
+    with span("nbx.collide.sort"):
+        order, starts, cid_sorted = cell_sort_slabgrid(pos, mass > 0.0, box_size, g, x0_cell, slab_x + 2,
+                                                       y0_cell if two_d else 0, gy)
     grid = _slab_grid(slab_x, w_y, gy, two_d, dev)
     windows, t_ok, n_overflow = _bucket_windows(starts, cid_sorted, n, g, b, buckets, src_over, grid)
     feats = _sorted_feats(pos, vel, mass, radius, order)

@@ -49,6 +49,7 @@ from nbx_torch.ops.pm import (
     _cic_window, _fftfreq, _i_times, _isolated_solve_r, _scalar, cic_deposit, cic_gather,
     isolated_green_hat, spacing,
 )
+from nbx_torch.profiling import span
 
 _F32 = torch.float32
 
@@ -680,9 +681,10 @@ def p3m_kdk_scan(
     half = f32(0.5 * f32(h))
     acc, unc = force(pos)
     for _ in range(n_steps):
-        vel = vel + acc * half
-        pos = pos + vel * f32(h)
-        acc, u = force(pos)
-        vel = vel + acc * half
-        unc = torch.maximum(unc, u)
+        with span("nbx.substep"):
+            vel = vel + acc * half
+            pos = pos + vel * f32(h)
+            acc, u = force(pos)
+            vel = vel + acc * half
+            unc = torch.maximum(unc, u)
     return pos, vel, unc

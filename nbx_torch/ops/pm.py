@@ -23,6 +23,7 @@ import math
 import torch
 
 from nbx_torch.config import CUDA, f32
+from nbx_torch.profiling import span, spanned
 
 _F32 = torch.float32
 
@@ -80,6 +81,7 @@ def _corners(pos: torch.Tensor, box_size, g: int, periodic: bool):
                 yield flat, wx * wy * wz
 
 
+@spanned("nbx.pm.deposit")
 def cic_deposit(pos: torch.Tensor, mass: torch.Tensor, box_size, g: int,
                 periodic: bool = True) -> torch.Tensor:
     """Scatter mass to the [g, g, g] density grid (CIC). periodic=False drops
@@ -91,6 +93,7 @@ def cic_deposit(pos: torch.Tensor, mass: torch.Tensor, box_size, g: int,
     return grid.view(g, g, g)
 
 
+@spanned("nbx.pm.gather")
 def cic_gather(field: torch.Tensor, pos: torch.Tensor, box_size, g: int,
                periodic: bool = True) -> torch.Tensor:
     """Gather a [g, g, g, C] grid field to the bodies ([N, C]). periodic=False
@@ -177,6 +180,7 @@ def _i_times(k: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return torch.complex(torch.zeros_like(k), k) * z
 
 
+@spanned("nbx.pm.solve")
 def _isolated_solve_r(rho: torch.Tensor, G: float, box_size: float, g: int,
                       green_hat: torch.Tensor, deconvolve: bool = True) -> torch.Tensor:
     """[g, g, g, 3] acceleration grid from a [g]^3 density grid: Hockney
@@ -204,19 +208,21 @@ def pm_solve_grid(rho: torch.Tensor, G: float, box_size: float, g: int,
         if green_hat is None:
             green_hat = isolated_green_hat(box_size, g, device=dev)
         return _isolated_solve_r(rho, G, box_size, g, green_hat, deconvolve)
-    kx, ky, kz, k2 = _kvec(g, box_size, dev)
-    rho_hat = torch.fft.fftn(rho)
-    vol = f32(f32(box_size) / g) ** 3
-    safe_k2 = torch.where(k2 > 0, k2, 1.0)
-    phi_hat = torch.where(
-        k2 > 0, -4 * math.pi * f32(G) * rho_hat / (safe_k2 * f32(vol)), 0.0
-    )
-    if deconvolve:
-        phi_hat = phi_hat / _cic_window(g, dev) ** 2
-    acc = [torch.fft.ifftn(_i_times(k, phi_hat)).real for k in (kx, ky, kz)]
-    return -torch.stack(acc, dim=-1)
+    with span("nbx.pm.solve"):  # the isolated solve opens its own
+        kx, ky, kz, k2 = _kvec(g, box_size, dev)
+        rho_hat = torch.fft.fftn(rho)
+        vol = f32(f32(box_size) / g) ** 3
+        safe_k2 = torch.where(k2 > 0, k2, 1.0)
+        phi_hat = torch.where(
+            k2 > 0, -4 * math.pi * f32(G) * rho_hat / (safe_k2 * f32(vol)), 0.0
+        )
+        if deconvolve:
+            phi_hat = phi_hat / _cic_window(g, dev) ** 2
+        acc = [torch.fft.ifftn(_i_times(k, phi_hat)).real for k in (kx, ky, kz)]
+        return -torch.stack(acc, dim=-1)
 
 
+@spanned("nbx.pm")
 def pm_acceleration(pos: torch.Tensor, mass: torch.Tensor, G: float, box_size: float,
                     g: int = 128, isolated: bool = True, deconvolve: bool = True,
                     green_hat: torch.Tensor | None = None) -> torch.Tensor:

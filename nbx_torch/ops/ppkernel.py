@@ -55,6 +55,7 @@ from nbx_torch.config import f32
 from nbx_torch.ops import _build
 from nbx_torch.ops.p3m import _cell_coords, _dilate27, _host, _neighbors27, cell_sort, pp_law, take_rows
 from nbx_torch.ops.pairwise import SPLIT_GRID, source_splits, split_tiles
+from nbx_torch.profiling import spanned
 
 LANE = 128  # the JAX package's lane width; only its sizing rules use it
 THREADS = 128  # threads a block of K4 (kThreads in csrc/pp_short.cu)
@@ -333,6 +334,7 @@ def rr_partial_bytes(m: int) -> int:
     return s * m * 3 * 4 if s > 1 else 0
 
 
+@spanned("nbx.p3m.k4")
 def pp_short(tgt, tgt_out, src, win, n_strips: int, s_cap: int, n_out: int, law) -> torch.Tensor:
     """K4: every work item's targets against its strips of source rows
     (module docstring). tgt [Rt, 4] and src [Rs, 4] float32 rows
@@ -435,6 +437,7 @@ def _kept_rows(feats, order, aff_start, aff_len, k: int):
     return kept, kept_out, n_live.to(torch.int32)
 
 
+@spanned("nbx.p3m.k5")
 def pp_react(rows, row_out, feats, order, aff_start, aff_len, k: int, n_out: int, law):
     """K5: the residual rows against the kept runs of the affected cells,
     both directions. rows [M, 4] f32 (x, y, z, m) whose live rows are a

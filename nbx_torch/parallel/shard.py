@@ -55,6 +55,7 @@ from nbx_torch.config import SimConfig, body_radius, f32, inverse_mass
 from nbx_torch.ops.collide import packed_collision_blocks_slab, partner_record
 from nbx_torch.ops.p3m import take_rows
 from nbx_torch.ops.pairwise import pairwise_acc, potential_per_body
+from nbx_torch.profiling import span, spanned
 from nbx_torch.state import make_generator
 
 IMPLS = ("auto", "pallas", "jnp")  # the JAX package's force impls; the device decides here
@@ -145,6 +146,7 @@ def _as_f32(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.float32) if x.dtype == torch.int32 else x
 
 
+@spanned("nbx.gather")
 def _gather(ax: _Axis, *fields: torch.Tensor) -> list:
     """lax.all_gather(tiled=True) of this rank's rows of each field along the
     axis, in one collective: each field's [size n, ...] rows of every rank in
@@ -165,6 +167,7 @@ def _gather(ax: _Axis, *fields: torch.Tensor) -> list:
     return res
 
 
+@spanned("nbx.reduce_scatter")
 def _reduce_scatter(ax: _Axis, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """psum_scatter(tiled=True) of x [size n, ...] along the axis: this rank's
     chunk of the reduction over the axis."""
@@ -194,6 +197,7 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
+@spanned("nbx.gravity")
 def _local_acc(pos_all, mass_all, pos_local, G: float, eps: float, impl: str = "auto") -> torch.Tensor:
     """Force of all bodies on the local shard (the rectangular problem): K1
     on the card, its plain version on the CPU. `impl` (checked by the
@@ -277,6 +281,7 @@ def make_sharded_step(mesh: DeviceMesh, impl: str = "auto"):
     _check_impl(impl)
     ax = _axis_1d(mesh, "make_sharded_step")
 
+    @spanned("nbx.shard.step")
     def step(state: ShardedState, G: float, eps: float, h: float) -> ShardedState:
         h32, half = _halves(h)
         vel = state.vel + state.acc * half
@@ -300,6 +305,7 @@ def make_sharded_step_2d(mesh: DeviceMesh, impl: str = "auto"):
         raise ValueError(f"make_sharded_step_2d wants a 2-D mesh ('b', 'j'), got {mesh.mesh_dim_names}")
     ax_b, ax_j = _axis(mesh, 0), _axis(mesh, 1)
 
+    @spanned("nbx.shard.step")
     def step(state: ShardedState, G: float, eps: float, h: float) -> ShardedState:
         h32, half = _halves(h)
         vel = state.vel + state.acc * half
@@ -325,6 +331,7 @@ def make_sharded_step_ring(mesh: DeviceMesh, impl: str = "auto"):
     to = ax.ranks[(ax.index + 1) % ax.size]
     frm = ax.ranks[(ax.index - 1) % ax.size]
 
+    @spanned("nbx.shard.step")
     def step(state: ShardedState, G: float, eps: float, h: float) -> ShardedState:
         h32, half = _halves(h)
         vel = state.vel + state.acc * half
@@ -520,6 +527,7 @@ def make_sharded_physics_step(mesh: DeviceMesh, cfg: SimConfig, impl: str = "aut
     thr = f32(cfg.fracture_threshold)
     min_frag = f32(cfg.min_fragment_mass)
 
+    @spanned("nbx.shard.step")
     def step(state: ShardedBodyState, h: float, draws: Optional[Draws] = None):
         h32, half = _halves(h)
         pos, vel, acc, mass, mat, temp, partner, t_prev = state
@@ -666,6 +674,7 @@ def _slab_split(ax: _Axis, n_cells: int) -> int:
     return n_cols // ax.size
 
 
+@spanned("nbx.collide.pass")
 def _slab_pass(ax: _Axis, n_slab: int, pos_g, vel_g, mass_g, rad_g, box_size, g, band_cells, packed_caps,
                restitution, friction):
     """This rank's slab of the packed pass over the gathered state, reduced
@@ -717,7 +726,8 @@ def make_sharded_binned_collision_pass(
                                   packed_caps, restitution, friction)
         ints = torch.stack([od[:, 7].sum().to(torch.int32), novf])
         dist.all_reduce(ints, group=ax.group)
-        best = partner_record(oj, pos, vel, mass, src=(pos_g, vel_g, mass_g))
+        with span("nbx.shard.partner"):
+            best = partner_record(oj, pos, vel, mass, src=(pos_g, vel_g, mass_g))
         return (od[:, 0:3], od[:, 3:6], od[:, 6], best, ints[0] // 2, ints[1],
                 _cell_too_small(ax, radius, box_size, n_cells))
 
@@ -777,6 +787,7 @@ def make_sharded_granular_step(
             return cic_gather(grid, pos, box_size, pm_grid, periodic=False)
         return _local_acc(pos_g, mass_g, pos, cfg.G, cfg.softening)
 
+    @spanned("nbx.shard.step")
     def step(state: ShardedBodyState, h: float, draws: Optional[Draws] = None):
         h32, half = _halves(h)
         pos, vel, acc, mass, mat, temp, partner, t_prev = state
@@ -796,7 +807,8 @@ def make_sharded_granular_step(
         od, j_idx, n_overflow = _slab_pass(ax, n_slab, pos_g, vel_g, mass_g, rad_g, box_size, n_cells,
                                            band_cells, packed_caps, cfg.restitution, cfg.friction)
         bounces = od[:, 7].sum().to(torch.int32)
-        best = partner_record(j_idx, pos, vel, mass, src=(pos_g, vel_g, mass_g))
+        with span("nbx.shard.partner"):
+            best = partner_record(j_idx, pos, vel, mass, src=(pos_g, vel_g, mass_g))
         has = j_idx >= 0
         q_l, appr_l, m_j = best["q"], best["approaching"], best["m_j"]
 

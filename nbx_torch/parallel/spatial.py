@@ -66,6 +66,7 @@ from nbx_torch.config import SimConfig, body_radius, f32
 from nbx_torch.ops.collide import bucketed_collision_blocks_local, packed_collision_blocks_local
 from nbx_torch.ops.p3m import take_rows
 from nbx_torch.parallel.shard import _mark, mesh_device
+from nbx_torch.profiling import spanned
 from nbx_torch.state import make_generator
 
 FORCE_IMPLS = ("pm", "p3m", "zero")
@@ -294,6 +295,7 @@ def _split(msg: torch.Tensor, nf: int):
     return msg[:, :nf], msg[:, nf:].contiguous().view(torch.int32)
 
 
+@spanned("nbx.spatial.exchange")
 def _exchange(ax: _Axis, rows_f, rows_i, sel_r, sel_l):
     """Send the rows selected by sel_r = (idx, valid) to the +1 neighbour
     and sel_l to the -1 neighbour; returns ((floats, ints) from the -1

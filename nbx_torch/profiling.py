@@ -1,7 +1,10 @@
 """Tracing, timing and observability (port of `nbx/profiling.py`).
 
+  * span() / spanned(): the program's own named ranges (`nbx.step`,
+    `nbx.gravity`, ...), recorded only while a torch profiler runs, on the
+    profiler's clock beside the kernels they launch
   * trace(): a torch.profiler trace of the enclosed block, the card's
-    kernels included where there is one, written as a Chrome trace
+    kernels and the spans included, written as a Chrome trace
   * StepTimer: wall-clock step latency with percentiles
   * MetricsLogger: a JSONL sink for per-step diagnostics
   * nan_guard(): raise at the op that produced a NaN (tests and debugging
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import tempfile
@@ -22,14 +26,46 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd import _profiler_enabled
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+
+_NO_SPAN = contextlib.nullcontext()  # shared: entering it does nothing
+
+
+def span(name: str):
+    """A named range of the program's work: `torch.profiler.record_function(
+    name)` while a torch profiler is recording, so that the range lands in
+    its trace (a `user_annotation` event) on the clock of the kernels it
+    launches; otherwise one shared no-op context, which builds nothing.
+
+    Names are constant strings, `nbx.<layer>` or `nbx.<layer>.<part>`. A
+    span neither synchronises nor reads anything back; with no profiler it
+    costs one flag check, where a record_function would still be built."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside span(name)."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return run
+
+    return wrap
 
 
 @contextlib.contextmanager
 def trace(log_dir: str | None = None):
-    """Profile the enclosed block with torch.profiler (CPU ops, and CUDA
-    kernels when torch sees a card) and write a Chrome trace,
+    """Profile the enclosed block with torch.profiler (CPU ops, the
+    program's spans, and CUDA kernels when torch sees a card) and write a
+    Chrome trace,
     `<log_dir>/trace.json` (log_dir defaults to a directory under the
     temporary directory). Yields log_dir."""
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "nbx_torch-trace")

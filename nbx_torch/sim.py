@@ -29,6 +29,7 @@ from nbx_torch.collisions import (
 )
 from nbx_torch.config import SimConfig
 from nbx_torch.ops.pairwise import pairwise_acc
+from nbx_torch.profiling import span, spanned
 from nbx_torch.state import SimState
 
 # Dense O(N^2)-memory gravity up to this capacity; above it the kernel on a
@@ -48,6 +49,7 @@ def _collision_impl(name: str):
     return COLLISION_IMPLS[name]
 
 
+@spanned("nbx.gravity")
 def gravity(
     pos: torch.Tensor, mass: torch.Tensor, G: float, softening: float, impl: str = "auto"
 ) -> torch.Tensor:
@@ -70,6 +72,7 @@ def gravity(
     raise ValueError(f"unknown force impl {impl!r}")
 
 
+@spanned("nbx.substep")
 def substep(
     state: SimState, cfg: SimConfig, h: float, force_impl: str = "auto",
     draws: Optional[Draws] = None, collision_impl: str = "jacobi",
@@ -88,9 +91,11 @@ def substep(
     state = state.replace(pos=pos, vel=vel, acc=acc)
 
     if cfg.collisions:
-        state, events = resolve(state, cfg, h, draws)
+        with span("nbx.collide"):
+            state, events = resolve(state, cfg, h, draws)
     else:
-        events = empty_events(cfg, state.device)
+        with span("nbx.events"):
+            events = empty_events(cfg, state.device)
 
     # Second half-kick; newborns were created with acc = 0, so they are
     # unkicked, as in the reference.
@@ -116,6 +121,7 @@ def _stack(items: list):
     })
 
 
+@spanned("nbx.step")
 def step(
     state: SimState, cfg: SimConfig, force_impl: str = "auto", collision_impl: str = "jacobi",
 ) -> tuple[SimState, Events]:
