@@ -32,13 +32,16 @@ scatter probe (`bench.microops`):
      N = 4,096, rectangular, ragged and separate shapes (softening 1e-20
      too), one source tile, a shorter last split (N = 20,000), mass-0
      padding, the drift gate's sphere (N = 16,384; two launches bitwise)
-     and the N = 262,144 cold-collapse disk, each with its split grid; times
-     both at N = 262,144 and the kernel at 16,384
+     and the N = 262,144 cold-collapse disk, each with its split grid (where
+     the targets are the sources from pairwise.SYM_MIN_N bodies, K1's
+     symmetric sum); times both at N = 262,144 and the kernel at 16,384
   3. the reference scene at the reference size (capacity 300, full physics,
      300 frames), plus 20 frames held against the same frames on the CPU
-  4. full physics with the kernel: capacity 4,096, 50 frames; one more frame
+  4. full physics with the kernel: capacity 4,096, 50 frames (K1's
+     symmetric sum counted as `symmetric_k1` says); one more frame
      under torch.cuda.set_sync_debug_mode("error")
-  5. gravity only at N = 262,144: 5 frames, momentum conservation
+  5. gravity only at N = 262,144: 5 frames (K1's symmetric sum each), momentum
+     conservation
   6. the collision kernel against its plain PyTorch version on the card: the
      clustered 192-body scene, the same under budgets that overflow, and the
      131,072-body cloud of the live server; times both at 131,072, and each
@@ -678,7 +681,7 @@ def phase_full_physics(dev, capacity: int = 4096, n_disk: int = 3000, frames: in
         st, _ = sim.step(st, cfg)
     torch.cuda.synchronize()
 
-    pairwise_acc.launches = 0  # count the main path's launches from here
+    pairwise_acc.launches = pairwise_acc.symmetric_launches = 0  # count the main path's launches from here
     collide.collide_fused.launches = 0
     t0 = time.perf_counter()
     st, evs = sim.run(st, cfg, frames)
@@ -686,6 +689,9 @@ def phase_full_physics(dev, capacity: int = 4096, n_disk: int = 3000, frames: in
     dt = time.perf_counter() - t0
     check(pairwise_acc.launches == frames * cfg.sub_steps,
           f"kernel launched {pairwise_acc.launches} times in {frames} frames, want {frames * cfg.sub_steps}")
+    want_sym = frames * cfg.sub_steps if pairwise.symmetric_k1(False, False, capacity) else 0
+    check(pairwise_acc.symmetric_launches == want_sym,
+          f"K1's symmetric sum ran {pairwise_acc.symmetric_launches} times at capacity {capacity}, want {want_sym}")
     check(all_finite(st.pos, st.vel, st.acc, st.mass, st.temp, st.contact), "state finite")
     diag = diagnostics.measure(st, cfg)
     check(all_finite(*(getattr(diag, f.name) for f in dataclasses.fields(diag))), "diagnostics finite")
@@ -714,13 +720,14 @@ def phase_headline(dev, n: int = HEADLINE_N, frames: int = 5) -> float:
         return (s.mass.double()[:, None] * s.vel.double()).sum(0)
 
     p0 = momentum(st)
-    before = pairwise_acc.launches
+    before, before_sym = pairwise_acc.launches, pairwise_acc.symmetric_launches
     t0 = time.perf_counter()
     st, _ = sim.run(st, cfg, frames)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n_eval = frames * cfg.sub_steps
     check(pairwise_acc.launches - before == n_eval, f"kernel launched {n_eval} times in {frames} frames")
+    check(pairwise_acc.symmetric_launches - before_sym == n_eval, f"K1's symmetric sum ran {n_eval} times at N={n}")
     check(all_finite(st.pos, st.vel), "positions and velocities finite")
     drift = float((momentum(st) - p0).norm()) / float((st.mass.double() * st.vel.double().norm(dim=1)).sum())
     log(5, f"N={n} gravity only, {frames} frames: {dt / n_eval * 1e3:.3f} ms per force evaluation "

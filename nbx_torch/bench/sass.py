@@ -12,7 +12,12 @@ special functions (MUFU.EX2, MUFU.RCP) beside it. "mxu"'s and "fast"'s loop bodi
 are a warp's 16-source chunks, 8 pairs a lane each, and 2 MMAs (HMMA) a
 chunk, each one instruction a lane for the warp's 256 pairs: 1/4 of an HMMA
 a pair. A loop without MUFU.RSQ (the split sums' combine) is counted once
-(pairs_in_loop 0). Prints one
+(pairs_in_loop 0). K1's symmetric sum (pairwise_f32r_kernel_sym) has two
+pair loops, its diagonal's one-sided loop and the rotation loop that
+evaluates the rest: it is counted by the shortest loop that holds a
+MUFU.RSQ and a SHFL, whose MUFU.RSQ are unordered pairs. K1's rows also give
+instructions_an_unordered_pair (the one-sided kernel's, twice its ordered
+pair's). Prints one
 JSON line per kernel function: its name, the pairs in the loop body, and the
 instructions a pair by opcode (modifiers dropped after the first, as in
 F2FP.BF16).
@@ -48,6 +53,7 @@ from pathlib import Path
 
 from nbx_torch.ops import _build
 
+SYMMETRIC = "pairwise_f32r_kernel_sym"
 DIRECT_SUMS = ("pairwise_f32r", "pairwise_precision", "pairwise_fast", "pairwise_mxu", "pairwise_accjerk",
                "potential")
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -96,10 +102,11 @@ def _loops(code):
     return out
 
 
-def per_pair(code: list[tuple[int, str, str]]) -> tuple[int, dict[str, float]]:
+def per_pair(code: list[tuple[int, str, str]], rotation: bool = False) -> tuple[int, dict[str, float]]:
     """(pairs in the innermost loop body, instructions a pair by opcode): the
-    shortest loop that holds a MUFU.RSQ, else the shortest loop."""
-    loops = _loops(code)
+    shortest loop that holds a MUFU.RSQ (and, for `rotation`, a SHFL), else
+    the shortest loop."""
+    loops = [loop for loop in _loops(code) if not rotation or any(op.startswith("SHFL") for op in loop[2])]
     if not loops:
         return 0, {}
     _, _, body = min(loops, key=lambda loop: (loop[2].get("MUFU.RSQ", 0) == 0, loop[1] - loop[0]))
@@ -142,9 +149,11 @@ def main(kernels=DIRECT_SUMS) -> list[dict]:
                              "instructions_a_pair": a_lane / r, "by_opcode": ops})
                 print(json.dumps(rows[-1]), flush=True)
                 continue
-            pairs, ops = per_pair(code)
+            pairs, ops = per_pair(code, SYMMETRIC in fn)
             rows.append({"source": f"csrc/{name}.cu", "function": fn, "pairs_in_loop": pairs,
                          "instructions_a_pair": sum(ops.values()), "by_opcode": ops})
+            if name == "pairwise_f32r" and pairs:
+                rows[-1]["instructions_an_unordered_pair"] = sum(ops.values()) * (1 if SYMMETRIC in fn else 2)
             print(json.dumps(rows[-1]), flush=True)
     return rows
 

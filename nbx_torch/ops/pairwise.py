@@ -6,7 +6,9 @@ Each wrapper sends a CUDA tensor to its hand-written kernel and a CPU tensor
 to its plain PyTorch version (`*_reference`):
 
 - `pairwise_acc`: precision "f32r" (the default) `nbx_torch/csrc/pairwise_f32r.cu`
-  (K1); "f32", "hyb" and "bf16" `nbx_torch/csrc/pairwise_precision.cu` (K1a,
+  (K1: the symmetric sum where the targets are the sources and N lies in
+  [SYM_MIN_N, SYM_MAX_N], `symmetric_k1`; the one-sided sum otherwise);
+  "f32", "hyb" and "bf16" `nbx_torch/csrc/pairwise_precision.cu` (K1a,
   K1d, K1e), through `pairwise_acc_f32`, `_hyb`, `_bf16`; "fast"
   `nbx_torch/csrc/pairwise_fast.cu` and "mxu" `nbx_torch/csrc/pairwise_mxu.cu`
   (K1b, K1c, their bf16 products on the tensor cores), through
@@ -25,6 +27,7 @@ take float32 only and need softening > 0: none masks the diagonal.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +47,19 @@ TARGETS = 4  # targets a thread of K1, K1a, K1d and K1e (kTargets in their csrc/
 # a block, floats a target of each split's partials.
 SPLIT_KERNELS = {"f32r": (256 * TARGETS, 3), "f32": (256 * TARGETS, 4), "fast": (128, 4), "hyb": (256 * TARGETS, 3),
                  "bf16": (256 * TARGETS, 3), "mxu": (256, 3)}
+# K1's symmetric sum (`pairwise_f32r_kernel_sym`): row tiles of SYM_ROWS
+# bodies (kBlock in csrc/pairwise_f32r.cu), each against its diagonal and a
+# balanced half-ring of column tiles, in units of TILE sources; its runs aim
+# at SYM_GRID blocks (23.09 ms at 262,144, against 23.24 at 8,192 blocks and
+# 25.4 at SPLIT_GRID's 512). It takes every evaluation whose targets are the
+# sources from SYM_MIN_N bodies, the smallest measured size from which it
+# beat the one-sided sum at every size (PERF.md, the kernel table's K1 row),
+# to SYM_MAX_N, where its column slots (N^2 / (2 SYM_ROWS) x 12 bytes) reach
+# 6.4 GB, 8% of an H100.
+SYM_ROWS = 1024
+SYM_GRID = 16384
+SYM_MIN_N = 9216
+SYM_MAX_N = 1 << 20
 # K6 (`pairwise_acc_jerk`) splits its sources too: 256 threads of
 # ACCJERK_TARGETS targets (kTargets in csrc/pairwise_accjerk.cu; 4 ran slower
 # at the Hermite path's 16,384), six floats a target of each split's
@@ -82,6 +98,79 @@ def source_splits(nt: int, ns: int, rows: int, tile: int = TILE, grid: int = SPL
     tiles = max(1, -(-ns // tile))
     want = min(tiles, -(-grid // max(1, -(-nt // rows))))
     return -(-tiles // (tiles // want))
+
+
+def symmetric_k1(targets_given: bool, targets_are_sources: bool, n: int) -> bool:
+    """True where K1 takes its symmetric sum: the targets are the sources
+    (none given, or `pos` itself) and SYM_MIN_N <= n <= SYM_MAX_N. False:
+    the one-sided sum."""
+    return (not targets_given or targets_are_sources) and SYM_MIN_N <= n <= SYM_MAX_N
+
+
+class SymmetricPlan(NamedTuple):
+    """The work of K1's symmetric sum over n bodies: `tiles` row tiles of
+    `rows` bodies, `half` = tiles // 2 (the most column tiles a row tile
+    takes), `units` source tiles of `tile` a row tile, each row tile's
+    units spread over `runs` runs (one block each), and its scratch in
+    floats: row partials [runs, n, 3] and column slots [tiles half, rows,
+    3]."""
+
+    n: int
+    rows: int
+    tile: int
+    tiles: int
+    half: int
+    runs: int
+
+    @property
+    def units(self) -> int:
+        return self.rows // self.tile
+
+    @property
+    def row_floats(self) -> int:
+        return self.runs * self.n * 3
+
+    @property
+    def col_floats(self) -> int:
+        return self.tiles * self.half * self.rows * 3
+
+    def ring(self, a: int) -> int:
+        """h(a): the column tiles (a + d) mod tiles, d = 1 ... h(a), that row
+        tile a takes beside its diagonal."""
+        return self.half - 1 if self.tiles % 2 == 0 and a >= self.half else self.half
+
+    def block_units(self, a: int, r: int) -> list[tuple[int, int, int]]:
+        """Block (a, r)'s units in order, (d, c, j0): tile offset d (0 the
+        diagonal, one-sided), column tile c, first source j0, for units
+        [r U / runs, (r + 1) U / runs) of row tile a's U; units past the last
+        body left out, as the kernel skips them."""
+        units = self.units * (1 + self.ring(a))
+        out = []
+        for u in range(r * units // self.runs, (r + 1) * units // self.runs):
+            d = u // self.units
+            c = (a + d) % self.tiles
+            j0 = c * self.rows + (u % self.units) * self.tile
+            if j0 < self.n:
+                out.append((d, c, j0))
+        return out
+
+    def slot(self, a: int, d: int) -> int:
+        """The column slot of row tile a's reactions on tile (a + d) mod
+        tiles, d >= 1."""
+        return a * self.half + d - 1
+
+    def writers(self, c: int) -> list[tuple[int, int]]:
+        """(a, d) of the row tiles whose reactions reach tile c, in the order
+        the combine subtracts them: d = 1, 2, ..."""
+        return [(a, d) for d in range(1, self.half + 1) if d <= self.ring(a := (c - d) % self.tiles)]
+
+
+def symmetric_plan(n: int, rows: int = SYM_ROWS, tile: int = TILE, grid: int = SYM_GRID) -> SymmetricPlan:
+    """K1's symmetric sum over n >= 1 bodies: the fewest runs that put `grid`
+    blocks in the grid, at most one a unit of the busiest row tile."""
+    tiles = -(-n // rows)
+    half = tiles // 2
+    return SymmetricPlan(n, rows, tile, tiles, half, min(rows // tile * (1 + half), -(-grid // tiles)))
 
 
 def _f32r_rows(pos, mass, eps2, tile, splits=1):
@@ -506,18 +595,55 @@ def pairwise_acc(
     formulation, as in `nbx`: "f32r" (K1, direct float32 row sums, the most
     accurate), or the study variants "f32", "fast", "hyb", "bf16" and "mxu",
     each its own kernel (`pairwise_acc_f32` ...). Any other value raises
-    ValueError."""
+    ValueError.
+
+    On the card "f32r" evaluates each unordered pair once for both bodies
+    where the targets are the sources and SYM_MIN_N <= N <= SYM_MAX_N
+    (`symmetric_k1`), and every ordered pair otherwise. `.launches` counts every K1
+    evaluation, `.symmetric_launches` those of the symmetric sum."""
     if check_precision(precision) != "f32r":
         return _VARIANTS[precision](pos, mass, G, softening, target_pos)
+    symmetric = symmetric_k1(target_pos is not None, target_pos is pos, pos.shape[0])
     if target_pos is None:
         target_pos = pos
     if not _on_card("pairwise_acc", pos, softening):
         return pairwise_acc_reference(pos, mass, G, softening, target_pos)
+    if symmetric:
+        acc = pairwise_acc_symmetric(pos, mass, G, softening)
+        pairwise_acc.launches += 1
+        return acc
     return _direct_sum(pairwise_acc, "nbx_pairwise_f32r", pos, mass, G, softening, target_pos, "pairwise_f32r",
                        tuple, SPLIT_KERNELS["f32r"])
 
 
 pairwise_acc.launches = 0
+pairwise_acc.symmetric_launches = 0
+
+
+def pairwise_acc_symmetric(pos: torch.Tensor, mass: torch.Tensor, G: float, softening: float) -> torch.Tensor:
+    """K1's symmetric sum on CUDA tensors, the targets being the sources,
+    whatever N: each unordered pair evaluated once and added to both bodies
+    (`nbx_pairwise_f32r_sym`), a block's own rows one-sided; row partials
+    and column slots from `symmetric_plan`, added by `combine_splits_sym`.
+    Counted on `pairwise_acc.symmetric_launches`; `pairwise_acc` counts the
+    evaluation."""
+    n = pos.shape[0]
+    _check("pos", pos, (n, 3), pos.device)
+    _check("mass", mass, (n,), pos.device)
+    if pos.device.type != "cuda" or not softening > 0:
+        raise ValueError("pairwise_acc_symmetric runs on CUDA tensors with softening > 0")
+    acc = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
+    if n == 0:
+        return acc
+    plan = symmetric_plan(n)
+    src = torch.cat([pos, mass[:, None]], dim=1)  # [N, 4] float4 (x, y, z, m)
+    rows = torch.empty(plan.row_floats, dtype=torch.float32, device=pos.device)
+    cols = torch.empty(plan.col_floats, dtype=torch.float32, device=pos.device)
+    _launch("pairwise_f32r", [_P] * 4 + [_I, _F, _F, _I, _P], pos.device, src.data_ptr(), rows.data_ptr(),
+            cols.data_ptr(), acc.data_ptr(), n, float(G), eps2_of(softening), plan.runs,
+            entry="nbx_pairwise_f32r_sym")
+    pairwise_acc.symmetric_launches += 1
+    return acc
 
 
 # Each study precision's kernel: its source csrc/<source>.cu, and whether

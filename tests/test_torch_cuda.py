@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each held against its plain PyTorch
-version (the collision kernel in every layout, at several windows a block
+version (K1 one-sided and symmetric, the symmetric against the one-sided
+too; the collision kernel in every layout, at several windows a block
 bitwise against one, and with the fused gravity K7 bitwise K2's collision
 outputs), the frame step, the at-scale granular step (bucketed, and with the
 default full columns) and the spatial step at world size 1 on the card
@@ -90,6 +91,57 @@ def test_kernel_mass_zero_padding_is_inert(dev):
     got = pairwise.pairwise_acc(pos, padded, 0.5, 0.5)[:1500]
     want = pairwise.pairwise_acc_reference(pos[:1500], mass[:1500], 0.5, 0.5)
     assert _rel_err(got, want) < TOL
+
+
+# K1's symmetric sum, the targets being the sources: three row tiles (the last
+# ragged at 3,001), four, 16, and 20 at SHORT_LAST_SPLIT_N
+@pytest.mark.parametrize("n", [2304, 3001, 4096, 16384, SHORT_LAST_SPLIT_N])
+def test_symmetric_kernel_matches_plain_and_one_sided(dev, n):
+    pos, mass = _rand(n, n, dev)
+    before = pairwise.pairwise_acc.symmetric_launches
+    got = pairwise.pairwise_acc_symmetric(pos, mass, 0.5, 0.5)
+    assert pairwise.pairwise_acc.symmetric_launches == before + 1
+    assert _rel_err(got, pairwise.pairwise_acc_reference(pos, mass, 0.5, 0.5)) < TOL
+    assert _rel_err(got, pairwise.pairwise_acc(pos, mass, 0.5, 0.5, pos.clone())) < TOL  # the one-sided kernel
+    assert torch.equal(got, pairwise.pairwise_acc_symmetric(pos, mass, 0.5, 0.5))
+
+
+def test_symmetric_kernel_on_the_cold_collapse_disk(dev):
+    """N = 262,144, the first 4,096 bodies against a float64 sum."""
+    sc = scene.cold_collapse_disk(n=262_144, seed=0)
+    pos = torch.tensor(sc["pos"], device=dev)
+    mass = torch.tensor(sc["mass"], device=dev)
+    before = pairwise.pairwise_acc.symmetric_launches
+    got = pairwise.pairwise_acc(pos, mass, 0.5, 0.5)[:4096]
+    assert pairwise.pairwise_acc.symmetric_launches == before + 1
+    want = pairwise.pairwise_acc_reference(pos.double(), mass.double(), 0.5, 0.5, pos[:4096].double())
+    assert _rel_err(got.double(), want) < TOL
+
+
+def test_symmetric_kernel_mass_zero_bodies_are_inert(dev):
+    pos, mass = _rand(6000, 7, dev)
+    padded = mass.clone()
+    padded[3000:] = 0.0
+    got = pairwise.pairwise_acc_symmetric(pos, padded, 0.5, 0.5)
+    want = pairwise.pairwise_acc_reference(pos, padded, 0.5, 0.5)
+    assert _rel_err(got[:3000], pairwise.pairwise_acc_reference(pos[:3000], mass[:3000], 0.5, 0.5)) < TOL
+    assert _rel_err(got, want) < TOL  # the massless bodies are pulled all the same
+
+
+def test_symmetric_launches_count_the_symmetric_path(dev):
+    """`pairwise_acc` takes the symmetric sum where the targets are the
+    sources (none given, or `pos` itself) from SYM_MIN_N bodies, and the
+    one-sided kernel for other targets (the shard step's local bodies) and
+    below SYM_MIN_N; `.launches` counts both."""
+    n = pairwise.SYM_MIN_N
+    pos, mass = _rand(n, 11, dev)
+    calls = [((pos, mass), {}, 1), ((pos, mass), {"target_pos": pos}, 1),
+             ((pos, mass), {"target_pos": pos[: n // 4]}, 0), ((pos[:-1], mass[:-1]), {}, 0)]
+    for args, kw, symmetric in calls:
+        launches, sym = pairwise.pairwise_acc.launches, pairwise.pairwise_acc.symmetric_launches
+        pairwise.pairwise_acc(*args, 0.5, 0.5, **kw)
+        assert pairwise.pairwise_acc.launches == launches + 1
+        assert pairwise.pairwise_acc.symmetric_launches == sym + symmetric
 
 
 def test_kernel_wrapper_rejects_bad_inputs(dev):
